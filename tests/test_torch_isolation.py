@@ -1,0 +1,141 @@
+"""The PyTorch port stands alone: it imports no JAX and nothing of the JAX
+package, neither does ``chip_smoke.py``, and its entry points demand the GPU
+unless the caller asks for the CPU."""
+import ast
+import json
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.common.device import resolve_device  # noqa: E402
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG_DIR = os.path.join(ROOT, "src", "repro_torch")
+
+_CHILD = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root in ("jax", "jaxlib", "repro")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    rep = json.loads(out.strip().splitlines()[-1])
+    assert "repro_torch.launch.serve_forecast" in rep["modules"]
+    assert "repro_torch.kernels.flash_attention.ops" in rep["modules"]
+    assert rep["bad"] == []
+
+
+def test_sources_name_no_jax_import():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG_DIR):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        bad = [m for m in _imports(path) if _forbidden(m)]
+        assert bad == [], (path, bad)
+
+
+def test_package_walk_finds_every_source_file():
+    found = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    for dirpath, _, names in os.walk(PKG_DIR):
+        rel = os.path.relpath(dirpath, os.path.dirname(PKG_DIR))
+        for n in names:
+            if n.endswith(".py") and n != "__init__.py":
+                assert ".".join(rel.split(os.sep) + [n[:-3]]) in found
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            resolve_device("cuda:0")
+
+
+def test_entry_points_demand_the_gpu_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.core import forecast
+    from repro_torch.core.forecaster import (get_forecaster, load_forecaster,
+                                             params_from_numpy, save_forecaster)
+    from repro_torch.core.tasks import get_task, write_routing_manifest
+    from repro_torch.launch.serve_forecast import ForecastServer, main
+
+    fc = get_forecaster("logtst", look_back=16, horizon=2, d_model=8,
+                        num_heads=2, d_ff=8, patch_len=8, stride=4)
+    gen = torch.Generator().manual_seed(0)
+    params = fc.init_params(gen, device="cpu")
+    ckpt = str(tmp_path / "psgf_c0")
+    save_forecaster(ckpt, fc, params)
+    write_routing_manifest(str(tmp_path), get_task("ev"), fc, np.zeros(3),
+                           [{"policy": "psgf", "cluster": 0}])
+    calls = [
+        lambda: fc.init_params(gen),
+        lambda: forecast.init_params(fc.cfg, gen),
+        lambda: load_forecaster(ckpt),
+        lambda: params_from_numpy({"w": np.ones(2, np.float32)}),
+        lambda: ForecastServer(fc, params),
+        lambda: ForecastServer.from_checkpoint(ckpt),
+        lambda: ForecastServer.from_manifest(str(tmp_path)),
+        lambda: main(["--manifest", str(tmp_path), "--requests", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
+    # with device="cpu" the same entry point runs
+    assert ForecastServer(fc, params, device="cpu").predict(
+        np.zeros((1, 1, 16), np.float32)).shape == (1, 1, 2)
+
+
+def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):
+    """No card: exit != 0 and no result line, both from the checkout and
+    from a directory that holds the script alone."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the script would run for real")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    for script in (os.path.join(ROOT, "chip_smoke.py"), str(alone)):
+        proc = subprocess.run([sys.executable, script],
+                              cwd=os.path.dirname(script), capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
