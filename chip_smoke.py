@@ -10,20 +10,30 @@ Phases, each of which raises (exit code != 0) on failure:
   2. build: compile every CUDA kernel of the port from ``src/repro_torch/csrc``
      (one ``nvcc`` per source, all at once) and print the build time and the
      compiler's register/spill report;
-  3. kernels: call each kernel's wrapper on the card at the serving path's
-     shape and at the reference test classes, hold it against its plain
-     PyTorch version, check one backward, and time the kernel, the plain
-     version and the closest single PyTorch call;
-  4. serving: the port's main path at full width — two LoGTST cluster models
-     (look_back 128, d_model 128, 16 heads, flash attention on, random
-     weights from a seeded generator) saved as checkpoints with a routing
-     manifest over the 58 stations of the ``ev`` task, restored by
+  3. kernels: call each kernel's wrapper on the card at the shapes the main
+     paths give it and at the reference test classes, hold it against its
+     plain PyTorch version (flash attention within its tolerance, one
+     backward; psgf_mix bitwise at K = 21 / 27 / 10 clients of D = 273,284,
+     a ragged D, a non-binary mask and the K = 1 case), and time the kernel,
+     the plain version and the closest PyTorch call;
+  4. serving: the port's serving path at full width — two LoGTST cluster
+     models (look_back 128, d_model 128, 16 heads, flash attention on,
+     random weights from a seeded generator) saved as checkpoints with a
+     routing manifest over the 58 stations of the ``ev`` task, restored by
      ``ForecastServer.from_manifest`` on the card and driven through the
      micro-batching queue; then a served bucket against the CPU forward,
-     ``stream_evaluate``, and a generation hot-swap.
+     ``stream_evaluate``, and a generation hot-swap;
+  5. training: the paper's pipeline (``examples/federated_ev.py``) through
+     the port — ``run_experiment`` on the full ``ev`` task, DTW clustering
+     into 3 clusters (21 / 27 / 10 stations), PSGF-Fed per cluster at full
+     width with the fused psgf_mix downlink and flash attention on the card,
+     a few rounds, checkpoints and the routing manifest; then the manifest
+     served by ``ForecastServer.from_manifest``, one round of the 10-station
+     cluster on the card against the same round on the CPU (selection, gates
+     and comm counters bitwise), and a ``torch.profiler`` split of a round.
 
-Then it prints one ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``, the
+Then it prints ``{"training": ...}``, one ``{"kernels": [...]}`` line, and
+last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``, the
 standard library and ``repro_torch`` (from ``src/`` beside this file) only.
 """
 from __future__ import annotations
@@ -360,6 +370,333 @@ def drive_serving(ops) -> dict:
     }
 
 
+# psgf_mix: the fused downlink at the main path's shapes. The mix is bitwise
+# the plain version for any float mask (the kernel rounds each step as the
+# plain torch ops do); the count is bitwise for 0/1 and quarter masks (exact
+# float32 sums) and within float32 rounding of a sum in another order for
+# arbitrary floats.
+MIX_COUNT_RTOL = 1e-6
+MIX_D = 273_284
+MIX_K = (21, 27, 10)
+
+
+def mix_inputs(gen, K, D, kind):
+    g = torch.randn(D, generator=gen).to("cuda")
+    w = torch.randn(K, D, generator=gen).to("cuda")
+    u = torch.rand(K, D, generator=gen)
+    m = {"binary": (u < 0.3).float(), "uniform": u,
+         "quarters": torch.floor(u * 5) / 4}[kind].to("cuda")
+    return g, w, m
+
+
+def mix_bound_ms(K, D):
+    """Least time: w and m read, the output written (K*D floats each), g
+    read once, at the HBM rate; 2 flops per element at the fp32 rate."""
+    nbytes = (3 * K * D + D) * 4
+    return max(nbytes / HBM_BYTES_PER_S, 3 * K * D / FP32_FLOP_PER_S) * 1e3, nbytes
+
+
+def check_psgf_mix(mix_ops, mix_ref) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 1)
+    cases = [(K, MIX_D, "binary") for K in MIX_K] + [
+        (3, 1_001, "binary"), (5, 8_192, "uniform"), (4, 10_000, "quarters"),
+        (2, MIX_D, "uniform")]
+    errs = {}
+    for K, D, kind in cases:
+        g, w, m = mix_inputs(gen, K, D, kind)
+        before = mix_ops.LAUNCHES
+        mixed, count = mix_ops.psgf_mix_batch(g, w, m)
+        torch.cuda.synchronize()
+        if mix_ops.LAUNCHES != before + 1:
+            raise RuntimeError(f"psgf_mix K={K} D={D}: no kernel launch")
+        want, want_count = mix_ref.psgf_mix_batch_ref(g, w, m)
+        name = f"K{K}_D{D}_{kind}"
+        if not torch.equal(mixed, want):
+            raise RuntimeError(f"psgf_mix {name}: mix not bitwise equal, max "
+                               f"|err| {float((mixed - want).abs().max())}")
+        cerr = abs(float(count) - float(want_count))
+        if kind == "uniform":
+            if not cerr <= MIX_COUNT_RTOL * float(want_count):
+                raise RuntimeError(f"psgf_mix {name}: count err {cerr}")
+        elif cerr != 0.0:
+            raise RuntimeError(f"psgf_mix {name}: count {float(count)} != "
+                               f"{float(want_count)}")
+        errs[name] = {"mix_max_abs_err": float((mixed - want).abs().max()),
+                      "count_abs_err": cerr}
+    # the single-vector form (the TPU's psgf_mix_kernel), K = 1
+    g, w, m = mix_inputs(gen, 1, MIX_D, "uniform")
+    got = mix_ops.psgf_mix(g, w[0], m[0])
+    want = mix_ref.psgf_mix_ref(g, w[0], m[0])
+    if not torch.equal(got[0], want[0]):
+        raise RuntimeError("psgf_mix K=1: mix not bitwise equal")
+    errs["K1_psgf_mix"] = {"mix_max_abs_err": 0.0,
+                           "count_abs_err": abs(float(got[1]) - float(want[1]))}
+    log(json.dumps({"kernel_cases": {"psgf_mix": errs}}))
+
+    def lib(w_, g_, m_):     # the closest PyTorch calls: a lerp and a sum
+        return torch.lerp(w_, g_.expand_as(w_), m_), m_.sum(dtype=torch.float32)
+
+    per_k = {}
+    for K in MIX_K + (1,):
+        g, w, m = mix_inputs(gen, K, MIX_D, "binary")
+        if K == 1:
+            g1, w1, m1 = g, w[0], m[0]
+            kernel = lambda: mix_ops.psgf_mix(g1, w1, m1)        # noqa: E731
+            plain = lambda: mix_ref.psgf_mix_ref(g1, w1, m1)     # noqa: E731
+        else:
+            kernel = lambda: mix_ops.psgf_mix_batch(g, w, m)     # noqa: E731
+            plain = lambda: mix_ref.psgf_mix_batch_ref(g, w, m)  # noqa: E731
+        plain_ms = timed_ms(plain)
+        kernel_ms = timed_ms(kernel)
+        library_ms = timed_ms(lambda: lib(w, g, m))
+        kernel_ms2 = timed_ms(kernel)
+        plain_ms2 = timed_ms(plain)
+        bound, nbytes = mix_bound_ms(K, MIX_D)
+        per_k[K] = {"ms": statistics.median([kernel_ms, kernel_ms2]),
+                    "ms_runs": [kernel_ms, kernel_ms2],
+                    "plain_ms": statistics.median([plain_ms, plain_ms2]),
+                    "plain_ms_runs": [plain_ms, plain_ms2],
+                    "library_ms": library_ms, "bound_ms": bound,
+                    "bytes": nbytes}
+    main_k = max(MIX_K)
+    rec = {
+        "name": "psgf_mix_batch",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/psgf_mix.cu",
+        "replaces": "src/repro/kernels/psgf_mix/kernel.py:76",
+        "tpu_kernel": "src/repro/kernels/psgf_mix/kernel.py::psgf_mix_batch_kernel",
+        "shape": [main_k, MIX_D],
+        "max_abs_err": max(e["mix_max_abs_err"] for e in errs.values()),
+        "ms": per_k[main_k]["ms"],
+        "kernel_ms": per_k[main_k]["ms"],
+        "plain_ms": per_k[main_k]["plain_ms"],
+        "bound_ms": per_k[main_k]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": per_k[main_k]["library_ms"],
+        "library_call": "torch.lerp(w, g.expand_as(w), m) + m.sum(dtype=float32)",
+        "bytes": per_k[main_k]["bytes"],
+        "per_clients": {str(k): v for k, v in per_k.items() if k != 1},
+        "k1_psgf_mix": dict(per_k[1], replaces=
+                            "src/repro/kernels/psgf_mix/kernel.py:39",
+                            launches_on_main_path=0),
+    }
+    return rec
+
+
+def _bk_free(meta):
+    """Flat-vector mask without the attention key bias: its gradient is zero
+    analytically (softmax is shift-invariant), so Adam turns float noise
+    there into +-lr steps of random sign on either device."""
+    keep = torch.ones(meta.total, dtype=torch.bool)
+    off = 0
+    for path, size in zip(meta.paths, meta.sizes):
+        keep[off:off + size] = not path.endswith("attn/bk")
+        off += size
+    return keep
+
+
+def card_vs_cpu_round(E, R, task, series, labels, model, spec_grid, seed):
+    """One round of the smallest cluster from the same state and key on the
+    card and on the CPU: selection, gates, the mixed matrix and the comm
+    counters bitwise; the new global model within ROUND_TOL."""
+    c = int(np.argmin(np.bincount(labels)))
+    idx = np.nonzero(labels == c)[0]
+    tr, _, _, _ = task.client_data(series, idx)
+    policy_name, overrides = spec_grid[0]
+    fl = E.FLConfig(policy=policy_name, num_clients=tr.shape[0],
+                    select_ratio=0.5, local_steps=4, batch_size=32, **overrides)
+    key = R.PRNGKey(seed + c)
+    state_cpu, meta = E.init_fl_state(model.cfg, fl, R.split(key)[1],
+                                      device="cpu")
+    policy = E.pol.from_config(fl)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = {k: v.to(dev) for k, v in state_cpu.items()}
+        rk = key.to(dev)
+        down = E._round_down(state, rk, fl, meta, policy)
+        new_state, metrics = E.fl_round(state, tr, rk, model.cfg, fl, meta,
+                                        device=dev)
+        out[dev] = (down, new_state, metrics)
+    (dc, sc, mc), (dg, sg, mg) = out["cpu"], out["cuda"]
+    same = {
+        "selected": torch.equal(dc["selected"], dg["selected"].cpu()),
+        "gates": torch.equal(dc["gates"], dg["gates"].cpu()),
+        "w_mixed": torch.equal(dc["w_mixed"], dg["w_mixed"].cpu()),
+        "comm_down": torch.equal(sc["comm_down"], sg["comm_down"].cpu()),
+        "comm_up": torch.equal(sc["comm_up"], sg["comm_up"].cpu()),
+        "adam_t": torch.equal(sc["adam_t"], sg["adam_t"].cpu()),
+        "num_selected": float(mc["num_selected"]) == float(mg["num_selected"]),
+    }
+    if not all(same.values()):
+        raise RuntimeError(f"card round != CPU round: {same}")
+    keep = _bk_free(meta)
+    err = float((sg["w_global"].cpu() - sc["w_global"])[keep].abs().max())
+    if not err <= ROUND_TOL:
+        raise RuntimeError(f"card vs CPU w_global max |err| {err} > {ROUND_TOL}")
+    return {"cluster": c, "clients": int(tr.shape[0]), "bitwise": same,
+            "comm_down": float(sc["comm_down"]), "comm_up": float(sc["comm_up"]),
+            "w_global_max_abs_err": err,
+            "train_loss_cpu": float(mc["train_loss"]),
+            "train_loss_card": float(mg["train_loss"])}
+
+
+# one round on the card vs on the CPU, same state and key: cuBLAS and the CPU
+# sum the forward's and backward's matmuls in other orders (ulps per op);
+# Adam's first steps move each weight by about lr * sign(g), so an element
+# whose gradient is near zero can move differently by up to lr * steps. The
+# global model is a mean over 5 selected clients of weights ~O(0.1-1): 1e-4
+# absolute is ~100x the ulp-level differences seen on the CPU between two
+# float orders (FL_PARITY_TOL's 1.5e-6), well below a wrong gate (~1e-3).
+ROUND_TOL = 1e-4
+
+
+def profile_round(E, state, data, key, cfg, fl, meta) -> dict:
+    """``torch.profiler`` over one round: device busy time, device time per
+    engine stage (each kernel assigned to the ``record_function`` range
+    whose span on the device holds its start: this counts the kernels the
+    port launches through ``ctypes`` too) and the device idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    policy = E.pol.from_config(fl)
+    E._round(state, data, key, cfg, fl, meta, policy)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        E._round(state, data, key, cfg, fl, meta, policy)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and e.name.startswith("fl.")]
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("fl.")]
+    stages = {name: {"device_ms": 0.0, "kernels": 0} for name, _, _ in spans}
+    stages["other"] = {"device_ms": 0.0, "kernels": 0}
+    for e in kernels:
+        name = next((n for n, a, b in spans if a <= e.time_range.start < b),
+                    "other")
+        stages[name]["device_ms"] += e.time_range.elapsed_us() / 1e3
+        stages[name]["kernels"] += 1
+    for ev in prof.key_averages():
+        if ev.key in stages and ev.device_type == DeviceType.CPU:
+            stages[ev.key]["cpu_ms"] = ev.cpu_time_total / 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "device_idle_share": (max(0.0, 1 - busy_ms / wall_ms)
+                                  if busy_ms else None),
+            "device_ops": len(kernels), "stages": stages}
+
+
+TRAIN_ROUNDS = 4
+TRAIN_EVAL_EVERY = 2
+
+
+def drive_training(mix_ops, flash_ops) -> dict:
+    """The paper's pipeline at full width on the card (phase 5)."""
+    from repro_torch import random as R
+    from repro_torch.core import forecast as F
+    from repro_torch.core.fl import engine as E
+    from repro_torch.core.forecaster import load_forecaster
+    from repro_torch.core.tasks import (ExperimentSpec, get_task,
+                                        read_routing_manifest, run_experiment,
+                                        task_forecaster)
+    from repro_torch.launch.serve_forecast import ForecastServer, serve_requests
+
+    root = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    task = get_task("ev", quick=False, clusters=3, num_days=420,
+                    min_cluster_clients=4)
+    model = task_forecaster(task, "logtst", quick=False, use_flash_attn=True)
+    if model.num_params() != 273_284:
+        raise RuntimeError(f"LoGTST full width has {model.num_params()} params")
+    grid = (("psgf", {"share_ratio": 0.3, "forward_ratio": 0.2,
+                      "use_pallas_mix": True}),)
+    spec = ExperimentSpec(task=task, model=model, grid=grid, select_ratio=0.5,
+                          local_steps=4, batch_size=32,
+                          max_rounds=TRAIN_ROUNDS, patience=10,
+                          eval_every=TRAIN_EVAL_EVERY, driver="scan")
+    series = task.series()
+    t0 = time.perf_counter()
+    labels = task.cluster_labels(series, device="cuda")
+    cluster_s = time.perf_counter() - t0
+    sizes = np.bincount(labels).tolist()
+    if sizes != [21, 27, 10]:
+        raise RuntimeError(f"DTW cluster sizes {sizes}, expected [21, 27, 10]")
+
+    torch.cuda.synchronize()
+    mix_ops.LAUNCHES = 0                   # every kernel count, just before
+    flash_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_experiment(spec, checkpoint_dir=root, series=series,
+                         labels=labels, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"psgf_mix_batch": mix_ops.LAUNCHES,
+                "flash_attention": flash_ops.LAUNCHES}  # ... and just after
+    rounds = sum(r["rounds"] for r in res["rows"])
+    if rounds != TRAIN_ROUNDS * 3 or launches["psgf_mix_batch"] != rounds:
+        raise RuntimeError(f"{launches['psgf_mix_batch']} psgf_mix launches "
+                           f"for {rounds} rounds of 3 clusters")
+    if launches["flash_attention"] == 0:
+        raise RuntimeError("training launched no flash-attention kernel")
+    for r in res["rows"]:
+        if not (math.isfinite(r["rmse"]) and r["comm_params"] > 0):
+            raise RuntimeError(f"row {r}")
+
+    # the trained manifest, served on the card, against the CPU forward
+    _, manifest = read_routing_manifest(root)
+    if manifest["station_cluster"] != labels.tolist():
+        raise RuntimeError("manifest routes stations to other clusters")
+    server = ForecastServer.from_manifest(root, device="cuda", max_batch=32)
+    server.warmup(channels=3)
+    rep = serve_requests(server, 64, 3, stations=server.routable_stations())
+    x = np.random.default_rng(SEED).standard_normal(
+        (32, 3, task.look_back)).astype(np.float32)
+    serve_err = 0.0
+    for c in range(3):
+        got = server.predict(x, cluster=c)
+        sub = manifest["policies"]["psgf-s30-f20"][str(c)]
+        fc_cpu, p_cpu, _ = load_forecaster(os.path.join(root, sub), device="cpu")
+        with torch.inference_mode():
+            want = F.forward_multivariate(fc_cpu.cfg, p_cpu,
+                                          torch.from_numpy(x)).numpy()
+        if got.shape != (32, 3, task.horizon) or not np.isfinite(got).all():
+            raise RuntimeError(f"served bucket c{c}: shape {got.shape}")
+        serve_err = max(serve_err, float(np.max(np.abs(got - want))))
+        if not np.allclose(got, want, atol=SERVE_TOL, rtol=SERVE_TOL):
+            raise RuntimeError(f"trained c{c} served vs CPU: {serve_err}")
+    server.close()
+
+    # card against the port's own CPU run, smallest cluster
+    t0 = time.perf_counter()
+    versus = card_vs_cpu_round(E, R, task, series, labels, model, grid,
+                               spec.seed)
+    versus["seconds"] = time.perf_counter() - t0
+
+    # one profiled round of the largest cluster
+    c = int(np.argmax(np.bincount(labels)))
+    tr, _, _, _ = task.client_data(series, np.nonzero(labels == c)[0])
+    fl = spec.fl_config("psgf", tr.shape[0], grid[0][1])
+    state, meta = E.init_fl_state(model.cfg, fl, R.PRNGKey(0), device="cuda")
+    prof = profile_round(E, state, torch.from_numpy(tr).cuda(),
+                         R.PRNGKey(1, device="cuda"), model.cfg, fl, meta)
+    per_round = [r["train_s"] / r["rounds"] for r in res["rows"]]
+    return {
+        "task": "ev full (58 stations, 420 days)",
+        "model": model.name, "params": model.num_params(),
+        "cluster_sizes": sizes, "cluster_s": cluster_s,
+        "rounds_per_cluster": TRAIN_ROUNDS, "eval_every": TRAIN_EVAL_EVERY,
+        "rows": res["rows"], "train_s": train_s,
+        "s_per_round_by_cluster": per_round,
+        "launches": launches,
+        "served_requests": rep["requests"],
+        "served_max_abs_err_vs_cpu": serve_err,
+        "card_vs_cpu_round": versus,
+        "profile_round_c%d" % c: prof,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -374,6 +711,8 @@ def main() -> int:
     from repro_torch.core.forecast import FLASH_ATTN_TOL
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.psgf_mix import ops as mix_ops
+    from repro_torch.kernels.psgf_mix import ref as mix_ref
 
     # 1. card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -394,12 +733,19 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     record = check_flash_attention(ops, ref, FLASH_ATTN_TOL)
+    mix_record = check_psgf_mix(mix_ops, mix_ref)
 
-    # 4. the main path
+    # 4. the serving path
     serving = drive_serving(ops)
     record["launches"] = serving["flash_attention_launches"]
     log(json.dumps({"serving": serving}))
-    log(json.dumps({"kernels": [record]}))
+
+    # 5. the training path
+    training = drive_training(mix_ops, ops)
+    mix_record["launches"] = training["launches"]["psgf_mix_batch"]
+    record["launches_training"] = training["launches"]["flash_attention"]
+    log(json.dumps({"training": training}))
+    log(json.dumps({"kernels": [record, mix_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

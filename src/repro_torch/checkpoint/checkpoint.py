@@ -24,6 +24,7 @@ import tempfile
 import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch.common import pytree_utils as pt
 
 _BF16_RECORD = np.dtype("V2")
@@ -97,43 +98,51 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None) -
     return step_dir
 
 
+def int8_roundtrip(f: torch.Tensor, noise=None, batch_dims: int = 0):
+    """int8 wire round-trip of float32 ``f`` with one symmetric absmax scale
+    (``max|f| / 127``) per leading ``batch_dims`` index: round half to even
+    (``noise=None``) or stochastic ``floor(f / scale + noise)`` with
+    ``noise`` uniform on [0, 1); clip to [-127, 127]; dequantize as
+    ``int8 * scale``. An all-zero slice keeps scale 1 and payload 0."""
+    flat = f.reshape(f.shape[:batch_dims] + (-1,))
+    scale = (flat.abs().amax(dim=-1) / 127.0).reshape(
+        f.shape[:batch_dims] + (1,) * (f.dim() - batch_dims))
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q_f = torch.round(f / safe) if noise is None else torch.floor(f / safe + noise)
+    ints = torch.clamp(q_f, -127, 127).to(torch.int8)
+    return ints.to(torch.float32) * safe
+
+
 def quantize_tree(tree, bits: int = 32, *, where: str = "quantize_tree",
                   key=None):
-    """Wire-format payload quantization (``FLConfig.comm_bits`` on the
-    inference side): ``bits=16`` round-trips every float leaf through
-    bfloat16, ``bits=8`` through int8 with a per-leaf fp32 scale (symmetric
-    absmax ``scale = max|leaf| / 127``, round half to even, clip to
-    [-127, 127], dequantize as ``int8 * scale``), ``bits=32`` is the
-    identity. Integer and bool leaves pass through. Bitwise equal to the
-    reference's ``quantize_tree(..., key=None)``: both round half to even in
-    fp32.
+    """Wire-format payload quantization (``FLConfig.comm_bits``):
+    ``bits=16`` round-trips every float leaf through bfloat16, ``bits=8``
+    through int8 with a per-leaf fp32 scale (:func:`int8_roundtrip`),
+    ``bits=32`` is the identity. Integer and bool leaves pass through.
 
-    ``key`` (stochastic int8 rounding, the training wire path) lands with
-    the FL slice; restore paths use ``key=None``.
+    ``key=None`` rounds half to even (restore paths: serving must rebuild
+    the same params every time). A key (``repro_torch.random``) selects
+    stochastic int8 rounding, the training wire's: leaf ``i`` in leaf order
+    adds ``uniform(fold_in(key, i), leaf.shape)`` before the floor. Both are
+    bitwise equal to the reference's ``quantize_tree``.
     """
-    if key is not None:
-        raise NotImplementedError(
-            f"{where}: stochastic int8 rounding (key=...) is not ported yet")
     if bits == 32:
         return tree
     if bits not in (8, 16):
         raise ValueError(
             f"{where}: unsupported payload width: {bits} bits "
             f"(choose 8, 16 or 32)")
-
-    def q(leaf):
+    def q(i, leaf):
         if not torch.is_floating_point(leaf):
             return leaf
         if bits == 16:
             return leaf.to(torch.bfloat16).to(leaf.dtype)
-        f = leaf.to(torch.float32)
-        scale = f.abs().max() / 127.0
-        # all-zero leaves (e.g. fresh biases): keep scale finite, payload 0
-        safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-        ints = torch.clamp(torch.round(f / safe), -127, 127).to(torch.int8)
-        return (ints.to(torch.float32) * safe).to(leaf.dtype)
+        noise = None
+        if key is not None:
+            noise = R.uniform(R.fold_in(key.to(leaf.device), i), leaf.shape)
+        return int8_roundtrip(leaf.to(torch.float32), noise).to(leaf.dtype)
 
-    return pt.tree_map(q, tree)
+    return pt.tree_map_indexed(q, tree)
 
 
 def load_checkpoint(ckpt_dir: str, template, step: int | None = None,

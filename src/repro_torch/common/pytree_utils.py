@@ -5,12 +5,17 @@ Counterpart of ``repro.common.pytree_utils`` (and of
 ``dict``s (lists and tuples are allowed too) whose leaves are tensors or
 arrays. JAX flattens a dict in SORTED key order, so :func:`flatten_with_paths`
 does too; the ``a/b/c`` path strings are the checkpoint keys both packages
-write. The flat ``(D,)`` parameter vector of the FL engine lands with the
-training slice.
+write. :func:`tree_flatten_to_vector` is the FL engine's flat ``(D,)``
+parameter vector, concatenated in that same leaf order: the engine's masks
+index it element by element, so both packages must lay it out alike.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Any, Callable, Dict, List, Tuple
+
+import torch
 
 
 def _is_node(x) -> bool:
@@ -54,11 +59,87 @@ def unflatten(pairs) -> Dict:
     return root
 
 
-def tree_map(fn: Callable, tree, is_leaf: Callable[[Any], bool] | None = None):
-    """``fn`` applied to every leaf; dicts, lists and tuples keep their
-    structure."""
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable[[Any], bool] | None = None):
+    """``fn(leaf, *rest_leaves)`` applied leaf by leaf; dicts, lists and
+    tuples keep the structure of ``tree`` (``rest`` share it)."""
     if (is_leaf is not None and is_leaf(tree)) or not _is_node(tree):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
-    return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    return type(tree)(tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                      for i, v in enumerate(tree))
+
+
+def tree_map_indexed(fn: Callable, tree):
+    """``fn(i, leaf)`` with ``i`` the leaf's position in JAX's leaf order
+    (sorted dict keys), as ``enumerate(jax.tree_util.tree_leaves(tree))``
+    numbers the leaves; the structure of ``tree`` is kept."""
+    counter = itertools.count()
+
+    def walk(node):
+        if not _is_node(node):
+            return fn(next(counter), node)
+        if isinstance(node, dict):
+            done = {k: walk(node[k]) for k in sorted(node)}
+            return {k: done[k] for k in node}
+        return type(node)(walk(v) for v in node)
+
+    return walk(tree)
+
+
+def count_params(tree) -> int:
+    """Total number of scalar parameters in a tree."""
+    return sum(math.prod(x.shape) for x in leaves(tree))
+
+
+class TreeVectorMeta:
+    """How a flat ``(D,)`` vector splits back into a tree: each leaf's path,
+    shape and size in leaf order. Hashable and comparable, like the
+    reference's (whose ``treedef`` the ``paths`` stand in for)."""
+
+    def __init__(self, paths, shapes, sizes):
+        self.paths = tuple(paths)
+        self.shapes = tuple(tuple(int(d) for d in s) for s in shapes)
+        self.sizes = tuple(int(s) for s in sizes)
+        self.total = sum(self.sizes)
+
+    def __hash__(self):
+        return hash((self.paths, self.shapes, self.sizes))
+
+    def __eq__(self, other):
+        return (isinstance(other, TreeVectorMeta)
+                and self.paths == other.paths
+                and self.shapes == other.shapes
+                and self.sizes == other.sizes)
+
+
+def tree_flatten_to_vector(tree) -> Tuple[torch.Tensor, TreeVectorMeta]:
+    """A dict tree of tensors as one 1-D vector (the paper's ``w``), leaves
+    concatenated in JAX's leaf order, plus the :class:`TreeVectorMeta` that
+    undoes it."""
+    pairs = flatten_with_paths(tree)
+    meta = TreeVectorMeta([p for p, _ in pairs],
+                          [tuple(t.shape) for _, t in pairs],
+                          [t.numel() for _, t in pairs])
+    vec = (torch.cat([t.reshape(-1) for _, t in pairs]) if pairs
+           else torch.zeros((0,)))
+    return vec, meta
+
+
+def tree_unflatten_from_vector(vec: torch.Tensor, meta: TreeVectorMeta):
+    """The dict tree whose leaves are views of consecutive slices of the
+    1-D ``vec`` (works under ``torch.func.vmap``)."""
+    if vec.shape[-1] != meta.total:
+        raise ValueError(f"vector of {vec.shape[-1]} elements, meta wants "
+                         f"{meta.total}")
+    parts = torch.split(vec, meta.sizes) if meta.sizes else ()
+    return unflatten([(path, part.reshape(shape)) for path, shape, part
+                      in zip(meta.paths, meta.shapes, parts)])
+
+
+def tree_lerp(global_tree, local_tree, gate_tree):
+    """Per-leaf masked mix: ``gate * global + (1 - gate) * local`` (paper
+    eqs. 4/6)."""
+    return tree_map(lambda g, l, m: m * g + (1.0 - m) * l,
+                    global_tree, local_tree, gate_tree)

@@ -148,8 +148,12 @@ def tokenize_spec(cfg: ForecastConfig):
 
 
 def tokenize(params, x, cfg: ForecastConfig):
-    """x: (B, L) -> tokens (B, N, D). Conv1d(P, stride=S) == unfold + matmul."""
-    patches = x.unfold(-1, cfg.patch_len, cfg.stride)  # (B, N, P)
+    """x: (B, L) -> tokens (B, N, D). Conv1d(P, stride=S) == patch gather +
+    matmul. The patches are gathered by index (not ``Tensor.unfold``, whose
+    backward has no ``torch.func.vmap`` rule and would loop over clients)."""
+    idx = (torch.arange(cfg.num_tokens, device=x.device)[:, None] * cfg.stride
+           + torch.arange(cfg.patch_len, device=x.device)[None, :])
+    patches = x[..., idx]  # (B, N, P)
     tok = patches @ params["w"] + params["b"]
     return tok + params["pos"]  # additive learnable positional encoding
 

@@ -1,30 +1,41 @@
-"""Forecasting tasks and the generational routing manifest (counterpart of
-``repro.core.tasks``).
+"""Forecasting tasks, experiment specs and the generational routing
+manifest (counterpart of ``repro.core.tasks``): the one assembly path from
+dataset to trained, servable per-cluster forecasters.
 
   * :class:`ForecastTask` — a dataset workload by name (``ev``, ``nn5``,
-    ``household``) with the paper's look-back/horizon defaults and
-    ``quick``/``full`` presets (``get_task("ev", quick=False)``);
+    ``household``) with the paper's look-back/horizon defaults,
+    ``quick``/``full`` presets and DTW k-medoids clustering
+    (``get_task("ev", quick=False, clusters=3)``);
+  * :class:`ExperimentSpec` + :func:`run_experiment` — per grid entry and per
+    cluster, ``run_fl`` with key ``PRNGKey(seed + cluster)``, a checkpoint
+    per trained global model and the routing manifest;
   * the routing manifest that ``ForecastServer.from_manifest`` serves:
     :func:`write_routing_manifest`, :func:`update_routing_manifest`,
     :func:`read_routing_manifest`, :func:`manifest_generations`, writing and
     reading the same ``routing.json`` / ``routing.g<N>.json`` JSON as the
     reference, so either package serves the other's manifests.
 
-Not ported yet (they land with the training slice): DTW clustering
-(``ForecastTask.cluster_labels``), ``ExperimentSpec`` and ``run_experiment``.
+CLI: ``python -m repro_torch.core.tasks --device cuda`` (``--device cpu``
+without a GPU).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
 import re
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch import random as R
 from repro_torch.checkpoint.checkpoint import atomic_write_json
+from repro_torch.common.device import DEFAULT_DEVICE
+from repro_torch.core.fl.engine import FLConfig, run_fl
 from repro_torch.core.forecaster import Forecaster, get_forecaster
+from repro_torch.data.clustering import cluster_clients
 from repro_torch.data.synthetic import ev_synthetic, household_synthetic, nn5_synthetic
 from repro_torch.data.windowing import (client_datasets, client_series_datasets,
                                         series_norm_stats)
@@ -56,6 +67,16 @@ class ForecastTask:
         gen = _GENERATORS[self.dataset]
         return gen(seed=self.seed, num_clients=self.num_clients,
                    num_days=self.num_days)
+
+    def cluster_labels(self, series: np.ndarray,
+                       device=DEFAULT_DEVICE) -> np.ndarray:
+        """Per-client cluster labels (DTW on ``device``); all-zeros when
+        clustering is off."""
+        if self.clusters <= 0:
+            return np.zeros(series.shape[0], np.int64)
+        labels, _ = cluster_clients(series, self.clusters,
+                                    seed=self.cluster_seed, device=device)
+        return labels
 
     def client_data(self, series: np.ndarray, idx=None,
                     streaming: bool = False):
@@ -115,6 +136,123 @@ def task_forecaster(task: ForecastTask, model: str = "logtst",
         kw.update(d_model=32, num_heads=4, d_ff=64)
     kw.update(overrides)
     return get_forecaster(model, **kw)
+
+
+# ---------------------------------------------------------------------------
+# experiments: task x model x FL grid
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """Everything :func:`run_experiment` needs (the reference's fields and
+    defaults); grid entries are ``(policy_name, fl_overrides)`` pairs
+    layered over the shared knobs (overrides reach every ``FLConfig``
+    field, e.g. ``use_pallas_mix``). ``driver`` is ``"scan"`` (default) or
+    ``"loop"``; ``shard_clients`` is not ported yet (ROADMAP A13) and raises
+    in ``run_fl``."""
+
+    task: ForecastTask
+    model: Forecaster
+    grid: Tuple[Tuple[str, dict], ...] = (("psgf", {}),)
+    select_ratio: float = 0.5     # paper: 50% for all methods
+    local_steps: int = 4
+    batch_size: int = 32
+    max_rounds: int = 300
+    patience: int = 10
+    eval_every: int = 10
+    seed: int = 0                 # run key: PRNGKey(seed + cluster)
+    driver: str = "scan"
+    shard_clients: bool = False
+    streaming_windows: bool = False
+    participation: Optional[float] = None
+
+    def fl_config(self, policy: str, num_clients: int, overrides: dict) -> FLConfig:
+        kw = dict(policy=policy, num_clients=num_clients,
+                  select_ratio=self.select_ratio, local_steps=self.local_steps,
+                  batch_size=self.batch_size,
+                  streaming_windows=self.streaming_windows,
+                  participation=self.participation)
+        kw.update(overrides)
+        return FLConfig(**kw)
+
+
+def run_name(policy: str, overrides: dict) -> str:
+    """Grid-row label, the reference's spelling (``psgf-s30-f20``)."""
+    name = policy
+    if policy != "online":
+        name += f"-s{int(overrides.get('share_ratio', FLConfig.share_ratio) * 100)}"
+    if policy == "psgf":
+        name += f"-f{int(overrides.get('forward_ratio', FLConfig.forward_ratio) * 100)}"
+    return name
+
+
+def run_experiment(spec: ExperimentSpec, checkpoint_dir: Optional[str] = None,
+                   on_row=None, verbose: bool = False,
+                   series: Optional[np.ndarray] = None,
+                   labels: Optional[np.ndarray] = None,
+                   device=DEFAULT_DEVICE) -> dict:
+    """Drive the grid on ``device``. Per grid entry and per cluster (pooled
+    when ``task.clusters == 0``): window the cluster's clients, build the
+    ``FLConfig`` and call ``run_fl`` with key ``PRNGKey(seed + cluster)``.
+
+    Returns ``{"task", "model", "cluster_sizes", "rows"}``; each row has
+    ``policy``, ``cluster`` (None when pooled), ``clients``, ``rounds``,
+    ``rmse``, ``comm_params``, ``comm_bytes`` and ``train_s``. With
+    ``checkpoint_dir`` each trained global model is saved under
+    ``<dir>/<policy>[_c<cluster>]`` and the routing manifest is written at
+    ``<dir>/routing.json`` (``result["routing_manifest"]``).
+    ``series``/``labels`` take precomputed data and cluster assignments."""
+    task, model = spec.task, spec.model
+    if series is None:
+        series = task.series()
+    if labels is None:
+        labels = task.cluster_labels(series, device=device)
+    clustered = task.clusters > 0
+    groups = list(range(task.clusters)) if clustered else [None]
+
+    rows = []
+    for policy, overrides in spec.grid:
+        label = run_name(policy, overrides)
+        for c in groups:
+            idx = None if c is None else np.nonzero(labels == c)[0]
+            if idx is not None and len(idx) < task.min_cluster_clients:
+                continue
+            tr, va, te, info = task.client_data(
+                series, idx, streaming=spec.streaming_windows)
+            fl_cfg = spec.fl_config(policy, tr.shape[0], overrides)
+            t0 = time.time()
+            hist = run_fl(model.cfg, fl_cfg, tr, te, R.PRNGKey(spec.seed + (c or 0)),
+                          max_rounds=spec.max_rounds,
+                          patience=spec.patience, eval_every=spec.eval_every,
+                          driver=spec.driver, shard_clients=spec.shard_clients,
+                          verbose=verbose, device=device,
+                          checkpoint_dir=None if checkpoint_dir is None else
+                          f"{checkpoint_dir}/{label}" +
+                          ("" if c is None else f"_c{c}"))
+            row = {
+                "policy": label,
+                "cluster": c,
+                "clients": int(tr.shape[0]),
+                "rounds": int(hist["rounds_run"]),
+                "rmse": float(hist["final_rmse"]),
+                "comm_params": float(hist["final_comm"]),
+                "comm_bytes": float(hist["final_comm_bytes"]),
+                "train_s": round(time.time() - t0, 1),
+            }
+            rows.append(row)
+            if on_row is not None:
+                on_row(row)
+    result = {
+        "task": task.name,
+        "model": model.name,
+        "cluster_sizes": np.bincount(labels, minlength=max(task.clusters, 1)).tolist(),
+        "rows": rows,
+    }
+    if checkpoint_dir is not None:
+        result["routing_manifest"] = write_routing_manifest(
+            checkpoint_dir, task, model, labels, rows, series=series)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -249,3 +387,33 @@ def update_routing_manifest(checkpoint_dir: str, policy: str,
             manifest["norm"]["sd"][int(s)] = float(sd)
     path = _publish_manifest(checkpoint_dir, manifest)
     return gen + 1, path
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Train the per-cluster forecasters of a task under FL")
+    ap.add_argument("--task", default="ev", choices=task_names())
+    ap.add_argument("--model", default="logtst")
+    ap.add_argument("--quick", action=argparse.BooleanOptionalAction, default=True)
+    ap.add_argument("--clusters", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="torch device (default cuda; raises without a GPU)")
+    args = ap.parse_args(argv)
+    task = get_task(args.task, quick=args.quick, clusters=args.clusters)
+    spec = ExperimentSpec(
+        task=task, model=task_forecaster(task, args.model, quick=args.quick),
+        grid=(("online", {}), ("psgf", {})), max_rounds=args.rounds,
+        batch_size=16, eval_every=min(10, args.rounds))
+    res = run_experiment(spec, checkpoint_dir=args.ckpt_dir, device=args.device,
+                         on_row=lambda r: print(
+                             f"{r['policy']:14s} cluster={r['cluster']} "
+                             f"rounds={r['rounds']:3d} rmse={r['rmse']:.4f} "
+                             f"comm={r['comm_params']:.3e}"))
+    print(f"task={res['task']} model={res['model']} "
+          f"cluster_sizes={res['cluster_sizes']}")
+
+
+if __name__ == "__main__":
+    main()

@@ -12,9 +12,12 @@
 
 Differentiation is the reference's design (``ops.py:47-65`` there): a
 ``torch.autograd.Function`` whose forward is the kernel and whose backward is
-autograd of the plain version on the saved ``(q, k, v)``. At the
-forecaster's token counts (15-63) the dense backward recompute is cheap, and
-the reference has no backward kernel either.
+the plain version's gradient on the saved ``(q, k, v)``, written out in torch
+ops (``ref.flash_attention_ref_backward``). At the forecaster's token counts
+(15-63) the dense backward recompute is cheap, and the reference has no
+backward kernel either. The Function is in ``setup_context`` form with a
+``vmap`` rule, so ``torch.func.vmap(torch.func.grad(...))`` — the FL engine's
+per-client LocalUpdate — runs through the kernel on the card.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
 that its main path went through the kernel.
@@ -28,7 +31,8 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref, flash_attention_ref_backward)
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -101,21 +105,39 @@ def _launch(q, k, v, causal, window, kv_len):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The kernel under autograd and ``torch.func``: forward launches the
+    kernel; backward is :func:`flash_attention_ref_backward` on the saved
+    ``(q, k, v)`` (torch ops, so ``grad`` and ``vmap`` run through it);
+    ``vmap`` folds the mapped dimension into the batch and launches once."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, kv_len):
+    def forward(q, k, v, causal, window, kv_len):
+        return _launch(q, k, v, causal, window, kv_len)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, kv_len = inputs
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, kv_len)
-        return _launch(q, k, v, causal, window, kv_len)
 
     @staticmethod
     def backward(ctx, do):
         causal, window, kv_len = ctx.mask
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            o = flash_attention_ref(*inputs, causal=causal, window=window,
-                                    kv_len=kv_len)
-        dq, dk, dv = torch.autograd.grad(o, inputs, do)
+        dq, dk, dv = flash_attention_ref_backward(
+            *ctx.saved_tensors, do, causal=causal, window=window, kv_len=kv_len)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, kv_len):
+        n = info.batch_size
+
+        def fold(x, dim):
+            x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+            return x.reshape(n * x.shape[1], *x.shape[2:])
+
+        o = _FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                  fold(v, in_dims[2]), causal, window, kv_len)
+        return o.reshape(n, -1, *o.shape[1:]), 0
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None):

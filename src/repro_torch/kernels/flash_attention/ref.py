@@ -11,7 +11,8 @@ whole ``(Sq, Skv)`` score matrix.
 
 The wrapper (``ops.flash_attention``) runs it for CPU tensors, the tests
 hold it against the JAX package, and ``chip_smoke.py`` holds the CUDA kernel
-against it on the card. Its autograd is the kernel's backward.
+against it on the card. :func:`flash_attention_ref_backward` is the
+kernel's backward: the same masks, its gradients written out.
 """
 from __future__ import annotations
 
@@ -35,21 +36,47 @@ def attention_mask(Sq: int, Skv: int, *, causal: bool, window, kv_len,
     return mask
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=None, kv_len=None):
-    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0.
-    Returns (B, Sq, H, hd) in q.dtype."""
+def _probs(q, k, causal, window, kv_len):
+    """fp32 ``(B, KV, G, Sq, Skv)`` attention probabilities, the fp32
+    ``(B, Sq, KV, G, hd)`` queries and the scale."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qf = q.to(torch.float32).reshape(B, Sq, KV, G, hd)
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
-    s = torch.einsum("bskgd,btkd->bkgst", qf, kf) * (1.0 / math.sqrt(hd))
+    qf = q.to(torch.float32).reshape(B, Sq, KV, H // KV, hd)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.to(torch.float32)) * scale
     mask = attention_mask(Sq, Skv, causal=causal, window=window,
                           kv_len=kv_len, device=q.device)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bkgst,btkd->bskgd", p, vf)
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30), qf, scale
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, kv_len=None):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0.
+    Returns (B, Sq, H, hd) in q.dtype."""
+    p, _, _ = _probs(q, k, causal, window, kv_len)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_ref_backward(q, k, v, do, *, causal=True, window=None,
+                                 kv_len=None):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_ref` for the
+    output cotangent ``do``, written out (``dV = P^T dO``, ``dS = P * (dP -
+    rowsum(dP * P))``, ``dQ = dS K * scale``, ``dK = dS^T Q * scale``, summed
+    over each kv head's query group) in plain torch ops, so ``torch.func``
+    transforms can run through it. Masked entries have ``P = 0`` and get no
+    gradient; a row with no valid key has ``P = 0`` throughout and none
+    either."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    p, qf, scale = _probs(q, k, causal, window, kv_len)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    dof = do.to(torch.float32).reshape(B, Sq, KV, H // KV, hd)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dof)
+    dp = torch.einsum("bskgd,btkd->bkgst", dof, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -6,9 +6,14 @@ A model builds a *spec tree* (nested dicts of :class:`ArraySpec`). From it:
   * :func:`abstract_params` — shape/dtype only (``meta`` tensors, nothing
     allocated), the template a checkpoint restores into.
 
-Initial values come from an explicit ``torch.Generator`` and differ from
-JAX's threefry draws for the same seed; parity tests hand both packages the
-same numpy-made params instead (``repro_torch.core.forecaster.params_from_numpy``).
+Initial values come from an explicit ``torch.Generator`` (:func:`init_params`)
+and differ from JAX's for the same seed, or from a ``repro_torch.random``
+key (:func:`init_params_from_key`, the FL engine's fresh init), which draws
+what the reference's ``init_params(spec, key)`` draws: one key per leaf from
+``split(key, n_leaves)``, a normal draw scaled per the spec (equal to the
+reference's up to ``erfinv``'s last ulps). Parity tests that need equal
+params bit for bit hand both packages the same numpy-made params
+(``repro_torch.core.forecaster.params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import random as R
 from repro_torch.common import pytree_utils as pt
 
 
@@ -38,33 +44,48 @@ def is_spec(x) -> bool:
     return isinstance(x, ArraySpec)
 
 
-def _init_one(spec: ArraySpec, generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
+def _scale(spec: ArraySpec) -> float:
+    if spec.init == "normal":
+        return 0.02
+    if spec.init == "scaled":
+        fan_in = spec.shape[0] if len(spec.shape) >= 1 else 1
+        if len(spec.shape) >= 2:
+            fan_in = int(np.prod(spec.shape[:-1]))
+        return 1.0 / math.sqrt(max(fan_in, 1))
+    raise ValueError(f"unknown init {spec.init}")
+
+
+def _init_one(spec: ArraySpec, draw, device: torch.device) -> torch.Tensor:
+    """One leaf: zeros, ones, or ``scale * draw(shape)`` for a standard
+    normal ``draw``."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init == "normal":
-        scale = 0.02
-    elif spec.init == "scaled":
-        fan_in = spec.shape[0] if len(spec.shape) >= 1 else 1
-        if len(spec.shape) >= 2:
-            fan_in = int(np.prod(spec.shape[:-1]))
-        scale = 1.0 / math.sqrt(max(fan_in, 1))
-    else:
-        raise ValueError(f"unknown init {spec.init}")
-    # draw on the generator's own device, then place: the same generator
-    # gives the same values whatever the target device
-    draw = torch.randn(spec.shape, generator=generator, device=generator.device)
-    return (scale * draw).to(device=device, dtype=spec.dtype)
+    return (_scale(spec) * draw(spec.shape)).to(device=device, dtype=spec.dtype)
 
 
 def init_params(spec_tree, generator: torch.Generator, device) -> dict:
     """Materialize a parameter tree, drawing leaves in JAX's (sorted-key)
-    leaf order from ``generator``."""
+    leaf order from ``generator``. Draws happen on the generator's own
+    device, so the same generator gives the same values on any target."""
     pairs = pt.flatten_with_paths(spec_tree, is_leaf=is_spec)
-    return pt.unflatten([(path, _init_one(s, generator, torch.device(device)))
+    draw = lambda shape: torch.randn(shape, generator=generator,  # noqa: E731
+                                     device=generator.device)
+    return pt.unflatten([(path, _init_one(s, draw, torch.device(device)))
                          for path, s in pairs])
+
+
+def init_params_from_key(spec_tree, key, device) -> dict:
+    """Materialize a parameter tree from a ``repro_torch.random`` key, the
+    reference's way: leaf ``i`` (JAX's leaf order) draws
+    ``scale * normal(split(key, n)[i], shape)``."""
+    device = torch.device(device)
+    pairs = pt.flatten_with_paths(spec_tree, is_leaf=is_spec)
+    keys = R.split(key.to(device), max(len(pairs), 1))
+    return pt.unflatten([
+        (path, _init_one(s, lambda shape, k=k: R.normal(k, shape), device))
+        for (path, s), k in zip(pairs, keys)])
 
 
 def abstract_params(spec_tree):

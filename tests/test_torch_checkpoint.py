@@ -120,8 +120,15 @@ def test_quantize_tree_edges():
     _leaves_equal(JC.quantize_tree(jhalf, 8), TC.quantize_tree(half, 8))
     with pytest.raises(ValueError, match="8, 16 or 32"):
         TC.quantize_tree(tree, 12)
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        TC.quantize_tree(tree, 8, key=0)
+    # stochastic rounding (the training wire; bitwise against JAX in
+    # test_torch_random.py) keeps the same edges and the int8 grid
+    from repro_torch import random as R
+
+    qs = TC.quantize_tree(tree, 8, key=R.PRNGKey(0))
+    assert torch.equal(qs["z"], torch.zeros(3)) and torch.equal(qs["t"], tree["t"])
+    steps = qs["w"] / (3.0 / 127.0)
+    assert torch.equal(steps, torch.round(steps))
+    assert (qs["w"] - tree["w"]).abs().max() < 3.0 / 127.0
 
 
 def test_missing_flash_flag_restores_off(tmp_path):

@@ -161,3 +161,94 @@ def test_build_names_library_by_source_hash(monkeypatch):
     monkeypatch.setattr(_build, "CUDA_NVCC", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+@pytest.mark.parametrize("case", [
+    # B, Sq, Skv, H, KV, hd, causal, window, kv_len
+    (2, 15, 15, 4, 4, 8, False, None, None),      # the forecaster's shape
+    (1, 33, 33, 4, 2, 16, True, None, None),      # GQA causal
+    (1, 40, 40, 2, 1, 8, True, 7, None),          # window
+    (1, 24, 30, 2, 2, 8, False, 5, 12),           # rows with no valid key
+])
+def test_backward_formulas_match_autograd_of_plain(case):
+    """The kernel's backward (gradients written out in torch ops) against
+    autograd through the plain version, masks included."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, flash_attention_ref_backward)
+
+    B, Sq, Skv, H, KV, hd, causal, window, kv_len = case
+    q, k, v = (t.requires_grad_() for t in
+               _torch(_inputs(8, B, Sq, Skv, H, KV, hd)))
+    do = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (B, Sq, H, hd)).astype(np.float32))
+    mask = dict(causal=causal, window=window, kv_len=kv_len)
+    flash_attention_ref(q, k, v, **mask).backward(do)
+    got = flash_attention_ref_backward(q.detach(), k.detach(), v.detach(), do,
+                                       **mask)
+    for g, t in zip(got, (q, k, v)):
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _kernel_route_on_cpu(monkeypatch):
+    """Send the wrapper's calls through ``_FlashAttention`` (the CUDA route)
+    with the launch replaced by the plain forward, counting launches."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    calls = []
+
+    def fake_launch(q, k, v, causal, window, kv_len):
+        assert not torch._C._functorch.is_batchedtensor(q)   # folded by vmap
+        calls.append(tuple(q.shape))
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len)
+
+    monkeypatch.setattr(ops, "_launch", fake_launch)
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda q, k, v, *, causal=True, window=None, kv_len=None:
+                        ops._FlashAttention.apply(q, k, v, causal, window, kv_len))
+    return calls
+
+
+def test_kernel_function_runs_under_vmap_of_grad(monkeypatch):
+    """``vmap(grad(...))`` through the kernel's ``autograd.Function`` (the
+    FL engine's per-client LocalUpdate, with flash on, on the card): the
+    vmapped axis is folded into the batch (one launch), and the gradients
+    equal those through the plain version."""
+    from repro_torch.core import forecast as TF
+    from repro_torch.common import pytree_utils as pt
+
+    cfg = TF.logtst_config(look_back=32, horizon=2, d_model=16, num_heads=2,
+                           d_ff=16, patch_len=8, stride=4)
+    params = TF.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    vec, meta = pt.tree_flatten_to_vector(params)
+    rng = np.random.default_rng(10)
+    K = 3
+    w = vec[None].repeat(K, 1) + 0.01 * torch.from_numpy(
+        rng.standard_normal((K, meta.total)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((K, 5, 32)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((K, 5, 2)).astype(np.float32))
+
+    def grads(c):
+        def loss(wv, xb, yb):
+            return TF.mse_loss(c, pt.tree_unflatten_from_vector(wv, meta), xb, yb)
+        return torch.func.vmap(torch.func.grad_and_value(loss))(w, x, y)
+
+    dense_g, dense_l = grads(cfg)
+    plain_g, plain_l = grads(dataclass_replace(cfg, use_flash_attn=True))
+    calls = _kernel_route_on_cpu(monkeypatch)
+    kern_g, kern_l = grads(dataclass_replace(cfg, use_flash_attn=True))
+    # forward once with the clients folded into the batch (K * 5 series)
+    assert calls == [(K * 5, cfg.num_tokens, 2, 8)]
+    np.testing.assert_allclose(kern_g.numpy(), plain_g.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(kern_l.numpy(), plain_l.numpy(), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(kern_g.numpy(), dense_g.numpy(),
+                               atol=FLASH_ATTN_TOL, rtol=FLASH_ATTN_TOL)
+    np.testing.assert_allclose(kern_l.numpy(), dense_l.numpy(),
+                               atol=FLASH_ATTN_TOL, rtol=FLASH_ATTN_TOL)
+
+
+def dataclass_replace(cfg, **kw):
+    import dataclasses
+
+    return dataclasses.replace(cfg, **kw)

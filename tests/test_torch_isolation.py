@@ -56,6 +56,11 @@ def test_importing_every_module_pulls_in_no_jax():
     rep = json.loads(out.strip().splitlines()[-1])
     assert "repro_torch.launch.serve_forecast" in rep["modules"]
     assert "repro_torch.kernels.flash_attention.ops" in rep["modules"]
+    for name in ("repro_torch.random", "repro_torch.core.fl.engine",
+                 "repro_torch.core.fl.masks", "repro_torch.core.fl.policies",
+                 "repro_torch.data.clustering",
+                 "repro_torch.kernels.psgf_mix.ops"):
+        assert name in rep["modules"]
     assert rep["bad"] == []
 
 
@@ -117,6 +122,26 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: ForecastServer.from_checkpoint(ckpt),
         lambda: ForecastServer.from_manifest(str(tmp_path)),
         lambda: main(["--manifest", str(tmp_path), "--requests", "1"]),
+    ]
+    from repro_torch import random as R
+    from repro_torch.core import tasks as T
+    from repro_torch.core.fl import engine as E
+    from repro_torch.data.clustering import cluster_clients
+
+    fl = E.FLConfig(num_clients=2, batch_size=2, local_steps=1)
+    state, meta = E.init_fl_state(fc.cfg, fl, R.PRNGKey(0), device="cpu")
+    windows = np.zeros((2, 4, 18), np.float32)
+    series = np.random.default_rng(0).standard_normal((4, 70))
+    spec = T.ExperimentSpec(task=T.get_task("ev", num_clients=4, num_days=60,
+                                            look_back=16), model=fc,
+                            max_rounds=1)
+    calls += [
+        lambda: E.init_fl_state(fc.cfg, fl, R.PRNGKey(0)),
+        lambda: E.fl_round(state, windows, R.PRNGKey(1), fc.cfg, fl, meta),
+        lambda: E.run_fl(fc.cfg, fl, windows, windows, R.PRNGKey(0)),
+        lambda: cluster_clients(series, 2),
+        lambda: T.run_experiment(spec),
+        lambda: T.main(["--rounds", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -17,6 +17,8 @@ from repro_torch.core.forecaster import get_forecaster  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.psgf_mix import ops as mix_ops  # noqa: E402
+from repro_torch.kernels.psgf_mix.ref import psgf_mix_batch_ref, psgf_mix_ref  # noqa: E402
 
 BF16_TOL = 2e-2
 
@@ -112,3 +114,143 @@ def test_forecaster_on_the_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+MIX_CASES = [
+    # K, D, mask kind: the main path's three clusters at full width, a
+    # ragged D (scalar path), one client, a non-binary float mask
+    (21, 273_284, "binary"), (27, 273_284, "binary"), (10, 273_284, "binary"),
+    (3, 1_001, "binary"), (1, 4_097, "binary"), (5, 8_192, "uniform"),
+    (4, 10_000, "quarters"),
+]
+
+
+def _mix_inputs(seed, K, D, kind, device):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(D).astype(np.float32)
+    w = rng.standard_normal((K, D)).astype(np.float32)
+    if kind == "binary":
+        m = (rng.random((K, D)) < 0.3).astype(np.float32)
+    elif kind == "quarters":
+        m = rng.integers(0, 5, (K, D)).astype(np.float32) / np.float32(4)
+    else:
+        m = rng.random((K, D)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (g, w, m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MIX_CASES)
+def test_psgf_mix_kernel_bitwise_plain(cuda, case):
+    K, D, kind = case
+    g, w, m = _mix_inputs(K + D, K, D, kind, cuda)
+    before = mix_ops.LAUNCHES
+    mixed, count = mix_ops.psgf_mix_batch(g, w, m)
+    torch.cuda.synchronize()
+    assert mix_ops.LAUNCHES == before + 1
+    want, want_count = psgf_mix_batch_ref(g, w, m)
+    assert torch.equal(mixed, want)                 # bitwise, any float mask
+    if kind == "uniform":                           # sums in another order
+        torch.testing.assert_close(count, want_count, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(count, want_count)
+
+
+@pytest.mark.cuda
+def test_psgf_mix_single_vector_and_unaligned_rows(cuda):
+    g, w, m = _mix_inputs(1, 1, 4_099, "uniform", cuda)
+    got = mix_ops.psgf_mix(g, w[0], m[0])
+    want = psgf_mix_ref(g, w[0], m[0])
+    assert torch.equal(got[0], want[0])
+    # a view starting 4 bytes in: not 16-byte aligned -> the scalar path
+    g, w, m = _mix_inputs(2, 2, 4_097, "binary", cuda)
+    got = mix_ops.psgf_mix_batch(g[1:], w[:, 1:].contiguous(), m[:, 1:].contiguous())
+    want = psgf_mix_batch_ref(g[1:], w[:, 1:], m[:, 1:])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_psgf_mix_rejects_what_it_does_not_take(cuda):
+    g, w, m = _mix_inputs(3, 2, 64, "binary", cuda)
+    with pytest.raises(TypeError, match="float32"):
+        mix_ops.psgf_mix_batch(g, w, m > 0)
+    with pytest.raises(TypeError, match="float32"):
+        mix_ops.psgf_mix_batch(g.double(), w.double(), m.double())
+    with pytest.raises(ValueError, match="different devices"):
+        mix_ops.psgf_mix_batch(g.cpu(), w, m)
+    with pytest.raises(ValueError, match="contiguous"):
+        mix_ops.psgf_mix_batch(g, w.t().contiguous().t(), m)
+
+
+@pytest.mark.cuda
+def test_fl_round_on_the_card_matches_cpu(cuda):
+    """One psgf round with the fused downlink and flash attention on the
+    card: selection, gates and comm counters bitwise those of the CPU round
+    (integer RNG), states within FL_PARITY_TOL-sized float noise."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.data.synthetic import ev_synthetic
+    from repro_torch.data.windowing import client_datasets
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = F.logtst_config(look_back=32, horizon=2, d_model=16, num_heads=2,
+                          d_ff=32, use_flash_attn=True)
+    tr, _, _, _ = client_datasets(ev_synthetic(seed=0, num_clients=5,
+                                               num_days=150), 32, 2)
+    fl = E.FLConfig(num_clients=tr.shape[0], batch_size=8, local_steps=2,
+                    use_pallas_mix=True)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state, meta = E.init_fl_state(cfg, fl, R.PRNGKey(0), device=dev)
+        before = (mix_ops.LAUNCHES, ops.LAUNCHES)
+        out[dev] = E.fl_round(state, tr, R.PRNGKey(1), cfg, fl, meta, device=dev)
+        launched = (mix_ops.LAUNCHES - before[0], ops.LAUNCHES - before[1])
+        # one mix per round, one attention forward per local step
+        assert launched == ((1, fl.local_steps) if dev == "cuda" else (0, 0))
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    for k in ("comm_down", "comm_up", "round", "adam_t"):
+        assert torch.equal(cs[k], gs[k].cpu()), k
+    assert float(cm["num_selected"]) == float(gm["num_selected"])
+    # attn/bk is left out: its gradient is zero analytically (softmax is
+    # shift-invariant), so Adam turns float noise there into +-lr steps
+    keep = torch.ones(meta.total, dtype=torch.bool)
+    off = 0
+    for path, size in zip(meta.paths, meta.sizes):
+        keep[off:off + size] = not path.endswith("attn/bk")
+        off += size
+    torch.testing.assert_close(gs["w_global"].cpu()[keep], cs["w_global"][keep],
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vmap_grad_through_flash_kernel_matches_dense_on_the_card(cuda):
+    """LocalUpdate's ``vmap(grad_and_value)`` over clients through the
+    flash kernel (full-width LoGTST) against the dense attention path on
+    the card: one kernel launch for all clients (the vmap rule folds them
+    into the batch), gradients within 1e-4 (flash and dense differ in
+    accumulation order, ~1e-6 relative per attention output, and the
+    backward sums those over 15 tokens x 32 series per client)."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = F.logtst_config()
+    params = F.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    vec, meta = pt.tree_flatten_to_vector(params)
+    rng = np.random.default_rng(5)
+    K = 4
+    w = (vec[None].repeat(K, 1) + 0.01 * torch.from_numpy(
+        rng.standard_normal((K, meta.total)).astype(np.float32))).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((K, 32, 128)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((K, 32, 2)).astype(np.float32)).to(cuda)
+
+    def grads(c):
+        def loss(wv, xb, yb):
+            return F.mse_loss(c, pt.tree_unflatten_from_vector(wv, meta), xb, yb)
+        return torch.func.vmap(torch.func.grad_and_value(loss))(w, x, y)
+
+    before = ops.LAUNCHES
+    g_flash, l_flash = grads(dataclasses.replace(cfg, use_flash_attn=True))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    g_dense, l_dense = grads(cfg)
+    torch.testing.assert_close(l_flash, l_dense, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(g_flash, g_dense, atol=1e-4, rtol=1e-4)
