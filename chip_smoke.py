@@ -12,10 +12,13 @@ Phases, each of which raises (exit code != 0) on failure:
      compiler's register/spill report;
   3. kernels: call each kernel's wrapper on the card at the shapes the main
      paths give it and at the reference test classes, hold it against its
-     plain PyTorch version (flash attention within its tolerance, one
-     backward; psgf_mix bitwise at K = 21 / 27 / 10 clients of D = 273,284,
-     a ragged D, a non-binary mask and the K = 1 case), and time the kernel,
-     the plain version and the closest PyTorch call;
+     plain PyTorch version (flash attention within its tolerance at the
+     serving buckets, at training's K x 32 and evaluation's K x n_test rows
+     of each cluster and past the grid's batch limit, one backward, and one
+     vmap(grad) over 27 clients against dense attention; psgf_mix bitwise
+     at K = 21 / 27 / 10 clients of D = 273,284, a ragged D, a non-binary
+     mask and the K = 1 case), and time the kernel, the plain version and
+     the closest PyTorch call;
   4. serving: the port's serving path at full width — two LoGTST cluster
      models (look_back 128, d_model 128, 16 heads, flash attention on,
      random weights from a seeded generator) saved as checkpoints with a
@@ -223,6 +226,93 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
     }
 
 
+# LocalUpdate's vmap(grad_and_value) through the kernel against the dense
+# attention path, both on the card: the two differ in accumulation order
+# (~1e-6 relative per attention output), which the backward sums over 15
+# tokens x 32 series per client
+VMAP_GRAD_TOL = 1e-4
+VMAP_LOSS_TOL = 1e-5
+TRAIN_BATCH = 32
+
+
+def check_flash_training(ops, ref, tol_f32: float) -> dict:
+    """The kernel at the shapes the training path gives it, against its
+    plain version: LocalUpdate's vmap folds a cluster's K clients into the
+    batch (K x 32 series), evaluate_rmse runs every client's test windows
+    at once (K x n_test), for the clusters K = 21 / 27 / 10; a batch past
+    gridDim.z's limit (the kernel strides over it); and one
+    ``vmap(grad_and_value)`` of the full-width LoGTST loss over 27 clients
+    through the kernel against the dense attention path."""
+    import dataclasses
+
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.core import forecast as F
+    from repro_torch.core.tasks import get_task
+
+    task = get_task("ev", quick=False, clusters=3, num_days=420,
+                    min_cluster_clients=4)
+    n_test = task.client_data(task.series())[2].shape[1]
+    rows = {f"train_K{K}": K * TRAIN_BATCH for K in MIX_K}
+    rows.update({f"eval_K{K}": K * n_test for K in MIX_K})
+    rows["above_grid_z"] = 70_000          # past gridDim.z's 65,535
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    errs = {}
+    for name, B in rows.items():
+        q, k, v = (torch.randn(B, 15, 16, 8, generator=gen, device="cuda")
+                   for _ in range(3))
+        before = ops.LAUNCHES
+        got = ops.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES != before + 1:
+            raise RuntimeError(f"{name}: the wrapper did not launch the kernel")
+        want = ref.flash_attention_ref(q, k, v, causal=False)
+        errs[f"{name}_B{B}"] = err = float((got - want).abs().max())
+        if not err <= tol_f32:
+            raise RuntimeError(f"{name} (B={B}): kernel vs plain max |err| "
+                               f"{err} > {tol_f32}")
+        del q, k, v, got, want
+
+    cfg = F.logtst_config()
+    params = F.init_params(cfg, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    vec, meta = pt.tree_flatten_to_vector(params)
+    if meta.total != 273_284:
+        raise RuntimeError(f"LoGTST full width has {meta.total} params")
+    K = max(MIX_K)
+    rng = np.random.default_rng(SEED)
+    noise = rng.standard_normal((K, meta.total)).astype(np.float32)
+    w = (vec[None] + 0.01 * torch.from_numpy(noise)).cuda()
+    x = torch.from_numpy(rng.standard_normal(
+        (K, TRAIN_BATCH, cfg.look_back)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.standard_normal(
+        (K, TRAIN_BATCH, cfg.horizon)).astype(np.float32)).cuda()
+
+    def grads(c):
+        def loss(wv, xb, yb):
+            return F.mse_loss(c, pt.tree_unflatten_from_vector(wv, meta), xb, yb)
+        return torch.func.vmap(torch.func.grad_and_value(loss))(w, x, y)
+
+    before = ops.LAUNCHES
+    g_flash, l_flash = grads(dataclasses.replace(cfg, use_flash_attn=True))
+    torch.cuda.synchronize()
+    if ops.LAUNCHES != before + 1:
+        raise RuntimeError(f"vmap(grad) over {K} clients: "
+                           f"{ops.LAUNCHES - before} kernel launches, not 1")
+    g_dense, l_dense = grads(cfg)
+    grad_err = float((g_flash - g_dense).abs().max())
+    loss_err = float((l_flash - l_dense).abs().max())
+    errs[f"vmap_grad_K{K}"] = {"grad_max_abs_err": grad_err,
+                               "loss_max_abs_err": loss_err}
+    if not (torch.allclose(g_flash, g_dense, atol=VMAP_GRAD_TOL,
+                           rtol=VMAP_GRAD_TOL)
+            and torch.allclose(l_flash, l_dense, atol=VMAP_LOSS_TOL,
+                               rtol=VMAP_LOSS_TOL)):
+        raise RuntimeError(f"vmap(grad) through the kernel vs dense: grad "
+                           f"{grad_err}, loss {loss_err}")
+    log(json.dumps({"kernel_cases": {"flash_attention_training": errs}}))
+    return errs
+
+
 def latency_quantiles(server) -> dict:
     """p50/p99 submit -> result latency over every request so far, estimated
     from the server's latency histogram (all clusters pooled)."""
@@ -425,12 +515,19 @@ def check_psgf_mix(mix_ops, mix_ref) -> dict:
                       "count_abs_err": cerr}
     # the single-vector form (the TPU's psgf_mix_kernel), K = 1
     g, w, m = mix_inputs(gen, 1, MIX_D, "uniform")
+    before = mix_ops.LAUNCHES_SINGLE
     got = mix_ops.psgf_mix(g, w[0], m[0])
+    torch.cuda.synchronize()
+    if mix_ops.LAUNCHES_SINGLE != before + 1:
+        raise RuntimeError("psgf_mix K=1: no kernel launch")
     want = mix_ref.psgf_mix_ref(g, w[0], m[0])
     if not torch.equal(got[0], want[0]):
         raise RuntimeError("psgf_mix K=1: mix not bitwise equal")
-    errs["K1_psgf_mix"] = {"mix_max_abs_err": 0.0,
-                           "count_abs_err": abs(float(got[1]) - float(want[1]))}
+    k1_err = float((got[0] - want[0]).abs().max())
+    k1_cerr = abs(float(got[1]) - float(want[1]))
+    if not k1_cerr <= MIX_COUNT_RTOL * float(want[1]):
+        raise RuntimeError(f"psgf_mix K=1: count err {k1_cerr}")
+    errs["K1_psgf_mix"] = {"mix_max_abs_err": k1_err, "count_abs_err": k1_cerr}
     log(json.dumps({"kernel_cases": {"psgf_mix": errs}}))
 
     def lib(w_, g_, m_):     # the closest PyTorch calls: a lerp and a sum
@@ -466,7 +563,8 @@ def check_psgf_mix(mix_ops, mix_ref) -> dict:
         "replaces": "src/repro/kernels/psgf_mix/kernel.py:76",
         "tpu_kernel": "src/repro/kernels/psgf_mix/kernel.py::psgf_mix_batch_kernel",
         "shape": [main_k, MIX_D],
-        "max_abs_err": max(e["mix_max_abs_err"] for e in errs.values()),
+        "max_abs_err": max(e["mix_max_abs_err"] for n, e in errs.items()
+                           if n != "K1_psgf_mix"),
         "ms": per_k[main_k]["ms"],
         "kernel_ms": per_k[main_k]["ms"],
         "plain_ms": per_k[main_k]["plain_ms"],
@@ -476,23 +574,17 @@ def check_psgf_mix(mix_ops, mix_ref) -> dict:
         "library_call": "torch.lerp(w, g.expand_as(w), m) + m.sum(dtype=float32)",
         "bytes": per_k[main_k]["bytes"],
         "per_clients": {str(k): v for k, v in per_k.items() if k != 1},
-        "k1_psgf_mix": dict(per_k[1], replaces=
-                            "src/repro/kernels/psgf_mix/kernel.py:39",
-                            launches_on_main_path=0),
+        # the single-vector wrapper: same kernel at K = 1, its own count
+        # (filled from the training run, where the engine does not call it)
+        "k1_psgf_mix": dict(
+            per_k[1], name="psgf_mix", route="cuda",
+            source="src/repro_torch/csrc/psgf_mix.cu",
+            replaces="src/repro/kernels/psgf_mix/kernel.py:39",
+            tpu_kernel="src/repro/kernels/psgf_mix/kernel.py::psgf_mix_kernel",
+            shape=[MIX_D], max_abs_err=k1_err, bound_by="bytes",
+            library_call="torch.lerp(w, g, m) + m.sum(dtype=float32)"),
     }
     return rec
-
-
-def _bk_free(meta):
-    """Flat-vector mask without the attention key bias: its gradient is zero
-    analytically (softmax is shift-invariant), so Adam turns float noise
-    there into +-lr steps of random sign on either device."""
-    keep = torch.ones(meta.total, dtype=torch.bool)
-    off = 0
-    for path, size in zip(meta.paths, meta.sizes):
-        keep[off:off + size] = not path.endswith("attn/bk")
-        off += size
-    return keep
 
 
 def card_vs_cpu_round(E, R, task, series, labels, model, spec_grid, seed):
@@ -504,7 +596,8 @@ def card_vs_cpu_round(E, R, task, series, labels, model, spec_grid, seed):
     tr, _, _, _ = task.client_data(series, idx)
     policy_name, overrides = spec_grid[0]
     fl = E.FLConfig(policy=policy_name, num_clients=tr.shape[0],
-                    select_ratio=0.5, local_steps=4, batch_size=32, **overrides)
+                    select_ratio=0.5, local_steps=4, batch_size=TRAIN_BATCH,
+                    **overrides)
     key = R.PRNGKey(seed + c)
     state_cpu, meta = E.init_fl_state(model.cfg, fl, R.split(key)[1],
                                       device="cpu")
@@ -529,7 +622,7 @@ def card_vs_cpu_round(E, R, task, series, labels, model, spec_grid, seed):
     }
     if not all(same.values()):
         raise RuntimeError(f"card round != CPU round: {same}")
-    keep = _bk_free(meta)
+    keep = E.bk_free(meta)               # attn/bk: see FL_PARITY_TOL
     err = float((sg["w_global"].cpu() - sc["w_global"])[keep].abs().max())
     if not err <= ROUND_TOL:
         raise RuntimeError(f"card vs CPU w_global max |err| {err} > {ROUND_TOL}")
@@ -613,7 +706,7 @@ def drive_training(mix_ops, flash_ops) -> dict:
     grid = (("psgf", {"share_ratio": 0.3, "forward_ratio": 0.2,
                       "use_pallas_mix": True}),)
     spec = ExperimentSpec(task=task, model=model, grid=grid, select_ratio=0.5,
-                          local_steps=4, batch_size=32,
+                          local_steps=4, batch_size=TRAIN_BATCH,
                           max_rounds=TRAIN_ROUNDS, patience=10,
                           eval_every=TRAIN_EVAL_EVERY, driver="scan")
     series = task.series()
@@ -626,14 +719,16 @@ def drive_training(mix_ops, flash_ops) -> dict:
 
     torch.cuda.synchronize()
     mix_ops.LAUNCHES = 0                   # every kernel count, just before
+    mix_ops.LAUNCHES_SINGLE = 0
     flash_ops.LAUNCHES = 0
     t0 = time.perf_counter()
     res = run_experiment(spec, checkpoint_dir=root, series=series,
                          labels=labels, device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"psgf_mix_batch": mix_ops.LAUNCHES,
-                "flash_attention": flash_ops.LAUNCHES}  # ... and just after
+    launches = {"psgf_mix_batch": mix_ops.LAUNCHES,  # ... and just after
+                "psgf_mix": mix_ops.LAUNCHES_SINGLE,
+                "flash_attention": flash_ops.LAUNCHES}
     rounds = sum(r["rounds"] for r in res["rows"])
     if rounds != TRAIN_ROUNDS * 3 or launches["psgf_mix_batch"] != rounds:
         raise RuntimeError(f"{launches['psgf_mix_batch']} psgf_mix launches "
@@ -733,6 +828,10 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     record = check_flash_attention(ops, ref, FLASH_ATTN_TOL)
+    train_errs = check_flash_training(ops, ref, FLASH_ATTN_TOL)
+    record["max_abs_err"] = max(
+        [record["max_abs_err"]] + [e for n, e in train_errs.items()
+                                   if not n.startswith("vmap_grad")])
     mix_record = check_psgf_mix(mix_ops, mix_ref)
 
     # 4. the serving path
@@ -743,6 +842,7 @@ def main() -> int:
     # 5. the training path
     training = drive_training(mix_ops, ops)
     mix_record["launches"] = training["launches"]["psgf_mix_batch"]
+    mix_record["k1_psgf_mix"]["launches"] = training["launches"]["psgf_mix"]
     record["launches_training"] = training["launches"]["flash_attention"]
     log(json.dumps({"training": training}))
     log(json.dumps({"kernels": [record, mix_record]}))

@@ -75,8 +75,19 @@ ACCOUNTING_DTYPE = torch.float32
 # attention key bias ``attn/bk``. Softmax is invariant to a per-row shift,
 # so its gradient is zero analytically and float noise in both packages;
 # Adam normalizes that noise into +-lr steps of random sign. It has no
-# effect on any output, and parity checks leave it out.
+# effect on any output, and parity checks leave it out (:func:`bk_free`).
 FL_PARITY_TOL = 1e-5
+
+
+def bk_free(meta) -> torch.Tensor:
+    """Boolean ``(D,)`` mask of the flat vector without the ``attn/bk``
+    leaves: the elements parity checks compare (see ``FL_PARITY_TOL``)."""
+    keep = torch.ones(meta.total, dtype=torch.bool)
+    off = 0
+    for path, size in zip(meta.paths, meta.sizes):
+        keep[off:off + size] = not path.endswith("attn/bk")
+        off += size
+    return keep
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,7 +21,8 @@
 //
 // Design (simple and right first; wgmma/TMA and several heads per block are
 // later work):
-//   * grid (ceil(Sq / threads), H, B); one thread owns one query row and keeps
+//   * grid (ceil(Sq / threads), H, min(B, 65535)), the z blocks striding over
+//     the batch; one thread owns one query row and keeps
 //     q and its fp32 accumulator acc[HD] in registers (HD is a template
 //     parameter in {8, 16, 32, 64, 128});
 //   * the block walks the keys any of its rows can see in tiles of BK keys,
@@ -62,87 +63,90 @@ struct KeyTile {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kMaxThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int H, int KV, int kv_len, int causal, int has_window,
-                 long long window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, int B, int Sq,
+                 int Skv, int H, int KV, int kv_len, int causal,
+                 int has_window, long long window, float scale) {
   constexpr int BK = KeyTile<HD>::BK;
   __shared__ float ks[BK][HD];
   __shared__ float vs[BK][HD];
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int kvh = h / (H / KV);
-  const int q0 = blockIdx.x * blockDim.x;  // first query row of the block
-  const int qi = q0 + threadIdx.x;
-  const bool active = qi < Sq;
+  // grid-stride over the batch: gridDim.z stops at 65535, and the FL
+  // engine's vmap folds clients into B (K * batch rows), which can pass it
+  for (int b = blockIdx.z; b < B; b += gridDim.z) {
+    const int h = blockIdx.y;
+    const int kvh = h / (H / KV);
+    const int q0 = blockIdx.x * blockDim.x;  // first query row of the block
+    const int qi = q0 + threadIdx.x;
+    const bool active = qi < Sq;
 
-  float qr[HD];
-  float acc[HD];
+    float qr[HD];
+    float acc[HD];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = 0.f;
-    acc[d] = 0.f;
-  }
-  if (active) {
-    const T* qrow = q + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = load_f32(qrow + d);
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  // the keys some row of this block may attend to: [k_begin, k_end)
-  const int q_last = min(Sq, q0 + static_cast<int>(blockDim.x)) - 1;
-  long long k_end = kv_len;
-  if (causal) k_end = min(k_end, static_cast<long long>(q_last) + 1);
-  long long k_begin = 0;
-  if (has_window) k_begin = max(0LL, static_cast<long long>(q0) - window + 1);
-
-  const size_t key_stride = static_cast<size_t>(KV) * HD;
-  const size_t head_off =
-      (static_cast<size_t>(b) * Skv * KV + kvh) * static_cast<size_t>(HD);
-  const T* kbase = k + head_off;
-  const T* vbase = v + head_off;
-
-  for (long long t0 = k_begin; t0 < k_end; t0 += BK) {
-    const int nk = static_cast<int>(min(static_cast<long long>(BK), k_end - t0));
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < nk * HD; idx += blockDim.x) {
-      const int j = idx / HD;
-      const int d = idx - j * HD;
-      const size_t off = static_cast<size_t>(t0 + j) * key_stride + d;
-      ks[j][d] = load_f32(kbase + off);
-      vs[j][d] = load_f32(vbase + off);
+    for (int d = 0; d < HD; ++d) {
+      qr[d] = 0.f;
+      acc[d] = 0.f;
     }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < nk; ++j) {
-      const long long key = t0 + j;  // < kv_len by construction of k_end
-      if (causal && key > qi) continue;
-      if (has_window && key <= qi - window) continue;
-      float s = 0.f;
+    if (active) {
+      const T* qrow = q + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) s = fmaf(qr[d], ks[j][d], s);
-      s *= scale;
-      if (s > m) {
-        const float corr = expf(m - s);
-        l *= corr;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] *= corr;
-        m = s;
+      for (int d = 0; d < HD; ++d) qr[d] = load_f32(qrow + d);
+    }
+    float m = kNegInf;
+    float l = 0.f;
+
+    // the keys some row of this block may attend to: [k_begin, k_end)
+    const int q_last = min(Sq, q0 + static_cast<int>(blockDim.x)) - 1;
+    long long k_end = kv_len;
+    if (causal) k_end = min(k_end, static_cast<long long>(q_last) + 1);
+    long long k_begin = 0;
+    if (has_window) k_begin = max(0LL, static_cast<long long>(q0) - window + 1);
+
+    const size_t key_stride = static_cast<size_t>(KV) * HD;
+    const size_t head_off =
+        (static_cast<size_t>(b) * Skv * KV + kvh) * static_cast<size_t>(HD);
+    const T* kbase = k + head_off;
+    const T* vbase = v + head_off;
+
+    for (long long t0 = k_begin; t0 < k_end; t0 += BK) {
+      const int nk = static_cast<int>(min(static_cast<long long>(BK), k_end - t0));
+      __syncthreads();  // every thread is done with the previous tile / row
+      for (int idx = threadIdx.x; idx < nk * HD; idx += blockDim.x) {
+        const int j = idx / HD;
+        const int d = idx - j * HD;
+        const size_t off = static_cast<size_t>(t0 + j) * key_stride + d;
+        ks[j][d] = load_f32(kbase + off);
+        vs[j][d] = load_f32(vbase + off);
       }
-      const float p = expf(s - m);
-      l += p;
+      __syncthreads();
+      if (!active) continue;
+      for (int j = 0; j < nk; ++j) {
+        const long long key = t0 + j;  // < kv_len by construction of k_end
+        if (causal && key > qi) continue;
+        if (has_window && key <= qi - window) continue;
+        float s = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+        for (int d = 0; d < HD; ++d) s = fmaf(qr[d], ks[j][d], s);
+        s *= scale;
+        if (s > m) {
+          const float corr = expf(m - s);
+          l *= corr;
+#pragma unroll
+          for (int d = 0; d < HD; ++d) acc[d] *= corr;
+          m = s;
+        }
+        const float p = expf(s - m);
+        l += p;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+      }
     }
-  }
 
-  if (active) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD;
+    if (active) {
+      const float denom = fmaxf(l, 1e-30f);
+      T* orow = o + ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) store_f32(orow + d, acc[d] / denom);
+      for (int d = 0; d < HD; ++d) store_f32(orow + d, acc[d] / denom);
+    }
   }
 }
 
@@ -152,7 +156,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int has_window, long long window, float scale,
            cudaStream_t stream) {
   const int threads = Sq <= 32 ? 32 : (Sq <= 64 ? 64 : kMaxThreads);
-  const dim3 grid((Sq + threads - 1) / threads, H, B);
+  const dim3 grid((Sq + threads - 1) / threads, H, B < 65535 ? B : 65535);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -160,8 +164,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 #define REPRO_FA_CASE(HD)                                                      \
   case HD:                                                                     \
     flash_fwd_kernel<T, HD><<<grid, threads, 0, stream>>>(                     \
-        qp, kp, vp, op, Sq, Skv, H, KV, kv_len, causal, has_window, window,    \
-        scale);                                                                \
+        qp, kp, vp, op, B, Sq, Skv, H, KV, kv_len, causal, has_window,         \
+        window, scale);                                                        \
     break;
   switch (hd) {
     REPRO_FA_CASE(8)

@@ -19,8 +19,9 @@ rows are aligned, the lerp rounded step by step (bitwise equal to the plain
 version), and per-block float32 partial counts summed afterwards (no float
 atomics; see the source's header).
 
-``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel.
+``LAUNCHES`` counts the kernel launches of ``psgf_mix_batch`` and
+``LAUNCHES_SINGLE`` those of ``psgf_mix`` (and nothing else), so a run can
+show which wrapper its main path went through.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.psgf_mix.ref import psgf_mix_batch_ref, psgf_mix_ref
 
 LAUNCHES = 0
+LAUNCHES_SINGLE = 0
 _COUNT_LOCK = threading.Lock()
 _FNS = None
 
@@ -51,10 +53,11 @@ def _kernel_fns():
     return _FNS
 
 
-def _launch(w_global, w_clients, mask):
+def _launch(w_global, w_clients, mask, single=False):
     """Checks, then one kernel launch on the current stream. ``w_clients``
-    and ``mask`` are (K, D); returns (mixed (K, D), count 0-d float32)."""
-    global LAUNCHES
+    and ``mask`` are (K, D); returns (mixed (K, D), count 0-d float32).
+    ``single`` counts the launch for ``psgf_mix`` rather than the batch."""
+    global LAUNCHES, LAUNCHES_SINGLE
     tensors = (w_global, w_clients, mask)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("psgf_mix kernel takes float32 global, client and mask "
@@ -77,7 +80,10 @@ def _launch(w_global, w_clients, mask):
     if err != 0:
         raise RuntimeError(f"psgf_mix kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
-        LAUNCHES += 1
+        if single:
+            LAUNCHES_SINGLE += 1
+        else:
+            LAUNCHES += 1
     return out, partials.sum()
 
 
@@ -120,5 +126,6 @@ def psgf_mix(w_global, w_local, mask):
     out = _dispatch(w_global, w_local, mask, psgf_mix_ref)
     if out is not None:
         return out
-    mixed, count = _launch(w_global, w_local[None, :], mask[None, :])
+    mixed, count = _launch(w_global, w_local[None, :], mask[None, :],
+                           single=True)
     return mixed[0], count

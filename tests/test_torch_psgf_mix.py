@@ -76,6 +76,7 @@ def test_single_vector_cpu_path_matches_jax_kernel(kind, D):
     g, w = (rng.standard_normal(D).astype(np.float32) for _ in range(2))
     m = _masks(rng, kind, (D,))
     mixed, count = ops.psgf_mix(*(torch.from_numpy(a) for a in (g, w, m)))
+    assert ops.LAUNCHES_SINGLE == 0   # CPU tensors never launch the kernel
     jmixed, jcount = jops.psgf_mix(jnp.asarray(g), jnp.asarray(w),
                                    jnp.asarray(m), interpret=True)
     omixed, _ = jref.psgf_mix_ref(jnp.asarray(g), jnp.asarray(w), jnp.asarray(m))

@@ -45,20 +45,9 @@ def make_data():
     return {False: (mat[0], mat[2]), True: (raw[0], raw[2])}
 
 
-def bk_free(meta):
-    """Element mask of the flat vector without the ``attn/bk`` leaves."""
-    keep = np.ones(meta.total, bool)
-    off = 0
-    for path, size in zip(meta.paths, meta.sizes):
-        if path.endswith("attn/bk"):
-            keep[off:off + size] = False
-        off += size
-    return keep
-
-
 def same_state(jstate, tstate, meta):
     assert set(jstate) == set(tstate)
-    keep = bk_free(meta)
+    keep = TE.bk_free(meta).numpy()
     for name, j in jstate.items():
         j, t = np.asarray(j), tstate[name].cpu().numpy()
         assert j.shape == t.shape and j.dtype == t.dtype, name
