@@ -33,10 +33,20 @@ Phases, each of which raises (exit code != 0) on failure:
      a few rounds, checkpoints and the routing manifest; then the manifest
      served by ``ForecastServer.from_manifest``, one round of the 10-station
      cluster on the card against the same round on the CPU (selection, gates
-     and comm counters bitwise), and a ``torch.profiler`` split of a round.
+     and comm counters bitwise), and a ``torch.profiler`` split of a round;
+  6. hybrid serving: the ssm_scan kernel against its plain version at
+     hymba-1.5b's prefill shape (4, 2048, 3200, 16) in float32 and bf16, a
+     ragged shape, N = 4 and 64 and the final state, and flash attention at
+     hymba's (4, 2048, 25/5, 64) causal window-1024 shape, each timed; then
+     ``launch.serve.serve("hymba-1.5b", reduced=False)`` at full width
+     (1,662,161,600 params, batch 4, prompt 2048, 32 tokens) with the launch
+     counts of its prefill, a profiled prefill, full-width block 0 on the
+     card against the CPU, and reduced hymba in float32 on the card against
+     the CPU (tokens equal).
 
-Then it prints ``{"training": ...}``, one ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``, the
+Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``, one
+``{"kernels": [...]}`` line (flash attention, psgf_mix_batch, psgf_mix,
+ssm_scan), and last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``, the
 standard library and ``repro_torch`` (from ``src/`` beside this file) only.
 """
 from __future__ import annotations
@@ -327,10 +337,19 @@ def latency_quantiles(server) -> dict:
     return {q: quantile_from_buckets(cum, hist.bounds, q) for q in (0.5, 0.99)}
 
 
-def profile_forward(server, x, cluster, iters: int = 20) -> dict:
-    """Device busy time vs host wall time of ``iters`` served bucket
-    forwards, from ``torch.profiler``; device numbers are None when the
-    profiler recorded no device activity."""
+def host_ms(fn) -> float:
+    """Host wall time of one ``fn()`` that ends in a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def profile_device(fn, iters: int, unit: str) -> dict:
+    """Device busy time vs host wall time of ``iters`` calls of ``fn``, from
+    ``torch.profiler``; device numbers are None when the profiler recorded
+    no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,7 +357,7 @@ def profile_forward(server, x, cluster, iters: int = 20) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            server.predict(x, cluster=cluster)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     device_us, kernels, top = 0.0, 0, []
@@ -353,16 +372,22 @@ def profile_forward(server, x, cluster, iters: int = 20) -> dict:
         top.append((dev, ev.key))
     top.sort(reverse=True)
     if device_us == 0:
-        return {"wall_ms_per_forward": wall_ms, "device_ms_per_forward": None,
-                "device_idle_share": None, "device_ops_per_forward": None}
+        return {f"wall_ms_per_{unit}": wall_ms, f"device_ms_per_{unit}": None,
+                "device_idle_share": None, f"device_ops_per_{unit}": None}
     device_ms = device_us / 1e3 / iters
     return {
-        "wall_ms_per_forward": wall_ms,
-        "device_ms_per_forward": device_ms,
+        f"wall_ms_per_{unit}": wall_ms,
+        f"device_ms_per_{unit}": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-        "device_ops_per_forward": kernels / iters,
-        "top_device_ms_per_forward": {k: d / 1e3 / iters for d, k in top[:6]},
+        f"device_ops_per_{unit}": kernels / iters,
+        f"top_device_ms_per_{unit}": {k: d / 1e3 / iters for d, k in top[:6]},
     }
+
+
+def profile_forward(server, x, cluster, iters: int = 20) -> dict:
+    """``profile_device`` over ``iters`` served bucket forwards."""
+    return profile_device(lambda: server.predict(x, cluster=cluster), iters,
+                          "forward")
 
 
 def drive_serving(ops) -> dict:
@@ -792,6 +817,331 @@ def drive_training(mix_ops, flash_ops) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: hymba-1.5b hybrid decoder serving (the model zoo's hybrid family)
+# ---------------------------------------------------------------------------
+
+# published H100 SXM rates beside HBM and fp32 above: dense bf16 on the
+# tensor cores (NVIDIA data sheet), and the special-function units' ex2, 16
+# per clock per SM (CUDA C Programming Guide, compute capability 9.0) x 132
+# SMs x 1.98 GHz boost clock
+BF16_FLOP_PER_S = 989e12
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+
+# ssm_scan against its plain version: float32 within the reference's own
+# kernel tolerance (tests/test_kernels.py:270); bf16 within one bf16
+# rounding of the output (2^-8 relative, either side) of float32 values that
+# agree to SSM_F32_TOL
+SSM_F32_TOL = 1e-4
+SSM_BF16_RTOL = 2.0 ** -7
+HYMBA_SSM = (4, 2048, 3200, 16)         # prefill: B, S, d_inner, state
+HYMBA_ATTN = (4, 2048, 25, 5, 64)       # prefill: B, S, H, KV, hd
+HYMBA_WINDOW = 1024
+HYMBA_PARAMS = 1_662_161_600
+# flash attention at hymba's shape against its plain version: float32 as the
+# reference classes above (2e-5); bf16 output as the bf16 class above
+FLASH_HYMBA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# card against CPU in float32 (no TF32): cuBLAS and the CPU sum matmuls of
+# depth up to 5504 in other orders, the flash kernel's online softmax and
+# the dense one round differently, and the scan's dot with C sums in
+# another order; 1e-4 abs/rel is ~100x the float32 ulps of O(1) values
+HYBRID_CPU_TOL = 1e-4
+
+
+def ssm_inputs(gen, B, S, D, N, dtype):
+    x = torch.randn(B, S, D, generator=gen).to("cuda", dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, D, generator=gen)).to(
+        "cuda", dtype)
+    bm = torch.randn(B, S, N, generator=gen).to("cuda", dtype)
+    cm = torch.randn(B, S, N, generator=gen).to("cuda", dtype)
+    a = -torch.exp(0.1 * torch.randn(D, N, generator=gen)).to("cuda")
+    return x, dt, bm, cm, a
+
+
+def ssm_bound_ms(x, bm, a):
+    """Least time: x, dt, B, C and A read once, y written once, at the HBM
+    rate; the B*S*D*N exponentials on the special-function units; ~6 fp32
+    flops per (t, d, n) on the CUDA cores. The larger of the three."""
+    B, S, D = x.shape
+    N = a.shape[1]
+    nbytes = 3 * x.nbytes + 2 * bm.nbytes + a.nbytes
+    work = B * S * D * N
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(work / SFU_OPS_PER_S,
+                               6 * work / FP32_FLOP_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, nbytes, work
+
+
+def check_ssm_scan(ssm_ops, ssm_ref) -> dict:
+    """The ssm_scan kernel against its plain version on the card: hymba's
+    prefill shape in float32 and bf16, a ragged S and D, N = 4 and N = 64,
+    the final state; then times at the prefill's bf16 shape."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("hymba_f32", HYMBA_SSM, f32), ("hymba_bf16", HYMBA_SSM, bf16),
+             ("ragged", (1, 37, 300, 8), f32), ("n4", (2, 64, 128, 4), f32),
+             ("n64", (1, 100, 96, 64), f32), ("n64_bf16", (2, 50, 200, 64), bf16)]
+    errs = {}
+    for name, shape, dtype in cases:
+        args = ssm_inputs(gen, *shape, dtype)
+        before = ssm_ops.LAUNCHES
+        y, h = ssm_ops.ssm_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        if ssm_ops.LAUNCHES != before + 1:
+            raise RuntimeError(f"ssm_scan {name}: the wrapper did not launch")
+        want_y, want_h = ssm_ref.ssm_scan_ref(*args, return_state=True)
+        yerr = float((y.float() - want_y.float()).abs().max())
+        herr = float((h - want_h).abs().max())
+        rtol = SSM_F32_TOL if dtype == f32 else SSM_BF16_RTOL
+        ok_y = torch.allclose(y.float(), want_y.float(), atol=SSM_F32_TOL, rtol=rtol)
+        ok_h = torch.allclose(h, want_h, atol=SSM_F32_TOL, rtol=SSM_F32_TOL)
+        errs[name] = {"y_max_abs_err": yerr, "h_max_abs_err": herr}
+        if not (ok_y and ok_h and y.dtype == dtype and torch.isfinite(y).all()):
+            raise RuntimeError(f"ssm_scan {name}: kernel vs plain y {yerr}, h {herr}")
+        if name == "hymba_bf16":
+            main = (args, yerr)
+        del args, y, h, want_y, want_h
+    log(json.dumps({"kernel_cases": {"ssm_scan": errs}}))
+
+    args, err = main
+    kernel_ms = timed_ms(lambda: ssm_ops.ssm_scan(*args))
+    plain_ms = timed_ms(lambda: ssm_ref.ssm_scan_ref(*args), calls=1, reps=3)
+    kernel_ms2 = timed_ms(lambda: ssm_ops.ssm_scan(*args))
+    bound, by, nbytes, work = ssm_bound_ms(args[0], args[2], args[4])
+    return {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:73",
+        "tpu_kernel": "src/repro/kernels/ssm_scan/kernel.py::ssm_scan_kernel",
+        "shape": list(HYMBA_SSM), "dtype": "bfloat16",
+        "max_abs_err": err,
+        "ms": statistics.median([kernel_ms, kernel_ms2]),
+        "ms_runs": [kernel_ms, kernel_ms2],
+        "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes a selective scan",
+        "bytes": nbytes, "exponentials": work,
+        "cases": errs,
+    }
+
+
+def check_flash_hymba(ops, ref) -> dict:
+    """Flash attention at hymba's prefill shape (causal, window 1024, which
+    bites at 2048) against its plain version in float32 and bf16; times at
+    bf16, with ``scaled_dot_product_attention`` under the same mask as the
+    library's yardstick."""
+    B, S, H, KV, hd = HYMBA_ATTN
+    gen = torch.Generator().manual_seed(SEED + 4)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_inputs(gen, B, S, S, H, KV, hd, dtype)
+        before = ops.LAUNCHES
+        got = ops.flash_attention(q, k, v, causal=True, window=HYMBA_WINDOW)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES != before + 1:
+            raise RuntimeError("flash at hymba's shape: no kernel launch")
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=HYMBA_WINDOW)
+        err = float((got.float() - want.float()).abs().max())
+        errs[str(dtype).replace("torch.", "")] = err
+        if not err <= FLASH_HYMBA_TOL[dtype]:
+            raise RuntimeError(f"flash at hymba's shape ({dtype}): max |err| {err}")
+        del got, want
+    log(json.dumps({"kernel_cases": {"flash_attention_hymba": errs}}))
+    # q, k, v are the bf16 inputs of the last case
+    mask = ref.attention_mask(S, S, causal=True, window=HYMBA_WINDOW,
+                              kv_len=None, device="cuda")
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    kernel_ms = timed_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                     window=HYMBA_WINDOW), calls=5)
+    plain_ms = timed_ms(lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, window=HYMBA_WINDOW), calls=2, reps=3)
+    library_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), calls=5)
+    pairs = int(mask.sum())
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    flops = 4 * B * H * hd * pairs
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(flops / BF16_FLOP_PER_S,
+                               B * H * pairs / SFU_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return {"shape": [B, S, H, KV, hd], "dtype": "bfloat16", "causal": True,
+            "window": HYMBA_WINDOW, "max_abs_err": errs["bfloat16"],
+            "max_abs_err_float32": errs["float32"], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": times[by], "bound_by": by,
+            "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention(attn_mask=window mask)",
+            "bytes": nbytes, "flops": flops, "pairs": pairs}
+
+
+def numpy_params(spec_tree, seed):
+    """numpy params of a spec tree's shapes (scaled normals; ones and zeros
+    leaves perturbed so every weight matters)."""
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.models import spec as S
+
+    rng = np.random.default_rng(seed)
+
+    def make(s):
+        noise = rng.standard_normal(s.shape).astype(np.float32)
+        if s.init == "ones":
+            return 1.0 + 0.1 * noise
+        if s.init == "zeros":
+            return 0.1 * noise
+        return (S._scale(s) * noise).astype(np.float32)
+
+    return pt.tree_map(make, spec_tree, is_leaf=S.is_spec)
+
+
+def hybrid_reduced_card_vs_cpu() -> dict:
+    """Reduced hymba in float32 on the same numpy-made params: prefill of 48
+    tokens (the window of 32 wraps) and 8 greedy decode steps on the card
+    and on the CPU; tokens equal, logits within HYBRID_CPU_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.api import ModelApi
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), dtype="float32")
+    host = numpy_params(decoder.model_spec(cfg), SEED)
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 48))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        api = ModelApi(cfg, dev)
+        params = decoder.params_from_numpy(host, dev)
+        with torch.inference_mode():
+            logits, cache = api.prefill(params, {"tokens": torch.from_numpy(toks).to(dev)},
+                                        cache_len=56)
+            out, steps = [], [logits[:, -1].float().cpu()]
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            for i in range(8):
+                out.append(tok.cpu())
+                logits, cache = api.decode_step(params, cache, tok, 48 + i)
+                steps.append(logits[:, -1].float().cpu())
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        runs[dev] = (torch.cat(out, dim=1), torch.stack(steps))
+    (tg, lg), (tc, lc) = runs["cuda"], runs["cpu"]
+    err = float((lg - lc).abs().max())
+    if not (torch.equal(tg, tc) and torch.allclose(lg, lc, atol=HYBRID_CPU_TOL,
+                                                   rtol=HYBRID_CPU_TOL)):
+        raise RuntimeError(f"reduced hymba card vs CPU: tokens equal "
+                           f"{torch.equal(tg, tc)}, logits max |err| {err}")
+    return {"tokens_equal": True, "logits_max_abs_err": err,
+            "tokens": tg[0].tolist()}
+
+
+def hybrid_block0_card_vs_cpu(params) -> dict:
+    """Block 0 of full-width hymba alone, B = 1, S = 256, float32: the card
+    (flash and ssm_scan kernels) against the CPU (dense attention, the
+    scan's plain version), from the same weights."""
+    import dataclasses
+
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), dtype="float32")
+    p0 = pt.tree_map(lambda a: a[0], params["blocks"])
+    emb = params["embed"]["embedding"]
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, 256))).cuda()
+    x = emb[toks]
+    pos = torch.arange(256, dtype=torch.int32, device="cuda")
+    outs = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            p = pt.tree_map(lambda a: a.to(dev), p0)
+            y, _ = decoder._block_apply(cfg, p, x.to(dev), pos.to(dev), 0.0, "auto")
+            outs[dev] = y.cpu()
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    if not (torch.isfinite(outs["cuda"]).all()
+            and torch.allclose(outs["cuda"], outs["cpu"], atol=HYBRID_CPU_TOL,
+                               rtol=HYBRID_CPU_TOL)):
+        raise RuntimeError(f"hymba block 0 card vs CPU: max |err| {err}")
+    return {"shape": [1, 256, cfg.d_model], "max_abs_err": err,
+            "max_abs_out": float(outs["cpu"].abs().max())}
+
+
+def drive_hybrid_serving(ssm_ops, flash_ops) -> dict:
+    """Phase 6's main path: ``serve("hymba-1.5b")`` at full width on the
+    card, then a profiled prefill and the card-against-CPU checks."""
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch.api import ModelApi
+    from repro_torch.launch.serve import serve
+
+    B, S, _, _, _ = HYMBA_ATTN
+    gen = 32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssm_ops.LAUNCHES = 0                   # every kernel count, just before
+    flash_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rep = serve("hymba-1.5b", batch=B, prompt_len=S, gen=gen, reduced=False,
+                device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"ssm_scan": ssm_ops.LAUNCHES,          # ... and just after
+                "flash_attention": flash_ops.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = get_config("hymba-1.5b")
+    toks = rep["tokens"]
+    if rep["params"] != HYMBA_PARAMS:
+        raise RuntimeError(f"hymba-1.5b has {rep['params']} params")
+    if launches != {"ssm_scan": cfg.num_layers, "flash_attention": cfg.num_layers}:
+        raise RuntimeError(f"kernel launches {launches} for one prefill of "
+                           f"{cfg.num_layers} layers")
+    if toks.shape != (B, gen) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise RuntimeError(f"generated tokens {toks.shape} out of range")
+
+    # one prefill under the profiler, from the same key's weights
+    api = ModelApi(cfg, "cuda")
+    params = api.init_params(R.PRNGKey(0))
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    def prefill():
+        return api.prefill(params, {"tokens": prompt}, cache_len=S + gen)
+
+    with torch.inference_mode():
+        logits, cache = prefill()
+        if logits.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
+            raise RuntimeError(f"prefill logits {tuple(logits.shape)} not finite")
+        warm_prefill_ms = host_ms(prefill)
+        prof = profile_device(prefill, 1, "prefill")
+        # decode from that prefill's cache: warm, timed, then profiled steps
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        api.decode_step(params, cache, tok, S)
+        steps = 8
+        warm_decode_ms = host_ms(lambda: [api.decode_step(params, cache, tok, S + 1 + i)
+                                          for i in range(steps)]) / steps
+        dprof = profile_device(lambda: api.decode_step(params, cache, tok, S + 9),
+                               4, "decode_step")
+    block0 = hybrid_block0_card_vs_cpu(params)
+    del params, logits, cache
+    reduced = hybrid_reduced_card_vs_cpu()
+    return {
+        "model": cfg.name, "params": rep["params"], "batch": B,
+        "prompt_len": S, "gen": gen, "activations": cfg.dtype,
+        "weights": "float32 from PRNGKey(0)",
+        "init_s": rep["init_s"], "prefill_ms": rep["prefill_ms"],
+        "decode_ms_per_token": rep["decode_ms_per_token"],
+        "serve_wall_s": wall_s, "peak_memory_bytes": peak,
+        "launches_prefill": launches,
+        "first_tokens": toks[:, :8].tolist(),
+        "prefill_ms_warm": warm_prefill_ms,
+        "decode_ms_per_token_warm": warm_decode_ms,
+        "profile_prefill": prof,
+        "profile_decode_step": dprof,
+        "block0_card_vs_cpu": block0,
+        "reduced_card_vs_cpu": reduced,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -808,6 +1158,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.kernels.psgf_mix import ops as mix_ops
     from repro_torch.kernels.psgf_mix import ref as mix_ref
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref
 
     # 1. card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -845,7 +1197,17 @@ def main() -> int:
     mix_record["k1_psgf_mix"]["launches"] = training["launches"]["psgf_mix"]
     record["launches_training"] = training["launches"]["flash_attention"]
     log(json.dumps({"training": training}))
-    log(json.dumps({"kernels": [record, mix_record]}))
+
+    # 6. hymba-1.5b hybrid serving
+    ssm_record = check_ssm_scan(ssm_ops, ssm_ref)
+    record["hybrid_prefill"] = check_flash_hymba(ops, ref)
+    hybrid = drive_hybrid_serving(ssm_ops, ops)
+    ssm_record["launches"] = hybrid["launches_prefill"]["ssm_scan"]
+    record["hybrid_prefill"]["launches"] = hybrid["launches_prefill"]["flash_attention"]
+    log(json.dumps({"hybrid_serving": hybrid}))
+
+    k1_record = mix_record.pop("k1_psgf_mix")
+    log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,125 @@
+"""Public wrapper of the ssm_scan kernel (counterpart of
+``repro.kernels.ssm_scan.ops``): the Mamba-style selective scan of hymba's
+SSM heads.
+
+    y = ssm_scan(x, dt, Bm, Cm, A)                        # (B, S, D)
+    y, h = ssm_scan(x, dt, Bm, Cm, A, return_state=True)  # h (B, D, N) fp32
+
+  * CUDA tensors launch the hand-written kernel
+    (``repro_torch/csrc/ssm_scan.cu``, built at first use): x, dt, Bm, Cm
+    float32 or bfloat16 (one type), A float32, contiguous, one device, N in
+    :data:`STATE_DIMS`, no input that requires grad. Anything else RAISES —
+    there is no fallback;
+  * CPU tensors run the plain PyTorch version (:mod:`.ref`).
+
+Unlike the reference's wrapper there is no ``chunk`` or ``d_block``: the
+kernel walks S and D as they are (ragged edges by loop bounds), so nothing
+is padded, and the reference's ``test_ssm_scan_chunk_invariance`` shows the
+two only tiled the TPU's work.
+
+Replaces ``src/repro/kernels/ssm_scan/kernel.py::ssm_scan_kernel``
+(``pallas_call`` at kernel.py:73). Bound: the B*S*D*N exponentials on the
+special-function units (see the source's header). No gradient: the
+reference trains hymba through ``lax.scan`` and its kernel has no VJP
+(training is ROADMAP Queue A item 14).
+
+``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
+that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+STATE_DIMS = (4, 8, 16, 32, 64)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_GRID_LIMIT = 65535          # gridDim.y (batch)
+
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+_FN = None
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        fn = _build.load("ssm_scan").ssm_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check_shapes(x, dt, Bm, Cm, A):
+    if x.dim() != 3 or A.dim() != 2:
+        raise ValueError(f"ssm_scan wants x, dt (B,S,D), Bm, Cm (B,S,N), A (D,N);"
+                         f" got x {tuple(x.shape)}, A {tuple(A.shape)}")
+    batch, S, D = x.shape
+    N = A.shape[1]
+    if (tuple(dt.shape) != (batch, S, D) or tuple(Bm.shape) != (batch, S, N)
+            or tuple(Cm.shape) != (batch, S, N) or A.shape[0] != D):
+        raise ValueError(
+            f"ssm_scan shapes do not match: x {tuple(x.shape)}, dt "
+            f"{tuple(dt.shape)}, Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}, "
+            f"A {tuple(A.shape)}")
+
+
+def _launch(x, dt, Bm, Cm, A, return_state):
+    """Checks, then one kernel launch on the current stream."""
+    global LAUNCHES
+    tensors = (x, dt, Bm, Cm, A)
+    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in (dt, Bm, Cm)):
+        raise TypeError("ssm_scan kernel takes float32 or bfloat16 x, dt, Bm, Cm "
+                        f"of one type; got {[str(t.dtype) for t in tensors[:4]]}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"ssm_scan kernel takes a float32 A; got {A.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssm_scan kernel takes contiguous tensors")
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError("ssm_scan kernel has no gradient (the reference's "
+                           "TPU kernel has no VJP; training hymba is ROADMAP "
+                           "Queue A item 14)")
+    batch, S, D = x.shape
+    N = A.shape[1]
+    if N not in STATE_DIMS:
+        raise ValueError(f"state dim {N} not supported by the kernel "
+                         f"(supported: {STATE_DIMS})")
+    if batch > _GRID_LIMIT:
+        raise ValueError(f"batch {batch} above the grid limit {_GRID_LIMIT}")
+    y = torch.empty_like(x)
+    h = (torch.zeros(batch, D, N, dtype=torch.float32, device=x.device)
+         if return_state else None)
+    if y.numel() == 0:
+        return (y, h) if return_state else y
+    fn = _kernel_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 A.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
+                 _DTYPE_CODES[x.dtype], batch, S, D, N, stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+    return (y, h) if return_state else y
+
+
+def ssm_scan(x, dt, Bm, Cm, A, *, return_state=False):
+    """x, dt: (B, S, D); Bm, Cm: (B, S, N); A: (D, N) -> y (B, S, D) in
+    x.dtype; with ``return_state`` also the final state h (B, D, N) float32
+    (zeros for S = 0)."""
+    _check_shapes(x, dt, Bm, Cm, A)
+    devices = {t.device for t in (x, dt, Bm, Cm, A)}
+    if len(devices) != 1:
+        raise ValueError(f"ssm_scan: tensors on different devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return ssm_scan_ref(x, dt, Bm, Cm, A, return_state=return_state)
+    if device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on CUDA or CPU tensors, not {device}")
+    return _launch(x, dt, Bm, Cm, A, return_state)

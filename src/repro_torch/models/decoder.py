@@ -1,0 +1,229 @@
+"""Decoder-only LM of the model zoo (counterpart of ``repro.models.decoder``),
+ported for the ``hybrid`` family (hymba: attention and a Mamba branch in
+parallel, then a gated MLP). Other families raise ``NotImplementedError``
+(ROADMAP Queue A item 14).
+
+Public API, as the reference's:
+  model_spec / init_params(cfg, key)              -- params from a key
+  forward(cfg, params, tokens)                    -- logits over a sequence
+  prefill(cfg, params, tokens, cache_len=...)     -- prompt -> (logits, cache)
+  decode_step(cfg, params, cache, token, pos)     -- one token
+  init_cache(cfg, batch, cache_len)               -- KV ring buffer + SSM state
+
+The reference scans over the stacked layer axis; the port loops over it.
+Its prefill derives each layer's final SSM state by a second scan
+(``_ssm_final_state``); here the ssm_scan kernel returns it with ``y``.
+``decode_step`` updates the cache in place (see ``layers.decode_attention``).
+:func:`params_from_numpy` / :func:`params_to_numpy` carry weights across
+packages: the JAX tree's paths and shapes, unchanged.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common import pytree_utils as pt
+from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.core.forecaster import params_from_numpy, params_to_numpy  # noqa: F401
+from repro_torch.models import layers as L
+from repro_torch.models import spec as S
+from repro_torch.models.config import ModelConfig
+
+FAMILIES = ("hybrid",)
+
+
+def _check_family(cfg: ModelConfig):
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"decoder family {cfg.family!r} ({cfg.name}) is not ported yet "
+            f"(ROADMAP Queue A item 14); ported: {FAMILIES}")
+
+
+# ---------------------------------------------------------------------------
+# Spec
+# ---------------------------------------------------------------------------
+
+
+def block_spec(cfg: ModelConfig):
+    _check_family(cfg)
+    d = cfg.d_model
+    return {
+        "ln1": L.norm_spec(d),
+        "attn": L.attention_spec(cfg),
+        "ssm": L.ssm_spec(cfg),
+        "ln2": L.norm_spec(d),
+        "mlp": L.mlp_spec(d, cfg.d_ff),
+    }
+
+
+def model_spec(cfg: ModelConfig):
+    return {
+        "embed": L.embed_spec(cfg),
+        "blocks": S.stack_layers(block_spec(cfg), cfg.num_layers),
+        "final_norm": L.norm_spec(cfg.d_model),
+        "head": L.head_spec(cfg),
+    }
+
+
+def init_params(cfg: ModelConfig, key, device=DEFAULT_DEVICE):
+    """The reference's ``init_params(cfg, key)``: one key per leaf, the same
+    draws up to ``erfinv``'s last ulps (``repro_torch.random.normal``),
+    made on ``device``."""
+    return S.init_params_from_key(model_spec(cfg), key, resolve_device(device))
+
+
+def _layer_flags(cfg: ModelConfig):
+    """Per-layer scalar flags (the xLSTM sLSTM mix); zeros for the other
+    families."""
+    return [0.0] * cfg.num_layers
+
+
+def _layer(params, i: int):
+    return pt.tree_map(lambda a: a[i], params["blocks"])
+
+
+# ---------------------------------------------------------------------------
+# Blocks — full sequence (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _block_apply(cfg: ModelConfig, p, x, positions, flag, attn_impl,
+                 with_cache=False):
+    """One hybrid block over the full sequence. Returns (x, aux), and with
+    ``with_cache`` (x, aux, cache entries {"kv": (k, v), "ssm": state})."""
+    _check_family(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    a = L.self_attention(p["attn"], h, positions, cfg,
+                         window=cfg.attention_window, attn_impl=attn_impl,
+                         return_kv=with_cache)
+    s = L.ssm_apply(p["ssm"], h, cfg, return_state=with_cache)
+    if with_cache:
+        (a, k, v), (s, state) = a, s
+    x = x + 0.5 * (a + s)
+    h = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    x = x + L.mlp_apply(p["mlp"], h)
+    return (x, aux, {"kv": (k, v), "ssm": state}) if with_cache else (x, aux)
+
+
+def forward_hidden(cfg: ModelConfig, params, x, positions, attn_impl="auto"):
+    """Run the block stack. x: (B,S,d) already embedded."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, flag in enumerate(_layer_flags(cfg)):
+        x, aux = _block_apply(cfg, _layer(params, i), x, positions, flag,
+                              attn_impl)
+        aux_total = aux_total + aux
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return x, aux_total
+
+
+def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
+    """Token embedding (the ``vlm`` patch prefix waits with its family)."""
+    _check_family(cfg)
+    return L.embed_apply(params["embed"], tokens, cfg.activation_dtype)
+
+
+def forward(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto"):
+    x = embed_inputs(cfg, params, tokens, img_embeds)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, aux = forward_hidden(cfg, params, x, positions, attn_impl)
+    logits = L.head_apply(params["head"], params["embed"], x, cfg)
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# Cache / decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
+               device=DEFAULT_DEVICE):
+    """Layer-leading cache tree, keyed as the reference's."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.activation_dtype
+    shp = L.ssm_state_shape(cfg, batch)
+    return {
+        "kv": L.init_kv_cache(cfg, batch, cache_len, dtype, dev),
+        "ssm": {
+            "h": torch.zeros(shp["h"], dtype=torch.float32, device=dev),
+            "conv": torch.zeros(shp["conv"], dtype=dtype, device=dev),
+        },
+    }
+
+
+def _block_decode(cfg: ModelConfig, p, x, layer_cache, pos, flag):
+    _check_family(cfg)
+    new_cache = {}
+    h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+    a, new_cache["kv"] = L.decode_attention(p["attn"], h, layer_cache["kv"], pos, cfg)
+    s, new_cache["ssm"] = L.ssm_decode(p["ssm"], h, layer_cache["ssm"], cfg)
+    x = x + 0.5 * (a + s)
+    h = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+    x = x + L.mlp_apply(p["mlp"], h)
+    return x, new_cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, pos):
+    """One autoregressive step. token: (B,1) integer; pos: int. Returns
+    (logits (B,1,V), cache), the cache updated in place."""
+    pos = int(pos)
+    x = L.embed_apply(params["embed"], token, cfg.activation_dtype)
+    for i, flag in enumerate(_layer_flags(cfg)):
+        layer_cache = pt.tree_map(lambda a: a[i], cache)
+        x, new = _block_decode(cfg, _layer(params, i), x, layer_cache, pos, flag)
+        cache["ssm"]["h"][i].copy_(new["ssm"]["h"])
+        cache["ssm"]["conv"][i].copy_(new["ssm"]["conv"])
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = L.head_apply(params["head"], params["embed"], x, cfg)
+    return logits, cache
+
+
+def _to_cache_layout(seq_arrays, slot_pos, phys_target: int, Stot: int):
+    """Lay out prefill K/V so that position p sits in slot ``p % phys_target``
+    (the ring-buffer invariant decode_attention relies on). seq_arrays:
+    tensors with the sequence on dim 1; slot_pos: (Stot,) absolute positions.
+
+    If phys_target >= Stot: identity layout + right-padding (slot_pos=-1).
+    Else: keep the last phys_target positions, rolled by Stot % phys_target.
+    """
+    if phys_target >= Stot:
+        pad = phys_target - Stot
+        out = [F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in seq_arrays]
+        sp = F.pad(slot_pos, (0, pad), value=-1)
+        return out, sp
+    shift = Stot % phys_target
+    out = [torch.roll(a[:, -phys_target:], shift, dims=1) for a in seq_arrays]
+    sp = torch.roll(slot_pos[-phys_target:], shift)
+    return out, sp
+
+
+def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
+            cache_len: Optional[int] = None):
+    """Process a prompt, returning (last_logits (B,1,V), cache).
+
+    ``cache_len`` is the logical cache capacity the following decode will
+    use (>= prompt length); the physical cache is min(window, cache_len).
+    Each layer's K/V come from its attention, its SSM state from the scan
+    kernel's final state and its conv state from the last K-1 inputs."""
+    x = embed_inputs(cfg, params, tokens, img_embeds)
+    Stot = x.shape[1]
+    cache_len = cache_len or Stot
+    if cache_len < Stot:
+        raise ValueError(f"cache_len {cache_len} < prompt length {Stot}")
+    positions = torch.arange(Stot, dtype=torch.int32, device=x.device)
+    window = cfg.attention_window
+    phys = cache_len if window is None else min(window, cache_len)
+    entries = []
+    for i, flag in enumerate(_layer_flags(cfg)):
+        x, _, e = _block_apply(cfg, _layer(params, i), x, positions, flag,
+                               attn_impl, with_cache=True)
+        (kc, vc), sp = _to_cache_layout(list(e["kv"]), positions, phys, Stot)
+        entries.append({"kv": {"k": kc, "v": vc, "slot_pos": sp},
+                        "ssm": e["ssm"]})
+    cache = pt.tree_map(lambda *cs: torch.stack(cs), *entries)
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = L.head_apply(params["head"], params["embed"], x[:, -1:, :], cfg)
+    return logits, cache

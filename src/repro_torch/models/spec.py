@@ -65,6 +65,27 @@ def _init_one(spec: ArraySpec, draw, device: torch.device) -> torch.Tensor:
     return (_scale(spec) * draw(spec.shape)).to(device=device, dtype=spec.dtype)
 
 
+# Draws per counter range in :func:`normal_in_ranges`. ``repro_torch.random``
+# holds several int64 tensors of the draw's size at once (counters, words,
+# hash rounds): 2**24 draws keep that near 1 GB, where hymba-1.5b's largest
+# leaf (mlp/w_up, 32 x 1600 x 5504 = 282 M draws) would need tens of GB.
+DRAW_RANGE = 1 << 24
+
+
+def normal_in_ranges(key, shape, range_size: int = DRAW_RANGE) -> torch.Tensor:
+    """``R.normal(key, shape)``, drawn over counter ranges of at most
+    ``range_size`` draws into one float32 output: the ranges concatenate to
+    the whole draw bit for bit (every draw depends on its counter alone)."""
+    n = math.prod(shape)
+    if n <= range_size:
+        return R.normal(key, shape)
+    out = torch.empty(n, dtype=torch.float32, device=key.device)
+    for start in range(0, n, range_size):
+        size = min(range_size, n - start)
+        out[start:start + size] = R.normal(key, (size,), start)
+    return out.reshape(shape)
+
+
 def init_params(spec_tree, generator: torch.Generator, device) -> dict:
     """Materialize a parameter tree, drawing leaves in JAX's (sorted-key)
     leaf order from ``generator``. Draws happen on the generator's own
@@ -84,7 +105,8 @@ def init_params_from_key(spec_tree, key, device) -> dict:
     pairs = pt.flatten_with_paths(spec_tree, is_leaf=is_spec)
     keys = R.split(key.to(device), max(len(pairs), 1))
     return pt.unflatten([
-        (path, _init_one(s, lambda shape, k=k: R.normal(k, shape), device))
+        (path, _init_one(s, lambda shape, k=k: normal_in_ranges(k, shape),
+                         device))
         for (path, s), k in zip(pairs, keys)])
 
 
@@ -92,6 +114,17 @@ def abstract_params(spec_tree):
     """Tree of ``meta`` tensors: shapes and dtypes, no storage."""
     return pt.tree_map(
         lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        spec_tree, is_leaf=is_spec)
+
+
+def stack_layers(spec_tree, num_layers: int):
+    """Prepend a ``layers`` axis to every spec in the tree: per-layer params
+    carry a leading ``num_layers`` dimension, as in the reference (which
+    scans over it; the port loops)."""
+    return pt.tree_map(
+        lambda s: ArraySpec(shape=(num_layers,) + tuple(s.shape),
+                            axes=("layers",) + tuple(s.axes), init=s.init,
+                            dtype=s.dtype),
         spec_tree, is_leaf=is_spec)
 
 

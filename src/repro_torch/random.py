@@ -68,13 +68,14 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def _hash_counts(key, shape: Tuple[int, ...]):
-    """Threefry of the row-major counters ``0 .. prod(shape)-1`` under each
-    key of ``key`` (``(..., 2)``): two word tensors of shape
+def _hash_counts(key, shape: Tuple[int, ...], start: int = 0):
+    """Threefry of the row-major counters ``start .. start+prod(shape)-1``
+    under each key of ``key`` (``(..., 2)``): two word tensors of shape
     ``key.shape[:-1] + shape``. Counters are 64-bit, split high/low
     (``iota_2x32_shape``)."""
     n = math.prod(shape)
-    count = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    count = torch.arange(start, start + n, dtype=torch.int64,
+                         device=key.device).reshape(shape)
     lead = key.shape[:-1]
     k0 = key[..., 0].reshape(lead + (1,) * len(shape))
     k1 = key[..., 1].reshape(lead + (1,) * len(shape))
@@ -101,28 +102,33 @@ def fold_in(key, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def bits(key, shape: Shape) -> torch.Tensor:
+def bits(key, shape: Shape, start: int = 0) -> torch.Tensor:
     """Raw 32-bit draws (``jax.random.bits``, uint32), as int64 in
-    ``[0, 2**32)``: the xor of the two threefry output words."""
-    y0, y1 = _hash_counts(key, _shape(shape))
+    ``[0, 2**32)``: the xor of the two threefry output words. ``start``
+    skips that many draws of the flat, row-major sequence: the draws of
+    ``bits(key, (n,))`` at ``start .. start+prod(shape)-1``, so a large
+    draw can be made in counter ranges that concatenate to it bit for bit."""
+    y0, y1 = _hash_counts(key, _shape(shape), start)
     return y0 ^ y1
 
 
-def uniform(key, shape: Shape = ()) -> torch.Tensor:
+def uniform(key, shape: Shape = (), start: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
-    23 bits as the mantissa of a float in ``[1, 2)``, minus 1."""
-    b = bits(key, shape)
+    23 bits as the mantissa of a float in ``[1, 2)``, minus 1 (``start`` as
+    in :func:`bits`)."""
+    b = bits(key, shape, start)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
 
 
-def normal(key, shape: Shape = ()) -> torch.Tensor:
+def normal(key, shape: Shape = (), start: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` in float32: ``sqrt(2) *
     erfinv(u)`` with ``u`` uniform on ``(-1, 1)`` drawn as jax draws it
-    (bitwise); torch's ``erfinv`` differs from XLA's by a few ulps."""
+    (bitwise); torch's ``erfinv`` differs from XLA's by a few ulps
+    (``start`` as in :func:`bits`)."""
     lo = torch.tensor(-0.99999994, dtype=torch.float32, device=key.device)
     hi = torch.ones((), dtype=torch.float32, device=key.device)
-    u = torch.maximum(lo, uniform(key, shape) * (hi - lo) + lo)
+    u = torch.maximum(lo, uniform(key, shape, start) * (hi - lo) + lo)
     return torch.erfinv(u) * torch.tensor(1.4142135, dtype=torch.float32,
                                           device=key.device)
 

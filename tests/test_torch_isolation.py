@@ -59,7 +59,13 @@ def test_importing_every_module_pulls_in_no_jax():
     for name in ("repro_torch.random", "repro_torch.core.fl.engine",
                  "repro_torch.core.fl.masks", "repro_torch.core.fl.policies",
                  "repro_torch.data.clustering",
-                 "repro_torch.kernels.psgf_mix.ops"):
+                 "repro_torch.kernels.psgf_mix.ops",
+                 "repro_torch.kernels.ssm_scan.ops",
+                 "repro_torch.kernels.ssm_scan.ref",
+                 "repro_torch.models.config", "repro_torch.models.layers",
+                 "repro_torch.models.decoder", "repro_torch.configs",
+                 "repro_torch.configs.hymba_1_5b", "repro_torch.launch.api",
+                 "repro_torch.launch.serve"):
         assert name in rep["modules"]
     assert rep["bad"] == []
 
@@ -142,6 +148,20 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: cluster_clients(series, 2),
         lambda: T.run_experiment(spec),
         lambda: T.main(["--rounds", "1"]),
+    ]
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as llm_serve
+    from repro_torch.launch.api import ModelApi
+    from repro_torch.models import decoder
+
+    hymba = get_config("hymba-1.5b").reduced()
+    calls += [
+        lambda: llm_serve.serve("hymba-1.5b"),
+        lambda: llm_serve.main(["--arch", "hymba-1.5b"]),
+        lambda: ModelApi(hymba),
+        lambda: decoder.init_params(hymba, R.PRNGKey(0)),
+        lambda: decoder.init_cache(hymba, 1, 4),
+        lambda: decoder.params_from_numpy({"w": np.ones(2, np.float32)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -266,3 +266,108 @@ def test_vmap_grad_through_flash_kernel_matches_dense_on_the_card(cuda):
     g_dense, l_dense = grads(cfg)
     torch.testing.assert_close(l_flash, l_dense, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(g_flash, g_dense, atol=1e-4, rtol=1e-4)
+
+
+# ---------------- ssm_scan ----------------
+
+from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
+
+# float32: the kernel rounds the state update as the plain version does;
+# only the dot with C sums in another order, over 2048 serial steps at most
+SSM_F32_TOL = 1e-4
+# bfloat16 output: one bf16 rounding (2^-8 relative, either side) of values
+# that agree to SSM_F32_TOL in float32
+SSM_BF16_RTOL = 2.0 ** -7
+
+SSM_CASES = [
+    # B, S, D, N, dtype
+    (4, 512, 3200, 16, torch.float32),       # hymba's width, a shorter prompt
+    (2, 300, 3200, 16, torch.bfloat16),
+    (1, 37, 300, 8, torch.float32),          # ragged S and D
+    (2, 64, 128, 4, torch.float32),
+    (1, 100, 96, 64, torch.float32),
+    (3, 130, 70, 32, torch.bfloat16),
+]
+
+
+def _ssm_inputs(seed, B, S, D, N, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, D)))).astype(np.float32)
+    bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    a = -np.exp(0.1 * rng.standard_normal((D, N))).astype(np.float32)
+    return ([torch.from_numpy(t).to(device, dtype) for t in (x, dt, bm, cm)]
+            + [torch.from_numpy(a).to(device)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, case):
+    B, S, D, N, dtype = case
+    args = _ssm_inputs(B + S + D + N, B, S, D, N, cuda, dtype)
+    before = ssm_ops.LAUNCHES
+    y, h = ssm_ops.ssm_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert ssm_ops.LAUNCHES == before + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    want_y, want_h = ssm_scan_ref(*args, return_state=True)
+    torch.testing.assert_close(h, want_h, atol=SSM_F32_TOL, rtol=SSM_F32_TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, atol=SSM_F32_TOL, rtol=SSM_F32_TOL)
+    else:
+        torch.testing.assert_close(y.float(), want_y.float(), atol=SSM_F32_TOL,
+                                   rtol=SSM_BF16_RTOL)
+    assert torch.equal(ssm_ops.ssm_scan(*args), y)       # no state: same y
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, bm, cm, a = _ssm_inputs(0, 1, 8, 16, 4, cuda)
+    with pytest.raises(ValueError, match="state dim"):
+        ssm_ops.ssm_scan(*_ssm_inputs(0, 1, 8, 16, 5, cuda))
+    with pytest.raises(TypeError):
+        ssm_ops.ssm_scan(x.half(), dt.half(), bm.half(), cm.half(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_ops.ssm_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                         bm, cm, a)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ssm_ops.ssm_scan(x.requires_grad_(), dt, bm, cm, a)
+    with pytest.raises(ValueError, match="different devices"):
+        ssm_ops.ssm_scan(x.detach().cpu(), dt, bm, cm, a)
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_and_decode_on_the_card_match_cpu(cuda):
+    """Reduced hymba in float32, the same params on both devices: the card
+    runs both kernels (flash attention, ssm_scan), the CPU their plain
+    versions and dense attention."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder as TD
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), dtype="float32")
+    params = TD.init_params(cfg, R.PRNGKey(0), device="cpu")
+    tp = pt.tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)))
+    fa_before, ssm_before = ops.LAUNCHES, ssm_ops.LAUNCHES
+    got_l, got_c = TD.prefill(cfg, tp, toks.to(cuda), cache_len=56)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == fa_before + cfg.num_layers
+    assert ssm_ops.LAUNCHES == ssm_before + cfg.num_layers
+    want_l, want_c = TD.prefill(cfg, params, toks, cache_len=56)
+    tol = 1e-4          # cuBLAS vs CPU sums, online vs dense softmax
+    torch.testing.assert_close(got_l.cpu(), want_l, atol=tol, rtol=tol)
+    for (path, g), (_, w) in zip(pt.flatten_with_paths(got_c),
+                                 pt.flatten_with_paths(want_c)):
+        torch.testing.assert_close(g.cpu(), w, atol=tol, rtol=tol, msg=path)
+    tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
+    for i in range(4):
+        got_l, got_c = TD.decode_step(cfg, tp, got_c, tok.to(cuda), 48 + i)
+        want_l, want_c = TD.decode_step(cfg, params, want_c, tok, 48 + i)
+        torch.testing.assert_close(got_l.cpu(), want_l, atol=tol, rtol=tol)
+        tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
