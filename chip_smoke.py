@@ -12,13 +12,16 @@ Phases, each of which raises (exit code != 0) on failure:
      compiler's register/spill report;
   3. kernels: call each kernel's wrapper on the card at the shapes the main
      paths give it and at the reference test classes, hold it against its
-     plain PyTorch version (flash attention within its tolerance at the
-     serving buckets, at training's K x 32 and evaluation's K x n_test rows
-     of each cluster and past the grid's batch limit, one backward, and one
-     vmap(grad) over 27 clients against dense attention; psgf_mix bitwise
-     at K = 21 / 27 / 10 clients of D = 273,284, a ragged D, a non-binary
-     mask and the K = 1 case), and time the kernel, the plain version and
-     the closest PyTorch call;
+     plain PyTorch version (flash attention on both routes: the scalar
+     kernel within its tolerance at the serving buckets, at training's
+     K x 32 and evaluation's K x n_test rows of each cluster and past the
+     grid's batch limit, one backward, and one vmap(grad) over 27 clients
+     against dense attention; the tensor-core kernel, bf16 at hd 64 and 128,
+     within its relative bound on GQA, windowed, ragged, padded, empty and
+     past-the-grid cases, each call on the route it should take; psgf_mix
+     bitwise at K = 21 / 27 / 10 clients of D = 273,284, a ragged D, a
+     non-binary mask and the K = 1 case), and time the kernel, the plain
+     version and the closest PyTorch call;
   4. serving: the port's serving path at full width — two LoGTST cluster
      models (look_back 128, d_model 128, 16 heads, flash attention on,
      random weights from a seeded generator) saved as checkpoints with a
@@ -35,14 +38,17 @@ Phases, each of which raises (exit code != 0) on failure:
      cluster on the card against the same round on the CPU (selection, gates
      and comm counters bitwise), and a ``torch.profiler`` split of a round;
   6. hybrid serving: the ssm_scan kernel against its plain version at
-     hymba-1.5b's prefill shape (4, 2048, 3200, 16) in float32 and bf16, a
-     ragged shape, N = 4 and 64 and the final state, and flash attention at
-     hymba's (4, 2048, 25/5, 64) causal window-1024 shape, each timed; then
+     hymba-1.5b's prefill shape (4, 2048, 3200, 16) in float32 and bf16,
+     every state dim in both dtypes at ragged and aligned shapes, the final
+     state (bitwise in float32) and a repeated call, and flash attention at
+     hymba's (4, 2048, 25/5, 64) causal window-1024 shape (float32 on the
+     scalar route, bf16 on the tensor-core route), each timed; then
      ``launch.serve.serve("hymba-1.5b", reduced=False)`` at full width
      (1,662,161,600 params, batch 4, prompt 2048, 32 tokens) with the launch
-     counts of its prefill, a profiled prefill, full-width block 0 on the
-     card against the CPU, and reduced hymba in float32 on the card against
-     the CPU (tokens equal).
+     counts of its prefill (32 of each kernel, flash all on the tensor-core
+     route), a profiled prefill, full-width block 0 on the card against the
+     CPU, and reduced hymba in float32 on the card against the CPU (tokens
+     equal).
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``, one
 ``{"kernels": [...]}`` line (flash attention, psgf_mix_batch, psgf_mix,
@@ -124,8 +130,49 @@ def attention_inputs(gen, B, Sq, Skv, H, KV, hd, dtype):
     return q, k, v
 
 
+# the tensor-core route (bf16, hd 64 / 128) against the float32 plain version
+# on the same bf16 inputs: within FLASH_BF16_RTOL |want| + FLASH_BF16_ATOL
+# (P and the output rounded to bf16; the reason is beside the constants in
+# kernels/flash_attention/ops.py) and within the absolute bf16 bound
+BF16_TOL = 2e-2
+
+
+def flash_case(ops, ref, name, q, k, v, causal, window, kv_len, tol):
+    """One call of the wrapper against the plain version: exactly one launch
+    on the route ``kernel_route`` names, and the error within ``tol`` (and,
+    on the tensor-core route, within the relative bound). Returns
+    ``(output, max |err|, worst error / relative bound or None)``."""
+    route = ops.kernel_route(q.dtype, q.shape[3])
+    before, before_route = ops.LAUNCHES, ops.ROUTE_LAUNCHES[route]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_len=kv_len)
+    torch.cuda.synchronize()
+    if (ops.LAUNCHES != before + 1
+            or ops.ROUTE_LAUNCHES[route] != before_route + 1):
+        raise RuntimeError(f"{name}: the wrapper did not launch the {route} "
+                           f"kernel once")
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise RuntimeError(f"{name}: output {got.dtype} {tuple(got.shape)}")
+    mask = dict(causal=causal, window=window, kv_len=kv_len)
+    if route == "tensor_core":
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **mask)
+    else:
+        want = ref.flash_attention_ref(q, k, v, **mask).float()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    ratio = None
+    if route == "tensor_core":
+        bound = ops.FLASH_BF16_RTOL * want.abs() + ops.FLASH_BF16_ATOL
+        ratio = float((diff / bound).max())
+    if not (err <= tol and (ratio is None or ratio <= 1.0)):
+        raise RuntimeError(f"{name} ({route}): kernel vs plain max |err| {err} "
+                           f"(tol {tol}), relative-bound ratio {ratio}")
+    return got, err, ratio
+
+
 def check_flash_attention(ops, ref, tol_f32: float) -> dict:
-    """Kernel vs plain version on the card; returns the main-path record."""
+    """Kernel vs plain version on the card, both routes; returns the
+    main-path record."""
     gen = torch.Generator().manual_seed(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
@@ -134,30 +181,44 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
         ("gqa_causal_hd64", (2, 256, 256, 4, 2, 64), True, None, None, f32, 2e-5),
         ("window64_hd128", (1, 200, 200, 4, 4, 128), True, 64, None, f32, 2e-5),
         ("sq_ne_skv_bidir", (2, 128, 384, 8, 2, 64), False, None, None, f32, 2e-5),
-        ("bf16_hd128", (1, 256, 256, 2, 1, 128), True, None, None, bf16, 2e-2),
+        ("bf16_hd128", (1, 256, 256, 2, 1, 128), True, None, None, bf16, BF16_TOL),
         ("window17_hd32", (1, 100, 100, 6, 3, 32), True, 17, None, f32, 2e-5),
         ("bidir_100_gqa", (1, 100, 100, 4, 2, 32), False, None, None, f32, 2e-5),
         ("bidir_130_hd16", (1, 130, 130, 8, 8, 16), False, None, None, f32, 2e-5),
         ("bidir_63_hd64", (3, 63, 63, 2, 1, 64), False, None, None, f32, 2e-5),
         ("kv_len_100", (1, 128, 256, 2, 2, 16), False, None, 100, f32, 2e-5),
+        ("bf16_hd16_scalar", (1, 100, 100, 4, 2, 16), True, 17, None, bf16, BF16_TOL),
     ]
-    errs = {}
+    # the tensor-core route's cases, at hd 64 and 128
+    for hd in (64, 128):
+        cases += [
+            (f"tc_gqa5_window1024_hd{hd}", (1, 2048, 2048, 5, 1, hd), True, 1024,
+             None, bf16, BF16_TOL),
+            (f"tc_window17_hd{hd}", (1, 100, 100, 6, 3, hd), True, 17, None, bf16,
+             BF16_TOL),
+            (f"tc_sq_ne_skv_bidir_hd{hd}", (2, 128, 384, 8, 2, hd), False, None,
+             None, bf16, BF16_TOL),
+            (f"tc_kv_len_100_hd{hd}", (1, 128, 256, 2, 2, hd), False, None, 100,
+             bf16, BF16_TOL),
+            (f"tc_no_valid_key_hd{hd}", (2, 7, 40, 4, 1, hd), True, None, 0, bf16,
+             0.0),
+            (f"tc_sq63_hd{hd}", (3, 63, 63, 2, 1, hd), False, None, None, bf16,
+             BF16_TOL),
+            (f"tc_sq130_hd{hd}", (1, 130, 130, 8, 8, hd), True, None, None, bf16,
+             BF16_TOL),
+            (f"tc_batch70000_hd{hd}", (70_000, 15, 15, 2, 1, hd), False, None,
+             None, bf16, BF16_TOL),
+        ]
+    errs, ratios = {}, {}
     for name, shape, causal, window, kv_len, dtype, tol in cases:
         q, k, v = attention_inputs(gen, *shape, dtype)
-        before = ops.LAUNCHES
-        got = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                  kv_len=kv_len)
-        torch.cuda.synchronize()
-        if ops.LAUNCHES != before + 1:
-            raise RuntimeError(f"{name}: the wrapper did not launch the kernel")
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       kv_len=kv_len)
-        err = float((got.float() - want.float()).abs().max())
-        errs[name] = err
-        if not err <= tol:
-            raise RuntimeError(f"{name}: kernel vs plain max |err| {err} > {tol}")
+        got, errs[name], ratio = flash_case(ops, ref, name, q, k, v, causal,
+                                            window, kv_len, tol)
+        if ratio is not None:
+            ratios[name] = ratio
         if name == "main_path":
-            main_case = (q, k, v, err)
+            main_case = (q, k, v, errs[name])
+        del q, k, v, got
 
     # every shape the serving path gives the kernel: buckets 1..32 times
     # 1 channel (stream_evaluate) or 3 channels (serve_requests)
@@ -198,7 +259,8 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
                            for a, b in zip(leaves, plain))
     if not errs["backward"] <= 2e-5:
         raise RuntimeError(f"backward: max |grad err| {errs['backward']}")
-    log(json.dumps({"kernel_cases": {"flash_attention": errs}}))
+    log(json.dumps({"kernel_cases": {"flash_attention": errs,
+                                     "flash_attention_bf16_bound_ratio": ratios}}))
 
     # times at the serving path's shape
     q, k, v, err = main_case
@@ -423,13 +485,16 @@ def drive_serving(ops) -> dict:
     server.warmup(channels=3)
     torch.cuda.synchronize()
 
-    ops.LAUNCHES = 0                       # every kernel count, just before
+    ops.reset_launch_counts()              # every kernel count, just before
     rep = serve_requests(server, 256, 3, stations=server.routable_stations())
     torch.cuda.synchronize()
     launches = ops.LAUNCHES                # ... and just after the main path
     if launches < rep["batches"] or rep["batches"] == 0:
         raise RuntimeError(f"{launches} flash-attention launches for "
                            f"{rep['batches']} dispatched batches")
+    if ops.ROUTE_LAUNCHES["scalar"] != launches:
+        raise RuntimeError(f"serving's fp32 hd-8 attention took the routes "
+                           f"{ops.ROUTE_LAUNCHES}")
     latency = latency_quantiles(server)
 
     # one full bucket (32 x 3 series -> the kernel's (96, 15, 16, 8) shape),
@@ -745,7 +810,7 @@ def drive_training(mix_ops, flash_ops) -> dict:
     torch.cuda.synchronize()
     mix_ops.LAUNCHES = 0                   # every kernel count, just before
     mix_ops.LAUNCHES_SINGLE = 0
-    flash_ops.LAUNCHES = 0
+    flash_ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_experiment(spec, checkpoint_dir=root, series=series,
                          labels=labels, device="cuda")
@@ -754,6 +819,9 @@ def drive_training(mix_ops, flash_ops) -> dict:
     launches = {"psgf_mix_batch": mix_ops.LAUNCHES,  # ... and just after
                 "psgf_mix": mix_ops.LAUNCHES_SINGLE,
                 "flash_attention": flash_ops.LAUNCHES}
+    if flash_ops.ROUTE_LAUNCHES["scalar"] != launches["flash_attention"]:
+        raise RuntimeError(f"training's fp32 hd-8 attention took the routes "
+                           f"{flash_ops.ROUTE_LAUNCHES}")
     rounds = sum(r["rounds"] for r in res["rows"])
     if rounds != TRAIN_ROUNDS * 3 or launches["psgf_mix_batch"] != rounds:
         raise RuntimeError(f"{launches['psgf_mix_batch']} psgf_mix launches "
@@ -840,7 +908,7 @@ HYMBA_WINDOW = 1024
 HYMBA_PARAMS = 1_662_161_600
 # flash attention at hymba's shape against its plain version: float32 as the
 # reference classes above (2e-5); bf16 output as the bf16 class above
-FLASH_HYMBA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_HYMBA_TOL = {torch.float32: 2e-5, torch.bfloat16: BF16_TOL}
 # card against CPU in float32 (no TF32): cuBLAS and the CPU sum matmuls of
 # depth up to 5504 in other orders, the flash kernel's online softmax and
 # the dense one round differently, and the scan's dot with C sums in
@@ -875,13 +943,23 @@ def ssm_bound_ms(x, bm, a):
 
 def check_ssm_scan(ssm_ops, ssm_ref) -> dict:
     """The ssm_scan kernel against its plain version on the card: hymba's
-    prefill shape in float32 and bf16, a ragged S and D, N = 4 and N = 64,
-    the final state; then times at the prefill's bf16 shape."""
+    prefill shape in float32 and bf16, every N of ``STATE_DIMS`` in both
+    dtypes at ragged and vector-aligned S and D, the final state (bitwise
+    in float32) and a repeated call; then times at the prefill's bf16
+    shape."""
     gen = torch.Generator().manual_seed(SEED + 3)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("hymba_f32", HYMBA_SSM, f32), ("hymba_bf16", HYMBA_SSM, bf16),
              ("ragged", (1, 37, 300, 8), f32), ("n4", (2, 64, 128, 4), f32),
              ("n64", (1, 100, 96, 64), f32), ("n64_bf16", (2, 50, 200, 64), bf16)]
+    # every state dim in both dtypes: D = 203 is a multiple of no block's
+    # channel count and of no 16-byte vector (scalar staging), D = 256 takes
+    # the vector staging; S = 130 and 200 end in a partial time tile
+    for n in ssm_ops.STATE_DIMS:
+        for dtype in (f32, bf16):
+            tag = str(dtype).replace("torch.", "")
+            cases += [(f"n{n}_ragged_{tag}", (2, 130, 203, n), dtype),
+                      (f"n{n}_vector_{tag}", (1, 200, 256, n), dtype)]
     errs = {}
     for name, shape, dtype in cases:
         args = ssm_inputs(gen, *shape, dtype)
@@ -895,10 +973,18 @@ def check_ssm_scan(ssm_ops, ssm_ref) -> dict:
         herr = float((h - want_h).abs().max())
         rtol = SSM_F32_TOL if dtype == f32 else SSM_BF16_RTOL
         ok_y = torch.allclose(y.float(), want_y.float(), atol=SSM_F32_TOL, rtol=rtol)
-        ok_h = torch.allclose(h, want_h, atol=SSM_F32_TOL, rtol=SSM_F32_TOL)
+        # the state update rounds as the plain version's does: h is bitwise
+        # equal in float32 (and within the float32 tolerance from bf16 inputs)
+        ok_h = (torch.equal(h, want_h) if dtype == f32 else
+                torch.allclose(h, want_h, atol=SSM_F32_TOL, rtol=SSM_F32_TOL))
+        # the reduction over the states is fixed: a second call, without the
+        # state, gives the same y bit for bit
+        repeat = torch.equal(ssm_ops.ssm_scan(*args), y)
         errs[name] = {"y_max_abs_err": yerr, "h_max_abs_err": herr}
-        if not (ok_y and ok_h and y.dtype == dtype and torch.isfinite(y).all()):
-            raise RuntimeError(f"ssm_scan {name}: kernel vs plain y {yerr}, h {herr}")
+        if not (ok_y and ok_h and repeat and y.dtype == dtype
+                and torch.isfinite(y).all()):
+            raise RuntimeError(f"ssm_scan {name}: kernel vs plain y {yerr}, h "
+                               f"{herr}, repeat equal {repeat}")
         if name == "hymba_bf16":
             main = (args, yerr)
         del args, y, h, want_y, want_h
@@ -935,20 +1021,19 @@ def check_flash_hymba(ops, ref) -> dict:
     library's yardstick."""
     B, S, H, KV, hd = HYMBA_ATTN
     gen = torch.Generator().manual_seed(SEED + 4)
-    errs = {}
+    errs, routes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attention_inputs(gen, B, S, S, H, KV, hd, dtype)
-        before = ops.LAUNCHES
-        got = ops.flash_attention(q, k, v, causal=True, window=HYMBA_WINDOW)
-        torch.cuda.synchronize()
-        if ops.LAUNCHES != before + 1:
-            raise RuntimeError("flash at hymba's shape: no kernel launch")
-        want = ref.flash_attention_ref(q, k, v, causal=True, window=HYMBA_WINDOW)
-        err = float((got.float() - want.float()).abs().max())
-        errs[str(dtype).replace("torch.", "")] = err
-        if not err <= FLASH_HYMBA_TOL[dtype]:
-            raise RuntimeError(f"flash at hymba's shape ({dtype}): max |err| {err}")
-        del got, want
+        key = str(dtype).replace("torch.", "")
+        routes[key] = ops.kernel_route(dtype, hd)
+        got, errs[key], ratio = flash_case(
+            ops, ref, f"flash at hymba's shape ({key})", q, k, v, True,
+            HYMBA_WINDOW, None, FLASH_HYMBA_TOL[dtype])
+        if ratio is not None:
+            errs[key + "_bound_ratio"] = ratio
+        del got
+    if routes != {"float32": "scalar", "bfloat16": "tensor_core"}:
+        raise RuntimeError(f"flash at hymba's shape took the routes {routes}")
     log(json.dumps({"kernel_cases": {"flash_attention_hymba": errs}}))
     # q, k, v are the bf16 inputs of the last case
     mask = ref.attention_mask(S, S, causal=True, window=HYMBA_WINDOW,
@@ -969,8 +1054,11 @@ def check_flash_hymba(ops, ref) -> dict:
              "operations": max(flops / BF16_FLOP_PER_S,
                                B * H * pairs / SFU_OPS_PER_S) * 1e3}
     by = max(times, key=times.get)
-    return {"shape": [B, S, H, KV, hd], "dtype": "bfloat16", "causal": True,
+    return {"kernel_route": "tensor_core",
+            "source": "src/repro_torch/csrc/flash_attention_tc.cu",
+            "shape": [B, S, H, KV, hd], "dtype": "bfloat16", "causal": True,
             "window": HYMBA_WINDOW, "max_abs_err": errs["bfloat16"],
+            "bound_ratio": errs["bfloat16_bound_ratio"],
             "max_abs_err_float32": errs["float32"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": times[by], "bound_by": by,
             "library_ms": library_ms,
@@ -1080,7 +1168,7 @@ def drive_hybrid_serving(ssm_ops, flash_ops) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ssm_ops.LAUNCHES = 0                   # every kernel count, just before
-    flash_ops.LAUNCHES = 0
+    flash_ops.reset_launch_counts()
     t0 = time.perf_counter()
     rep = serve("hymba-1.5b", batch=B, prompt_len=S, gen=gen, reduced=False,
                 device="cuda")
@@ -1088,13 +1176,16 @@ def drive_hybrid_serving(ssm_ops, flash_ops) -> dict:
     wall_s = time.perf_counter() - t0
     launches = {"ssm_scan": ssm_ops.LAUNCHES,          # ... and just after
                 "flash_attention": flash_ops.LAUNCHES}
+    flash_routes = dict(flash_ops.ROUTE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cfg = get_config("hymba-1.5b")
     toks = rep["tokens"]
     if rep["params"] != HYMBA_PARAMS:
         raise RuntimeError(f"hymba-1.5b has {rep['params']} params")
-    if launches != {"ssm_scan": cfg.num_layers, "flash_attention": cfg.num_layers}:
-        raise RuntimeError(f"kernel launches {launches} for one prefill of "
+    if (launches != {"ssm_scan": cfg.num_layers, "flash_attention": cfg.num_layers}
+            or flash_routes != {"scalar": 0, "tensor_core": cfg.num_layers}):
+        raise RuntimeError(f"kernel launches {launches} (flash routes "
+                           f"{flash_routes}) for one prefill of "
                            f"{cfg.num_layers} layers")
     if toks.shape != (B, gen) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise RuntimeError(f"generated tokens {toks.shape} out of range")
@@ -1132,6 +1223,7 @@ def drive_hybrid_serving(ssm_ops, flash_ops) -> dict:
         "decode_ms_per_token": rep["decode_ms_per_token"],
         "serve_wall_s": wall_s, "peak_memory_bytes": peak,
         "launches_prefill": launches,
+        "flash_route_launches_prefill": flash_routes,
         "first_tokens": toks[:, :8].tolist(),
         "prefill_ms_warm": warm_prefill_ms,
         "decode_ms_per_token_warm": warm_decode_ms,
@@ -1175,7 +1267,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line:       # which kernel the lines below are
+                log(f"  {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     # 3. kernels against their plain versions
@@ -1206,6 +1300,17 @@ def main() -> int:
     record["hybrid_prefill"]["launches"] = hybrid["launches_prefill"]["flash_attention"]
     log(json.dumps({"hybrid_serving": hybrid}))
 
+    # flash attention's record is the serving path's (scalar route); the
+    # tensor-core route's numbers are its hybrid_prefill entry
+    record["routes"] = {
+        "scalar": {"source": record["source"],
+                   "launches_serving": record["launches"],
+                   "launches_training": record["launches_training"],
+                   "ms": record["ms"]},
+        "tensor_core": {"source": record["hybrid_prefill"]["source"],
+                        "launches": record["hybrid_prefill"]["launches"],
+                        "ms": record["hybrid_prefill"]["ms"]},
+    }
     k1_record = mix_record.pop("k1_psgf_mix")
     log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))
     log(json.dumps({"ok": True, "device": {

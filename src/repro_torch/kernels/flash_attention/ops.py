@@ -3,10 +3,14 @@
 
 ``flash_attention(q, k, v)`` dispatches on where the tensors lie:
 
-  * CUDA tensors launch the hand-written kernel
-    (``repro_torch/csrc/flash_attention.cu``, built at first use) after the
-    checks below; anything the kernel does not take RAISES — there is no
-    fallback;
+  * CUDA tensors launch one of two hand-written kernels after the checks
+    below, chosen by :func:`kernel_route` from the dtype and head dim:
+    bfloat16 at hd 64 or 128 takes the tensor-core kernel
+    (``repro_torch/csrc/flash_attention_tc.cu``: wgmma, TMA, one block per
+    kv head's query group); every other case (float32, hd 8-32) the scalar
+    kernel (``repro_torch/csrc/flash_attention.cu``: fp32 FMAs, a thread
+    per query row). Both are built at first use. Anything the kernels do
+    not take RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`), the same
     function computed densely.
 
@@ -20,7 +24,8 @@ backward kernel either. The Function is in ``setup_context`` form with a
 per-client LocalUpdate — runs through the kernel on the card.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel; ``ROUTE_LAUNCHES`` splits the
+same count by route (it sums to ``LAUNCHES``).
 """
 from __future__ import annotations
 
@@ -35,23 +40,67 @@ from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_ref_backward)
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+ROUTES = ("scalar", "tensor_core")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_LIMIT = 65535          # gridDim.y (heads); the kernel strides over B
+_GRID_LIMIT = 65535          # gridDim.y (heads); the kernels stride over B
+
+# The tensor-core route against the float32 plain version. It rounds P to
+# bf16 before the P.V product (the tensor cores take bf16 operands; the
+# scores, max, row sum and accumulator stay fp32) and the output to bf16
+# once. An emulation of those numerics at hymba's mask (1, 2048, 5/1, 64),
+# causal, window 1024, stayed within 2^-7 |want| + 2^-8 everywhere (worst
+# ratio 0.41); its max abs error was 9.2e-3, against 7.3e-3 from rounding
+# the output alone. 2^-7 relative is two bf16 roundings of the output;
+# 2^-8 absolute covers the P rounding near 0, which averages over the keys.
+FLASH_BF16_RTOL = 2.0 ** -7
+FLASH_BF16_ATOL = 2.0 ** -8
 
 LAUNCHES = 0
+ROUTE_LAUNCHES = {route: 0 for route in ROUTES}
 _COUNT_LOCK = threading.Lock()
-_FN = None
+_FNS = {}
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+def _kernel_fn(route):
+    fn = _FNS.get(route)
+    if fn is None:
+        if route == "tensor_core":
+            fn = _build.load("flash_attention_tc").flash_attention_tc_fwd
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                           + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+        else:
+            fn = _build.load("flash_attention").flash_attention_fwd
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                           + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[route] = fn
+    return fn
+
+
+def kernel_route(dtype, hd) -> str:
+    """Which kernel a CUDA call of this dtype and head dim launches:
+    ``"tensor_core"`` for bfloat16 at hd 64 or 128, ``"scalar"`` for every
+    other case the kernels take. Raises ``TypeError`` for another dtype and
+    ``ValueError`` for a head dim outside :data:`HEAD_DIMS`."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError("flash_attention kernel takes float32 or bfloat16, "
+                        f"not {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not supported by the kernel "
+                         f"(supported: {HEAD_DIMS})")
+    if dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "scalar"
+
+
+def reset_launch_counts():
+    """Set :data:`LAUNCHES` and every :data:`ROUTE_LAUNCHES` count to 0."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES = 0
+        for route in ROUTES:
+            ROUTE_LAUNCHES[route] = 0
 
 
 def _check_shapes(q, k, v, kv_len):
@@ -80,27 +129,35 @@ def _launch(q, k, v, causal, window, kv_len):
                         f"same for q, k, v; got {q.dtype}, {k.dtype}, {v.dtype}")
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported by the kernel "
-                         f"(supported: {HEAD_DIMS})")
+    route = kernel_route(q.dtype, hd)
     if H > _GRID_LIMIT:
         raise ValueError(f"heads {H} above the grid limit {_GRID_LIMIT}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if route == "tensor_core":
+        # TMA and the 16-byte row loads take 16-byte aligned bases; a view
+        # at an odd offset is copied to a fresh (aligned) allocation
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    fn = _kernel_fn()
+    fn = _kernel_fn(route)
+    mask = (Skv if kv_len is None else int(kv_len), int(bool(causal)),
+            int(window is not None), 0 if window is None else int(window),
+            1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 _DTYPE_CODES[q.dtype], B, Sq, Skv, H, KV, hd,
-                 Skv if kv_len is None else int(kv_len), int(bool(causal)),
-                 int(window is not None), 0 if window is None else int(window),
-                 1.0 / math.sqrt(hd), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        if route == "tensor_core":
+            err = fn(*ptrs, B, Sq, Skv, H, KV, hd, *mask, stream)
+        else:
+            err = fn(*ptrs, _DTYPE_CODES[q.dtype], B, Sq, Skv, H, KV, hd, *mask,
+                     stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: "
+                           f"CUDA error {err}")
     with _COUNT_LOCK:
         LAUNCHES += 1
+        ROUTE_LAUNCHES[route] += 1
     return o
 
 

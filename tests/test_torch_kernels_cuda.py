@@ -15,7 +15,8 @@ from repro_torch.common import pytree_utils as pt  # noqa: E402
 from repro_torch.core import forecast as F  # noqa: E402
 from repro_torch.core.forecaster import get_forecaster  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    FLASH_BF16_ATOL, FLASH_BF16_RTOL, flash_attention)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.psgf_mix import ops as mix_ops  # noqa: E402
 from repro_torch.kernels.psgf_mix.ref import psgf_mix_batch_ref, psgf_mix_ref  # noqa: E402
@@ -63,6 +64,59 @@ def test_flash_kernel_matches_plain(cuda, case):
     want = flash_attention_ref(q, k, v, causal=causal, window=window,
                                kv_len=kv_len)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+TC_CASES = [
+    # B, Sq, Skv, H, KV, causal, window, kv_len: bf16, at hd 64 and 128
+    (1, 2048, 2048, 5, 1, True, 1024, None),     # GQA 5:1, hymba's mask
+    (1, 100, 100, 6, 3, True, 17, None),         # window 17
+    (2, 128, 384, 8, 2, False, None, None),      # Sq != Skv, bidirectional
+    (1, 128, 256, 2, 2, False, None, 100),       # kv_len 100
+    (2, 7, 40, 4, 1, True, None, 0),             # no valid key: exactly 0
+    (3, 63, 63, 2, 1, False, None, None),        # Sq not a multiple of 64
+    (1, 130, 130, 8, 8, True, None, None),
+    (70_000, 15, 15, 2, 1, False, None, None),   # B past gridDim.z
+]
+
+
+def _check_tensor_core_call(q, k, v, causal, window, kv_len):
+    """One wrapper call on the tensor-core route against the float32 plain
+    version: within FLASH_BF16_RTOL |want| + FLASH_BF16_ATOL and BF16_TOL."""
+    assert ops.kernel_route(q.dtype, q.shape[3]) == "tensor_core"
+    before = dict(ops.ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES == {**before,
+                                  "tensor_core": before["tensor_core"] + 1}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                               window=window, kv_len=kv_len)
+    err = (got.float() - want).abs()
+    assert bool((err <= FLASH_BF16_RTOL * want.abs() + FLASH_BF16_ATOL).all())
+    assert float(err.max()) <= BF16_TOL
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_tensor_core_kernel_matches_plain(cuda, case, hd):
+    B, Sq, Skv, H, KV, causal, window, kv_len = case
+    q, k, v = _inputs(6, B, Sq, Skv, H, KV, hd, cuda, torch.bfloat16)
+    got = _check_tensor_core_call(q, k, v, causal, window, kv_len)
+    if kv_len == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_takes_unaligned_views(cuda):
+    """q, k, v that start 2 bytes into their storage (not 16-byte aligned,
+    as TMA needs): the wrapper copies them and the kernel is right."""
+    q, k, v = _inputs(7, 2, 96, 96, 10, 2, 64, cuda, torch.bfloat16)
+    q, k, v = (torch.cat([t.flatten(), t.new_zeros(1)])[1:].view(t.shape)
+               for t in (q, k, v))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    _check_tensor_core_call(q, k, v, True, 33, None)
 
 
 @pytest.mark.cuda
@@ -288,6 +342,13 @@ SSM_CASES = [
     (2, 64, 128, 4, torch.float32),
     (1, 100, 96, 64, torch.float32),
     (3, 130, 70, 32, torch.bfloat16),
+] + [
+    # every state dim in both dtypes: D = 203 is a multiple of no block's
+    # channel count and of no 16-byte vector, D = 256 moves as vectors; S =
+    # 130 and 200 end in a partial time tile
+    (B, S, D, N, dtype)
+    for N in ssm_ops.STATE_DIMS for dtype in (torch.float32, torch.bfloat16)
+    for B, S, D in ((2, 130, 203), (1, 200, 256))
 ]
 
 
@@ -315,6 +376,7 @@ def test_ssm_scan_kernel_matches_plain(cuda, case):
     want_y, want_h = ssm_scan_ref(*args, return_state=True)
     torch.testing.assert_close(h, want_h, atol=SSM_F32_TOL, rtol=SSM_F32_TOL)
     if dtype == torch.float32:
+        assert torch.equal(h, want_h)     # the update rounds as the plain one
         torch.testing.assert_close(y, want_y, atol=SSM_F32_TOL, rtol=SSM_F32_TOL)
     else:
         torch.testing.assert_close(y.float(), want_y.float(), atol=SSM_F32_TOL,
