@@ -12,16 +12,20 @@ Phases, each of which raises (exit code != 0) on failure:
      compiler's register/spill report;
   3. kernels: call each kernel's wrapper on the card at the shapes the main
      paths give it and at the reference test classes, hold it against its
-     plain PyTorch version (flash attention on both routes: the scalar
+     plain PyTorch version (flash attention on its three routes: the short
      kernel within its tolerance at the serving buckets, at training's
      K x 32 and evaluation's K x n_test rows of each cluster and past the
      grid's batch limit, one backward, and one vmap(grad) over 27 clients
-     against dense attention; the tensor-core kernel, bf16 at hd 64 and 128,
-     within its relative bound on GQA, windowed, ragged, padded, empty and
+     against dense attention; the scalar kernel at long sequences and fp32
+     at hd 64 / 128; the tensor-core kernel, bf16 at hd 64 and 128, within
+     its relative bound on GQA, windowed, ragged, padded, empty and
      past-the-grid cases, each call on the route it should take; psgf_mix
      bitwise at K = 21 / 27 / 10 clients of D = 273,284, a ragged D, a
-     non-binary mask and the K = 1 case), and time the kernel, the plain
-     version and the closest PyTorch call;
+     non-binary mask and the K = 1 case, its count across CUDA-graph
+     replays, one kernel per call), and time the kernel, the plain version
+     and the closest PyTorch call (flash's short route at the serving
+     bucket and at training's 864 rows beside the scalar kernel, and an
+     empty kernel's launch as the floor under both);
   4. serving: the port's serving path at full width — two LoGTST cluster
      models (look_back 128, d_model 128, 16 heads, flash attention on,
      random weights from a seeded generator) saved as checkpoints with a
@@ -51,12 +55,14 @@ Phases, each of which raises (exit code != 0) on failure:
      equal).
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``, one
-``{"kernels": [...]}`` line (flash attention, psgf_mix_batch, psgf_mix,
-ssm_scan), and last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``, the
+``{"kernels": [...]}`` line (flash attention with its three routes,
+psgf_mix_batch, psgf_mix, ssm_scan), and last ``{"ok": true, "device":
+{...}}``. It imports ``torch``, ``numpy``, the
 standard library and ``repro_torch`` (from ``src/`` beside this file) only.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -137,12 +143,33 @@ def attention_inputs(gen, B, Sq, Skv, H, KV, hd, dtype):
 BF16_TOL = 2e-2
 
 
+def route_of(ops, q, k) -> str:
+    """The route ``ops.kernel_route`` names for this call."""
+    return ops.kernel_route(q.dtype, q.shape[3], tuple(q.shape), tuple(k.shape))
+
+
+def flash_bound_ms(ref, q, k, v, causal=False, window=None):
+    """Least time of one call: each input read once and the output written
+    once at the HBM rate; QK^T and PV over the (query, key) pairs the mask
+    keeps, 2 flops per MAC, at the fp32 rate. Returns (ms, by, bytes,
+    flops)."""
+    B, Sq, H, hd = q.shape
+    pairs = int(ref.attention_mask(Sq, k.shape[1], causal=causal, window=window,
+                                   kv_len=None).sum())
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    flops = 4 * B * H * hd * pairs
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / FP32_FLOP_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, nbytes, flops
+
+
 def flash_case(ops, ref, name, q, k, v, causal, window, kv_len, tol):
     """One call of the wrapper against the plain version: exactly one launch
     on the route ``kernel_route`` names, and the error within ``tol`` (and,
     on the tensor-core route, within the relative bound). Returns
     ``(output, max |err|, worst error / relative bound or None)``."""
-    route = ops.kernel_route(q.dtype, q.shape[3])
+    route = route_of(ops, q, k)
     before, before_route = ops.LAUNCHES, ops.ROUTE_LAUNCHES[route]
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               kv_len=kv_len)
@@ -171,8 +198,9 @@ def flash_case(ops, ref, name, q, k, v, causal, window, kv_len, tol):
 
 
 def check_flash_attention(ops, ref, tol_f32: float) -> dict:
-    """Kernel vs plain version on the card, both routes; returns the
-    main-path record."""
+    """Kernel vs plain version on the card, all three routes; returns the
+    main-path record (the short route at the serving bucket, with the
+    training shape's times and the launch floor)."""
     gen = torch.Generator().manual_seed(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
@@ -187,7 +215,17 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
         ("bidir_130_hd16", (1, 130, 130, 8, 8, 16), False, None, None, f32, 2e-5),
         ("bidir_63_hd64", (3, 63, 63, 2, 1, 64), False, None, None, f32, 2e-5),
         ("kv_len_100", (1, 128, 256, 2, 2, 16), False, None, 100, f32, 2e-5),
-        ("bf16_hd16_scalar", (1, 100, 100, 4, 2, 16), True, 17, None, bf16, BF16_TOL),
+        ("bf16_hd16_scalar", (1, 100, 100, 12, 2, 16), True, 17, None, bf16, BF16_TOL),
+        # the short route: the forecaster's 63 tokens, GQA with every mask,
+        # no valid key (exact zeros), hd 16 and 32, bf16
+        ("short_63_tokens", (4, 63, 63, 16, 16, 8), False, None, None, f32, tol_f32),
+        ("short_gqa_window_kv_len", (2, 15, 15, 16, 4, 8), True, 5, 12, f32, tol_f32),
+        ("short_no_valid_key", (2, 7, 40, 4, 1, 8), True, None, 0, f32, 0.0),
+        ("short_window_kv_len_hd16", (2, 30, 20, 16, 2, 16), False, 9, 17, f32, tol_f32),
+        ("short_hd32", (2, 15, 15, 16, 16, 32), False, None, None, f32, tol_f32),
+        ("bf16_hd16_short", (1, 100, 100, 4, 2, 16), True, 17, None, bf16, BF16_TOL),
+        ("bf16_hd8_short", (5, 15, 15, 16, 16, 8), False, None, None, bf16, BF16_TOL),
+        ("bf16_hd32_short", (3, 16, 16, 16, 8, 32), False, 4, None, bf16, BF16_TOL),
     ]
     # the tensor-core route's cases, at hd 64 and 128
     for hd in (64, 128):
@@ -209,23 +247,31 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
             (f"tc_batch70000_hd{hd}", (70_000, 15, 15, 2, 1, hd), False, None,
              None, bf16, BF16_TOL),
         ]
-    errs, ratios = {}, {}
+    errs, ratios, routes = {}, {}, {}
     for name, shape, causal, window, kv_len, dtype, tol in cases:
         q, k, v = attention_inputs(gen, *shape, dtype)
         got, errs[name], ratio = flash_case(ops, ref, name, q, k, v, causal,
                                             window, kv_len, tol)
+        routes.setdefault(route_of(ops, q, k), []).append(name)
         if ratio is not None:
             ratios[name] = ratio
+        if kv_len == 0 and not torch.equal(got, torch.zeros_like(got)):
+            raise RuntimeError(f"{name}: rows with no valid key are not 0")
         if name == "main_path":
             main_case = (q, k, v, errs[name])
         del q, k, v, got
+    if routes["short"][0] != "main_path" or not routes.get("scalar"):
+        raise RuntimeError(f"flash cases took the routes {routes}")
 
     # every shape the serving path gives the kernel: buckets 1..32 times
     # 1 channel (stream_evaluate) or 3 channels (serve_requests)
     bucket_err = 0.0
     for rows in sorted({b * m for b in (1, 2, 4, 8, 16, 32) for m in (1, 3)}):
         q, k, v = attention_inputs(gen, rows, 15, 15, 16, 16, 8, f32)
+        before = ops.ROUTE_LAUNCHES["short"]
         got = ops.flash_attention(q, k, v, causal=False)
+        if ops.ROUTE_LAUNCHES["short"] != before + 1:
+            raise RuntimeError(f"serving bucket {rows}: not on the short route")
         want = ref.flash_attention_ref(q, k, v, causal=False)
         bucket_err = max(bucket_err, float((got - want).abs().max()))
     errs["serving_bucket_shapes"] = bucket_err
@@ -260,41 +306,71 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
     if not errs["backward"] <= 2e-5:
         raise RuntimeError(f"backward: max |grad err| {errs['backward']}")
     log(json.dumps({"kernel_cases": {"flash_attention": errs,
-                                     "flash_attention_bf16_bound_ratio": ratios}}))
+                                     "flash_attention_bf16_bound_ratio": ratios,
+                                     "flash_attention_routes": routes}}))
 
-    # times at the serving path's shape
+    # times at the serving bucket and at training's K x 32 rows: the short
+    # route, the scalar kernel on the same inputs (its route forced), the
+    # plain version and SDPA, in turns; an empty kernel's launch is the
+    # floor under all of them
+    from repro_torch.kernels import _build
+
+    empty = _build.load("flash_attention_short").flash_attention_short_empty
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    floor_ms = timed_ms(lambda: empty(torch.cuda.current_stream().cuda_stream))
     q, k, v, err = main_case
-    B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    kernel_ms = timed_ms(lambda: ops.flash_attention(q, k, v, causal=False))
-    plain_ms = timed_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False))
-    library_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt))
-    # least work: each input read once, the output written once; QK^T and PV
-    # over the (query, key) pairs this call's mask keeps, 2 flops per MAC
-    pairs = int(ref.attention_mask(Sq, Skv, causal=False, window=None,
-                                   kv_len=None).sum())
-    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
-    flops = 4 * B * H * hd * pairs
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    # (and the serving bucket at look_back 512: 63 tokens, 1,008 pairs)
+    shapes = {"serving": (q, k, v),
+              "training": attention_inputs(gen, TRAIN_ROWS, 15, 15, 16, 16, 8, f32),
+              "serving_63_tokens": attention_inputs(gen, 96, 63, 63, 16, 16, 8, f32)}
+    times = {}
+    for key, (q, k, v) in shapes.items():
+        short = lambda: ops.flash_attention(q, k, v, causal=False)  # noqa: E731
+        scalar = lambda: ops._launch(q, k, v, False, None, None,    # noqa: E731
+                                     route="scalar")
+        scalar_err = float((scalar() - ref.flash_attention_ref(q, k, v, causal=False))
+                           .abs().max())
+        if not scalar_err <= tol_f32:
+            raise RuntimeError(f"scalar kernel at the {key} shape: max |err| "
+                               f"{scalar_err}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        runs = {"short": [timed_ms(short)], "scalar": [timed_ms(scalar)]}
+        plain_ms = timed_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False))
+        library_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt))
+        runs["scalar"].append(timed_ms(scalar))
+        runs["short"].append(timed_ms(short))
+        bound, by, nbytes, flops = flash_bound_ms(ref, q, k, v)
+        times[key] = {"shape": list(q.shape), "ms": statistics.median(runs["short"]),
+                      "ms_runs": runs["short"],
+                      "scalar_ms": statistics.median(runs["scalar"]),
+                      "scalar_ms_runs": runs["scalar"], "scalar_max_abs_err": scalar_err,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                      "flops": flops}
+    serving = times["serving"]
     return {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "kernel_route": "short",
+        "source": "src/repro_torch/csrc/flash_attention_short.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:114",
         "tpu_kernel": "src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel",
-        "shape": [B, Sq, H, hd],
+        "shape": serving["shape"],
         "max_abs_err": err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
-        "bytes": nbytes,
-        "flops": flops,
+        "ms": serving["ms"],
+        "kernel_ms": serving["ms"],
+        "plain_ms": serving["plain_ms"],
+        "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"],
+        "library_ms": serving["library_ms"],
+        "library_call": "scaled_dot_product_attention",
+        "bytes": serving["bytes"],
+        "flops": serving["flops"],
+        "launch_floor_ms": floor_ms,
+        "serving_shape": serving,
+        "training_shape": times["training"],
+        "serving_63_tokens_shape": times["serving_63_tokens"],
     }
 
 
@@ -305,6 +381,7 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
 VMAP_GRAD_TOL = 1e-4
 VMAP_LOSS_TOL = 1e-5
 TRAIN_BATCH = 32
+TRAIN_ROWS = 27 * TRAIN_BATCH      # the largest cluster's LocalUpdate batch
 
 
 def check_flash_training(ops, ref, tol_f32: float) -> dict:
@@ -332,11 +409,13 @@ def check_flash_training(ops, ref, tol_f32: float) -> dict:
     for name, B in rows.items():
         q, k, v = (torch.randn(B, 15, 16, 8, generator=gen, device="cuda")
                    for _ in range(3))
-        before = ops.LAUNCHES
+        before = ops.LAUNCHES, ops.ROUTE_LAUNCHES["short"]
         got = ops.flash_attention(q, k, v, causal=False)
         torch.cuda.synchronize()
-        if ops.LAUNCHES != before + 1:
-            raise RuntimeError(f"{name}: the wrapper did not launch the kernel")
+        if (ops.LAUNCHES, ops.ROUTE_LAUNCHES["short"]) != (before[0] + 1,
+                                                           before[1] + 1):
+            raise RuntimeError(f"{name}: the wrapper did not launch the short "
+                               f"kernel once")
         want = ref.flash_attention_ref(q, k, v, causal=False)
         errs[f"{name}_B{B}"] = err = float((got - want).abs().max())
         if not err <= tol_f32:
@@ -364,12 +443,14 @@ def check_flash_training(ops, ref, tol_f32: float) -> dict:
             return F.mse_loss(c, pt.tree_unflatten_from_vector(wv, meta), xb, yb)
         return torch.func.vmap(torch.func.grad_and_value(loss))(w, x, y)
 
-    before = ops.LAUNCHES
+    before = ops.LAUNCHES, ops.ROUTE_LAUNCHES["short"]
     g_flash, l_flash = grads(dataclasses.replace(cfg, use_flash_attn=True))
     torch.cuda.synchronize()
-    if ops.LAUNCHES != before + 1:
+    if (ops.LAUNCHES, ops.ROUTE_LAUNCHES["short"]) != (before[0] + 1,
+                                                       before[1] + 1):
         raise RuntimeError(f"vmap(grad) over {K} clients: "
-                           f"{ops.LAUNCHES - before} kernel launches, not 1")
+                           f"{ops.LAUNCHES - before[0]} kernel launches "
+                           f"({ops.ROUTE_LAUNCHES}), not 1 short")
     g_dense, l_dense = grads(cfg)
     grad_err = float((g_flash - g_dense).abs().max())
     loss_err = float((l_flash - l_dense).abs().max())
@@ -489,10 +570,11 @@ def drive_serving(ops) -> dict:
     rep = serve_requests(server, 256, 3, stations=server.routable_stations())
     torch.cuda.synchronize()
     launches = ops.LAUNCHES                # ... and just after the main path
+    routes = dict(ops.ROUTE_LAUNCHES)
     if launches < rep["batches"] or rep["batches"] == 0:
         raise RuntimeError(f"{launches} flash-attention launches for "
                            f"{rep['batches']} dispatched batches")
-    if ops.ROUTE_LAUNCHES["scalar"] != launches:
+    if ops.ROUTE_LAUNCHES["short"] != launches:
         raise RuntimeError(f"serving's fp32 hd-8 attention took the routes "
                            f"{ops.ROUTE_LAUNCHES}")
     latency = latency_quantiles(server)
@@ -542,6 +624,7 @@ def drive_serving(ops) -> dict:
         "batches": rep["batches"],
         "padded_slots": rep["padded_slots"],
         "flash_attention_launches": launches,
+        "flash_route_launches": routes,
         "bucket_max_abs_err_vs_cpu": serve_err,
         "stream_rmse": ev["overall_rmse"],
         "stream_windows": ev["windows"],
@@ -574,6 +657,52 @@ def mix_bound_ms(K, D):
     read once, at the HBM rate; 2 flops per element at the fp32 rate."""
     nbytes = (3 * K * D + D) * 4
     return max(nbytes / HBM_BYTES_PER_S, 3 * K * D / FP32_FLOP_PER_S) * 1e3, nbytes
+
+
+def check_psgf_mix_replays(gen, mix_ops, mix_ref) -> dict:
+    """One call captured in a CUDA graph and replayed three times, at K = 1
+    and K = 27: the mix bitwise and the count exact each time (the last
+    block resets the ticket counter, so every replay starts clean); two
+    calls back to back give the same count."""
+    out = {}
+    for K in (1, max(MIX_K)):
+        g, w, m = mix_inputs(gen, K, MIX_D, "binary")
+        want, want_count = mix_ref.psgf_mix_batch_ref(g, w, m)
+        first = mix_ops.psgf_mix_batch(g, w, m)[1]
+        second = mix_ops.psgf_mix_batch(g, w, m)[1]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            mixed, count = mix_ops.psgf_mix_batch(g, w, m)
+        counts = []
+        for _ in range(3):
+            mixed.zero_()
+            count.fill_(-1.0)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(mixed, want):
+                raise RuntimeError(f"psgf_mix K={K}: a graph replay's mix is "
+                                   f"not bitwise the plain version's")
+            counts.append(float(count))
+        if counts + [float(first), float(second)] != [float(want_count)] * 5:
+            raise RuntimeError(f"psgf_mix K={K}: counts {counts} in replays, "
+                               f"{float(first)}, {float(second)} back to back; "
+                               f"want {float(want_count)}")
+        out[f"K{K}"] = {"replay_counts": counts, "count": float(want_count)}
+    return out
+
+
+def kernels_per_call(fn) -> list:
+    """Names of the device operations (kernels, copies, fills) one ``fn()``
+    runs, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def check_psgf_mix(mix_ops, mix_ref) -> dict:
@@ -618,7 +747,15 @@ def check_psgf_mix(mix_ops, mix_ref) -> dict:
     if not k1_cerr <= MIX_COUNT_RTOL * float(want[1]):
         raise RuntimeError(f"psgf_mix K=1: count err {k1_cerr}")
     errs["K1_psgf_mix"] = {"mix_max_abs_err": k1_err, "count_abs_err": k1_cerr}
-    log(json.dumps({"kernel_cases": {"psgf_mix": errs}}))
+    replays = check_psgf_mix_replays(gen, mix_ops, mix_ref)
+    g, w, m = mix_inputs(gen, max(MIX_K), MIX_D, "binary")
+    per_call = kernels_per_call(lambda: mix_ops.psgf_mix_batch(g, w, m))
+    if not (len(per_call) == 1 and "psgf_mix_kernel" in per_call[0]):
+        raise RuntimeError(f"one psgf_mix call ran the device operations "
+                           f"{per_call}, not the mix alone")
+    log(json.dumps({"kernel_cases": {"psgf_mix": errs,
+                                     "psgf_mix_graph_replays": replays,
+                                     "psgf_mix_device_ops_per_call": per_call}}))
 
     def lib(w_, g_, m_):     # the closest PyTorch calls: a lerp and a sum
         return torch.lerp(w_, g_.expand_as(w_), m_), m_.sum(dtype=torch.float32)
@@ -639,7 +776,8 @@ def check_psgf_mix(mix_ops, mix_ref) -> dict:
         kernel_ms2 = timed_ms(kernel)
         plain_ms2 = timed_ms(plain)
         bound, nbytes = mix_bound_ms(K, MIX_D)
-        per_k[K] = {"ms": statistics.median([kernel_ms, kernel_ms2]),
+        per_k[K] = {"grid_blocks": mix_ops._kernel_fns()[0](MIX_D, K),
+                    "ms": statistics.median([kernel_ms, kernel_ms2]),
                     "ms_runs": [kernel_ms, kernel_ms2],
                     "plain_ms": statistics.median([plain_ms, plain_ms2]),
                     "plain_ms_runs": [plain_ms, plain_ms2],
@@ -819,7 +957,8 @@ def drive_training(mix_ops, flash_ops) -> dict:
     launches = {"psgf_mix_batch": mix_ops.LAUNCHES,  # ... and just after
                 "psgf_mix": mix_ops.LAUNCHES_SINGLE,
                 "flash_attention": flash_ops.LAUNCHES}
-    if flash_ops.ROUTE_LAUNCHES["scalar"] != launches["flash_attention"]:
+    flash_routes = dict(flash_ops.ROUTE_LAUNCHES)
+    if flash_ops.ROUTE_LAUNCHES["short"] != launches["flash_attention"]:
         raise RuntimeError(f"training's fp32 hd-8 attention took the routes "
                            f"{flash_ops.ROUTE_LAUNCHES}")
     rounds = sum(r["rounds"] for r in res["rows"])
@@ -878,6 +1017,7 @@ def drive_training(mix_ops, flash_ops) -> dict:
         "rows": res["rows"], "train_s": train_s,
         "s_per_round_by_cluster": per_round,
         "launches": launches,
+        "flash_routes": flash_routes,
         "served_requests": rep["requests"],
         "served_max_abs_err_vs_cpu": serve_err,
         "card_vs_cpu_round": versus,
@@ -1025,7 +1165,7 @@ def check_flash_hymba(ops, ref) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attention_inputs(gen, B, S, S, H, KV, hd, dtype)
         key = str(dtype).replace("torch.", "")
-        routes[key] = ops.kernel_route(dtype, hd)
+        routes[key] = route_of(ops, q, k)
         got, errs[key], ratio = flash_case(
             ops, ref, f"flash at hymba's shape ({key})", q, k, v, True,
             HYMBA_WINDOW, None, FLASH_HYMBA_TOL[dtype])
@@ -1183,7 +1323,8 @@ def drive_hybrid_serving(ssm_ops, flash_ops) -> dict:
     if rep["params"] != HYMBA_PARAMS:
         raise RuntimeError(f"hymba-1.5b has {rep['params']} params")
     if (launches != {"ssm_scan": cfg.num_layers, "flash_attention": cfg.num_layers}
-            or flash_routes != {"scalar": 0, "tensor_core": cfg.num_layers}):
+            or flash_routes != {"scalar": 0, "tensor_core": cfg.num_layers,
+                                "short": 0}):
         raise RuntimeError(f"kernel launches {launches} (flash routes "
                            f"{flash_routes}) for one prefill of "
                            f"{cfg.num_layers} layers")
@@ -1282,6 +1423,7 @@ def main() -> int:
 
     # 4. the serving path
     serving = drive_serving(ops)
+    serving_routes = serving["flash_route_launches"]
     record["launches"] = serving["flash_attention_launches"]
     log(json.dumps({"serving": serving}))
 
@@ -1300,16 +1442,32 @@ def main() -> int:
     record["hybrid_prefill"]["launches"] = hybrid["launches_prefill"]["flash_attention"]
     log(json.dumps({"hybrid_serving": hybrid}))
 
-    # flash attention's record is the serving path's (scalar route); the
-    # tensor-core route's numbers are its hybrid_prefill entry
+    # flash attention's record is the serving path's (the short route); the
+    # scalar kernel's numbers are from the same inputs with its route forced,
+    # the tensor-core route's from its hybrid_prefill entry
+    tc = record["hybrid_prefill"]
     record["routes"] = {
-        "scalar": {"source": record["source"],
-                   "launches_serving": record["launches"],
-                   "launches_training": record["launches_training"],
-                   "ms": record["ms"]},
-        "tensor_core": {"source": record["hybrid_prefill"]["source"],
-                        "launches": record["hybrid_prefill"]["launches"],
-                        "ms": record["hybrid_prefill"]["ms"]},
+        "short": {"source": record["source"],
+                  "max_abs_err": record["max_abs_err"],
+                  "launches_serving": record["launches"],
+                  "launches_training": record["launches_training"],
+                  "ms": record["ms"],
+                  "ms_training_shape": record["training_shape"]["ms"]},
+        "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                   "launches_serving": serving_routes["scalar"],
+                   "launches_training": training["flash_routes"]["scalar"],
+                   "ms": record["serving_shape"]["scalar_ms"],
+                   "ms_training_shape": record["training_shape"]["scalar_ms"],
+                   "max_abs_err": max(record["serving_shape"]["scalar_max_abs_err"],
+                                      record["training_shape"]["scalar_max_abs_err"]),
+                   "plain_ms": record["plain_ms"],
+                   "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
+                   "library_ms": record["library_ms"]},
+        "tensor_core": {"source": tc["source"], "launches": tc["launches"],
+                        "ms": tc["ms"], "max_abs_err": tc["max_abs_err"],
+                        "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
+                        "bound_by": tc["bound_by"],
+                        "library_ms": tc["library_ms"]},
     }
     k1_record = mix_record.pop("k1_psgf_mix")
     log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))

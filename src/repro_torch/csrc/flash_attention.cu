@@ -12,15 +12,25 @@
 // Unlike the TPU wrapper (ops.py:30-44) nothing is padded: ragged Sq and Skv
 // are handled here by bounds, so the caller passes the tensors as they are.
 //
+// Which calls reach it (ops.kernel_route): the ones no other route takes.
+// Short sequences at hd 8-32 (the LoGTST forecaster's 15-63 tokens x 16
+// heads) go to flash_attention_short.cu, which stages a whole batch row
+// per block and serves every head of it; bf16 at hd 64 / 128 goes to
+// flash_attention_tc.cu. This kernel keeps long sequences (past the short
+// kernel's thread and shared-memory envelope) and fp32 at hd 64 / 128,
+// such as hymba-1.5b's float32 check at 2,048 tokens.
+//
 // What bounds it on the card. At the forecaster's serving shape (q, k, v,
 // o each (96, 15, 16, 8) fp32 = 737,280 B) the call must move 2.95 MB, which
 // is ~0.88 us at 3.35 TB/s, and does ~11 MFLOP (QK^T and PV at 15x15 per
 // head, 0.17 us at 67 TFLOP/s fp32): it is memory- and launch-bound, never
 // compute-bound. At hd = 8 the contractions are far too thin for wgmma (64
 // rows x >= 16 deep), so plain fp32 FMAs on CUDA cores are the right unit.
+// There this kernel took 0.0088-0.0094 ms in chip_smoke.py (NVIDIA H100
+// 80GB HBM3, 700.00 W: 1,536 one-warp blocks with 15 of 32 lanes live, each
+// restaging its head's K/V in 32-byte pieces), the short kernel about half.
 //
-// Design (simple and right first; wgmma/TMA and several heads per block are
-// later work):
+// Design (simple and right first):
 //   * grid (ceil(Sq / threads), H, min(B, 65535)), the z blocks striding over
 //     the batch; one thread owns one query row and keeps
 //     q and its fp32 accumulator acc[HD] in registers (HD is a template

@@ -3,8 +3,9 @@
 //
 // Replaces, for bf16 at hd 64 and 128, the TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel
-// (body `_kernel`, kernel.py:35-85); flash_attention.cu keeps every other
-// case (float32, hd 8-32) on CUDA cores. The function is the same:
+// (body `_kernel`, kernel.py:35-85); flash_attention_short.cu and
+// flash_attention.cu keep every other case (float32, hd 8-32) on CUDA
+// cores. The function is the same:
 //   s = (q . k) * scale, scale = 1/sqrt(hd);
 //   mask = (key < kv_len) [& key <= q if causal] [& key > q - window], in
 //   absolute positions from 0 (Sq != Skv allowed);

@@ -31,7 +31,8 @@ BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "repro_torch_kernels"
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "flash_attention_tc", "psgf_mix", "ssm_scan")
+SOURCES = ("flash_attention", "flash_attention_short", "flash_attention_tc",
+           "psgf_mix", "ssm_scan")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

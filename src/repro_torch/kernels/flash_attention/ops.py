@@ -3,14 +3,19 @@
 
 ``flash_attention(q, k, v)`` dispatches on where the tensors lie:
 
-  * CUDA tensors launch one of two hand-written kernels after the checks
-    below, chosen by :func:`kernel_route` from the dtype and head dim:
-    bfloat16 at hd 64 or 128 takes the tensor-core kernel
+  * CUDA tensors launch one of three hand-written kernels after the checks
+    below, chosen by :func:`kernel_route` from the dtype, head dim and
+    shape: bfloat16 at hd 64 or 128 takes the tensor-core kernel
     (``repro_torch/csrc/flash_attention_tc.cu``: wgmma, TMA, one block per
-    kv head's query group); every other case (float32, hd 8-32) the scalar
-    kernel (``repro_torch/csrc/flash_attention.cu``: fp32 FMAs, a thread
-    per query row). Both are built at first use. Anything the kernels do
-    not take RAISES — there is no fallback;
+    kv head's query group); short sequences at hd 8-32 (the forecaster's
+    attention, :data:`SHORT_HEAD_DIMS` within :data:`SHORT_MAX_THREADS` and
+    :data:`SHORT_SMEM_BUDGET`) the short kernel
+    (``repro_torch/csrc/flash_attention_short.cu``: a block per batch row
+    with its q, k and v slabs in shared memory, a thread or two lanes per
+    (query, head), an exact two-pass softmax); every other case (long sequences, float32
+    at hd 64 / 128) the scalar kernel (``repro_torch/csrc/flash_attention.cu``:
+    fp32 FMAs, a thread per query row). All are built at first use.
+    Anything the kernels do not take RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`), the same
     function computed densely.
 
@@ -41,7 +46,16 @@ from repro_torch.kernels.flash_attention.ref import (
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 TENSOR_CORE_HEAD_DIMS = (64, 128)
-ROUTES = ("scalar", "tensor_core")
+# The short route's envelope (its source note says why): the head dims it
+# is built for, the (query, head) pairs a block may hold at each (one
+# thread each; the launch bounds that keep q, acc and the cached scores in
+# registers), and the bytes of the q, k and v slabs it stages per block.
+SHORT_HEAD_DIMS = (8, 16, 32)
+SHORT_MAX_THREADS = {8: 1024, 16: 512, 32: 256}
+SHORT_SMEM_BUDGET = 112 * 1024
+ROUTES = ("scalar", "tensor_core", "short")
+_LIBRARIES = {"scalar": "flash_attention", "tensor_core": "flash_attention_tc",
+              "short": "flash_attention_short"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535          # gridDim.y (heads); the kernels stride over B
 
@@ -65,32 +79,49 @@ _FNS = {}
 def _kernel_fn(route):
     fn = _FNS.get(route)
     if fn is None:
-        if route == "tensor_core":
-            fn = _build.load("flash_attention_tc").flash_attention_tc_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                           + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
-        else:
-            fn = _build.load("flash_attention").flash_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                           + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+        lib = _LIBRARIES[route]
+        fn = getattr(_build.load(lib), f"{lib}_fwd")
+        # the scalar and short kernels take a dtype code after the pointers
+        ints = 9 if route == "tensor_core" else 10
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[route] = fn
     return fn
 
 
-def kernel_route(dtype, hd) -> str:
-    """Which kernel a CUDA call of this dtype and head dim launches:
-    ``"tensor_core"`` for bfloat16 at hd 64 or 128, ``"scalar"`` for every
-    other case the kernels take. Raises ``TypeError`` for another dtype and
-    ``ValueError`` for a head dim outside :data:`HEAD_DIMS`."""
+def _in_short_envelope(dtype, hd, q_shape, kv_shape) -> bool:
+    _, Sq, H, _ = q_shape
+    _, Skv, KV, _ = kv_shape
+    staged = (Sq * H + 2 * Skv * KV) * hd * (4 if dtype == torch.float32 else 2)
+    return (hd in SHORT_HEAD_DIMS and Sq * H <= SHORT_MAX_THREADS[hd]
+            and staged <= SHORT_SMEM_BUDGET)
+
+
+def kernel_route(dtype, hd, q_shape=None, kv_shape=None) -> str:
+    """Which kernel a CUDA call launches: ``"tensor_core"`` for bfloat16 at
+    hd 64 or 128; ``"short"`` when ``q_shape`` (B, Sq, H, hd) and
+    ``kv_shape`` (B, Skv, KV, hd) are given and fall inside the short
+    kernel's envelope (hd in :data:`SHORT_HEAD_DIMS`, ``Sq * H`` at most
+    :data:`SHORT_MAX_THREADS` ``[hd]``, the staged slabs ``(Sq * H + 2 *
+    Skv * KV) * hd`` elements within :data:`SHORT_SMEM_BUDGET` bytes);
+    ``"scalar"`` for every other case the kernels take. Without shapes it
+    answers for a shape outside the short envelope. Raises ``TypeError``
+    for another dtype and ``ValueError`` for a head dim outside
+    :data:`HEAD_DIMS`."""
     if dtype not in _DTYPE_CODES:
         raise TypeError("flash_attention kernel takes float32 or bfloat16, "
                         f"not {dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported by the kernel "
                          f"(supported: {HEAD_DIMS})")
+    if (q_shape is None) != (kv_shape is None):
+        raise ValueError("kernel_route takes both q_shape and kv_shape, or "
+                         "neither")
     if dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
+    if q_shape is not None and _in_short_envelope(dtype, hd, q_shape, kv_shape):
+        return "short"
     return "scalar"
 
 
@@ -118,8 +149,11 @@ def _check_shapes(q, k, v, kv_len):
         raise ValueError(f"kv_len {kv_len} outside [0, {k.shape[1]}]")
 
 
-def _launch(q, k, v, causal, window, kv_len):
-    """Checks, then one kernel launch on the current stream."""
+def _launch(q, k, v, causal, window, kv_len, route=None):
+    """Checks, then one kernel launch on the current stream. ``route``
+    (default: :func:`kernel_route`'s choice) may also be ``"scalar"``, which
+    takes every call, so the scalar kernel can be timed against the others
+    on their inputs."""
     global LAUNCHES
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
@@ -129,13 +163,17 @@ def _launch(q, k, v, causal, window, kv_len):
                         f"same for q, k, v; got {q.dtype}, {k.dtype}, {v.dtype}")
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    route = kernel_route(q.dtype, hd)
+    chosen = kernel_route(q.dtype, hd, tuple(q.shape), tuple(k.shape))
+    if route not in (None, "scalar", chosen):
+        raise ValueError(f"the {route} flash-attention kernel does not take "
+                         f"{q.dtype} q {tuple(q.shape)}, k {tuple(k.shape)}")
+    route = route or chosen
     if H > _GRID_LIMIT:
         raise ValueError(f"heads {H} above the grid limit {_GRID_LIMIT}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if route == "tensor_core":
-        # TMA and the 16-byte row loads take 16-byte aligned bases; a view
-        # at an odd offset is copied to a fresh (aligned) allocation
+    if route != "scalar":
+        # TMA and the 16-byte row loads and copies take 16-byte aligned
+        # bases; a view at an odd offset is copied to a fresh allocation
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:

@@ -14,10 +14,20 @@ Replaces ``src/repro/kernels/psgf_mix/kernel.py::psgf_mix_batch_kernel``
 (``pallas_call`` at kernel.py:76) and ``::psgf_mix_kernel`` (kernel.py:39);
 ``psgf_mix`` is the K = 1 case of the same launch. Bound: bytes, ``(3*K*D +
 D) * 4`` per call (w and m read, the output written, g read once). Design:
-one streaming pass over ``(blocks of D, K)`` with 16-byte accesses where the
-rows are aligned, the lerp rounded step by step (bitwise equal to the plain
-version), and per-block float32 partial counts summed afterwards (no float
-atomics; see the source's header).
+one streaming pass over slices of the client rows, with a slice size chosen
+from K so that the card fills (1,024 elements at K = 1, 4,096 at the
+engine's K) and at most as many blocks as the card holds at once, 16-byte
+accesses where the rows are aligned, the lerp rounded step by step
+(bitwise equal to the plain version), and per-block float32 partial counts
+that the last block to finish sums in index order into the count: one
+launch per call, no float atomics (see the source's header).
+
+The last block finds itself by a ticket counter: one zeroed 32-bit word per
+device, allocated by the first call on that device and reset by every
+launch when it ends. Calls must not run on two streams of one device at the
+same time, nor may two CUDA graphs that hold this kernel replay at the same
+time: they would share the counter. Make the first call on a device outside
+any CUDA graph capture (the counter cannot be allocated during one).
 
 ``LAUNCHES`` counts the kernel launches of ``psgf_mix_batch`` and
 ``LAUNCHES_SINGLE`` those of ``psgf_mix`` (and nothing else), so a run can
@@ -37,6 +47,7 @@ LAUNCHES = 0
 LAUNCHES_SINGLE = 0
 _COUNT_LOCK = threading.Lock()
 _FNS = None
+_TICKETS = {}                # device index -> zeroed int32 ticket counter
 
 
 def _kernel_fns():
@@ -44,13 +55,31 @@ def _kernel_fns():
     if _FNS is None:
         lib = _build.load("psgf_mix")
         blocks, fwd = lib.psgf_mix_blocks, lib.psgf_mix_fwd
-        blocks.argtypes, blocks.restype = [ctypes.c_longlong], ctypes.c_int
-        fwd.argtypes = ([ctypes.c_void_p] * 5
+        blocks.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        blocks.restype = ctypes.c_int
+        fwd.argtypes = ([ctypes.c_void_p] * 7
                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         _FNS = (blocks, fwd)
     return _FNS
+
+
+def _ticket_counter(device):
+    """The device's ticket counter (see the module's docstring)."""
+    counter = _TICKETS.get(device.index)
+    if counter is None:
+        with _COUNT_LOCK:
+            counter = _TICKETS.get(device.index)
+            if counter is None:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError(
+                        "psgf_mix: the first call on a device allocates its "
+                        "ticket counter and cannot be captured in a CUDA "
+                        "graph; call it once before capturing")
+                counter = torch.zeros(1, dtype=torch.int32, device=device)
+                _TICKETS[device.index] = counter
+    return counter
 
 
 def _launch(w_global, w_clients, mask, single=False):
@@ -69,14 +98,17 @@ def _launch(w_global, w_clients, mask, single=False):
     if K == 0 or D == 0:
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
     blocks, fwd = _kernel_fns()
-    partials = torch.empty((K, blocks(D)), dtype=torch.float32,
-                           device=out.device)
+    count = torch.empty((), dtype=torch.float32, device=out.device)
     vector = int(D % 4 == 0 and all(t.data_ptr() % 16 == 0
                                     for t in (*tensors, out)))
     with torch.cuda.device(out.device):
+        counter = _ticket_counter(out.device)
+        partials = torch.empty(blocks(D, K), dtype=torch.float32,
+                               device=out.device)
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = fwd(w_global.data_ptr(), w_clients.data_ptr(), mask.data_ptr(),
-                  out.data_ptr(), partials.data_ptr(), D, K, vector, stream)
+                  out.data_ptr(), partials.data_ptr(), count.data_ptr(),
+                  counter.data_ptr(), D, K, vector, stream)
     if err != 0:
         raise RuntimeError(f"psgf_mix kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
@@ -84,7 +116,7 @@ def _launch(w_global, w_clients, mask, single=False):
             LAUNCHES_SINGLE += 1
         else:
             LAUNCHES += 1
-    return out, partials.sum()
+    return out, count
 
 
 def _dispatch(w_global, w_clients, mask, ref):

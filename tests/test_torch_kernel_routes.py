@@ -1,6 +1,7 @@
 """Which flash-attention kernel a CUDA call takes, and why the tensor-core
-route's tolerance is what it is. CPU only: the routing is a pure function,
-and the tensor-core numerics are emulated in torch."""
+and short routes' tolerances are what they are. CPU only: the routing is a
+pure function, and both kernels' numerics are emulated in torch (the short
+one also held against the JAX kernel in interpret mode)."""
 import math
 
 import numpy as np
@@ -92,3 +93,125 @@ def test_tensor_core_numerics_within_bf16_tolerance(case):
     assert float(err.max()) <= 2e-2
     # rounding P is a real change: the emulation is not the rounded fp32 answer
     assert not torch.equal(got, want.to(torch.bfloat16).float())
+
+
+# the forecaster's shapes: 15 tokens x 16 heads of 8 at look_back 128 (63
+# tokens at look_back 512); serving buckets of 1..32 requests x 1 or 3
+# channels, training's K x 32 rows and evaluation's K x n_test rows of the
+# clusters K = 21 / 27 / 10
+FORECAST_ROWS = sorted({b * m for b in (1, 2, 4, 8, 16, 32) for m in (1, 3)}
+                       | {K * 32 for K in (21, 27, 10)}
+                       | {K * 58 for K in (21, 27, 10)} | {70_000})
+
+
+@pytest.mark.parametrize("rows", FORECAST_ROWS)
+@pytest.mark.parametrize("tokens", [15, 63])
+def test_short_route_takes_the_forecaster(rows, tokens):
+    shape = (rows, tokens, 16, 8)
+    assert ops.kernel_route(torch.float32, 8, shape, shape) == "short"
+    assert ops.kernel_route(torch.float32, 8) == "scalar"    # no shape: as before
+
+
+@pytest.mark.parametrize("case", [
+    # dtype, hd, q (B, Sq, H), kv (Skv, KV), route
+    (torch.bfloat16, 8, (4, 15, 16), (15, 16), "short"),
+    (torch.bfloat16, 16, (4, 32, 16), (32, 8), "short"),        # 512 pairs
+    (torch.bfloat16, 32, (4, 16, 16), (16, 4), "short"),        # 256 pairs
+    (torch.float32, 32, (2, 15, 16), (15, 16), "short"),        # 92,160 B
+    (torch.float32, 8, (1, 64, 16), (64, 16), "short"),         # 98,304 B
+    (torch.float32, 8, (1, 64, 16), (100, 16), "scalar"),       # 135,168 B
+    (torch.float32, 8, (1, 65, 16), (65, 16), "scalar"),        # 1,040 pairs
+    (torch.bfloat16, 16, (1, 33, 16), (33, 16), "scalar"),      # 528 > 512 pairs
+    (torch.bfloat16, 32, (1, 17, 16), (17, 16), "scalar"),      # 272 > 256 pairs
+    (torch.float32, 32, (1, 16, 16), (20, 16), "short"),        # 114,688 B
+    (torch.float32, 32, (1, 16, 16), (24, 16), "scalar"),       # 131,072 B
+    (torch.float32, 8, (1, 15, 16), (2048, 16), "scalar"),      # long keys
+    (torch.float32, 64, (1, 15, 16), (15, 16), "scalar"),       # fp32 at hd 64
+    (torch.float32, 128, (1, 15, 4), (15, 4), "scalar"),        # fp32 at hd 128
+    (torch.bfloat16, 64, (1, 15, 16), (15, 16), "tensor_core"),
+    (torch.bfloat16, 128, (4, 2048, 25), (2048, 5), "tensor_core"),
+])
+def test_kernel_route_by_shape(case):
+    dtype, hd, (B, Sq, H), (Skv, KV), route = case
+    assert ops.kernel_route(dtype, hd, (B, Sq, H, hd), (B, Skv, KV, hd)) == route
+
+
+def test_short_envelope_edges():
+    """Just inside and just past each bound of the short envelope."""
+    f32 = torch.float32
+    r = lambda Sq, H, Skv, KV, hd=8, dt=f32: ops.kernel_route(   # noqa: E731
+        dt, hd, (1, Sq, H, hd), (1, Skv, KV, hd))
+    assert r(64, 16, 1, 1) == "short" and r(64, 16, 64, 1) == "short"
+    assert r(1025, 1, 1, 1) == "scalar"                       # threads
+    # staged bytes: (Sq*H + 2*Skv*KV) * hd * 4 against 112 KiB
+    budget_rows = ops.SHORT_SMEM_BUDGET // (8 * 4)           # 3,584 rows of hd 8
+    assert r(64, 16, (budget_rows - 1024) // 2, 1) == "short"
+    assert r(64, 16, (budget_rows - 1024) // 2 + 1, 1) == "scalar"
+    assert ops.SHORT_MAX_THREADS == {8: 1024, 16: 512, 32: 256}
+    with pytest.raises(ValueError, match="both q_shape and kv_shape"):
+        ops.kernel_route(f32, 8, (1, 15, 16, 8))
+
+
+def short_kernel_emulation(q, k, v, *, causal, window, kv_len):
+    """The short kernel's numerics in torch: per (query, head), fp32 scores
+    of each kept key (one contiguous range [lo, hi)), their max, then
+    ``exp(s - m)`` summed key by key into l and P.V in key order, the output
+    ``acc / max(l, 1e-30)`` rounded to the input dtype once."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    kv_len = Skv if kv_len is None else kv_len
+    kh = torch.arange(H) // (H // KV)
+    qf = q.float()
+    kf, vf = k.float()[:, :, kh], v.float()[:, :, kh]          # (B, Skv, H, hd)
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.zeros(B, Sq, H, hd)
+    for i in range(Sq):
+        hi = min(kv_len, i + 1) if causal else kv_len
+        lo = 0 if window is None else min(max(0, i - window + 1), Skv)
+        if lo >= hi:
+            continue                                          # 0 / 1e-30 = 0
+        s = torch.stack([(qf[:, i] * kf[:, j]).sum(-1) * scale
+                         for j in range(lo, hi)])            # (keys, B, H)
+        m = s.amax(0)
+        l = torch.zeros(B, H)
+        acc = torch.zeros(B, H, hd)
+        for n, j in enumerate(range(lo, hi)):
+            p = torch.exp(s[n] - m)
+            l = l + p
+            acc = acc + p[..., None] * vf[:, j]
+        out[:, i] = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [
+    # B, Sq, Skv, H, KV, hd, causal, window, kv_len
+    (2, 15, 15, 4, 4, 8, False, None, None),      # the forecaster's shape, cut
+    (2, 15, 20, 4, 2, 16, True, 6, 17),           # GQA, causal, window, kv_len
+    (1, 12, 12, 4, 1, 8, False, 4, 0),            # kv_len 0: every row zero
+])
+def test_short_kernel_numerics_within_flash_tolerance(case):
+    """The reason the short route is held to FLASH_ATTN_TOL: its two-pass
+    fp32 softmax stays within it of the JAX kernel (interpret mode) and of
+    the plain version, at shapes the route takes."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.core.forecast import FLASH_ATTN_TOL
+
+    B, Sq, Skv, H, KV, hd, causal, window, kv_len = case
+    assert ops.kernel_route(torch.float32, hd, (B, Sq, H, hd),
+                            (B, Skv, KV, hd)) == "short"
+    rng = np.random.default_rng(15)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))]
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    mask = dict(causal=causal, window=window, kv_len=kv_len)
+    got = short_kernel_emulation(q, k, v, **mask)
+    plain = flash_attention_ref(q, k, v, **mask)
+    jax_kern = np.asarray(flash_attention_kernel(
+        *(jnp.asarray(a) for a in arrs), causal=causal, window=window,
+        block_q=Sq, block_k=Skv, kv_len=kv_len, interpret=True))
+    for want in (plain.numpy(), jax_kern):
+        np.testing.assert_allclose(got.numpy(), want, atol=FLASH_ATTN_TOL,
+                                   rtol=FLASH_ATTN_TOL)
+    if kv_len == 0:
+        assert torch.equal(got, torch.zeros_like(got))

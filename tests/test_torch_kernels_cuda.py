@@ -143,6 +143,67 @@ def test_flash_kernel_padding_inert_and_dead_rows_zero(cuda):
     assert torch.equal(base[0, 115:], torch.zeros_like(base[0, 115:]))
 
 
+SHORT_CASES = [
+    # B, Sq, Skv, H, KV, hd, causal, window, kv_len, dtype: the forecaster's
+    # serving buckets (3, 96), training's K x 32 rows (864) and a batch past
+    # the old grid limit (70,000); no valid key; GQA with every mask; 63
+    # tokens; hd 16 and 32; bf16
+    (3, 15, 15, 16, 16, 8, False, None, None, torch.float32),
+    (96, 15, 15, 16, 16, 8, False, None, None, torch.float32),
+    (864, 15, 15, 16, 16, 8, False, None, None, torch.float32),
+    (70_000, 15, 15, 16, 16, 8, False, None, None, torch.float32),
+    (2, 7, 40, 4, 1, 8, True, None, 0, torch.float32),
+    (3, 15, 15, 16, 4, 8, True, 5, 12, torch.float32),
+    (4, 63, 63, 16, 16, 8, False, None, None, torch.float32),
+    (2, 30, 20, 16, 2, 16, False, 9, 17, torch.float32),
+    (2, 15, 15, 16, 16, 32, False, None, None, torch.float32),
+    (96, 15, 15, 16, 16, 8, False, None, None, torch.bfloat16),
+    (3, 20, 33, 8, 2, 16, True, None, 30, torch.bfloat16),
+    (3, 16, 16, 16, 8, 32, False, 4, None, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SHORT_CASES)
+def test_flash_short_kernel_matches_plain(cuda, case):
+    """The short route: one launch counted on it, within FLASH_ATTN_TOL of
+    the plain version in float32 (BF16_TOL in bf16), rows with no valid key
+    exactly zero."""
+    B, Sq, Skv, H, KV, hd, causal, window, kv_len, dtype = case
+    q, k, v = _inputs(8, B, Sq, Skv, H, KV, hd, cuda, dtype)
+    assert ops.kernel_route(dtype, hd, tuple(q.shape), tuple(k.shape)) == "short"
+    before = dict(ops.ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES == {**before, "short": before["short"] + 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               kv_len=kv_len)
+    tol = F.FLASH_ATTN_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if kv_len == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+def test_flash_short_and_scalar_kernels_agree(cuda):
+    """The scalar kernel, its route forced, on the short route's inputs: the
+    two CUDA kernels agree within FLASH_ATTN_TOL, and each launch is counted
+    on its own route."""
+    q, k, v = _inputs(9, 96, 15, 15, 16, 16, 8, cuda)
+    before = dict(ops.ROUTE_LAUNCHES)
+    short = flash_attention(q, k, v, causal=False)
+    scalar = ops._launch(q, k, v, False, None, None, route="scalar")
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES == {**before, "short": before["short"] + 1,
+                                  "scalar": before["scalar"] + 1}
+    torch.testing.assert_close(short, scalar, atol=F.FLASH_ATTN_TOL,
+                               rtol=F.FLASH_ATTN_TOL)
+    with pytest.raises(ValueError, match="short flash-attention kernel does not"):
+        ops._launch(*_inputs(9, 1, 100, 100, 16, 16, 8, cuda), False, None,
+                    None, route="short")
+
+
 @pytest.mark.cuda
 def test_flash_kernel_grads_match_plain(cuda):
     a = [t.requires_grad_() for t in _inputs(2, 1, 60, 60, 4, 2, 16, cuda)]
@@ -320,6 +381,76 @@ def test_vmap_grad_through_flash_kernel_matches_dense_on_the_card(cuda):
     g_dense, l_dense = grads(cfg)
     torch.testing.assert_close(l_flash, l_dense, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(g_flash, g_dense, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vmap_grad_over_27_clients_is_one_short_launch(cuda):
+    """LocalUpdate's ``vmap(grad_and_value)`` at the largest cluster (27
+    clients x 32 series of full-width LoGTST): the vmap rule folds every
+    client into one (864, 15, 16, 8) call, launched once on the short
+    route; the gradients match the dense attention path as above."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = F.logtst_config()
+    params = F.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    vec, meta = pt.tree_flatten_to_vector(params)
+    rng = np.random.default_rng(6)
+    K = 27
+    w = (vec[None].repeat(K, 1) + 0.01 * torch.from_numpy(
+        rng.standard_normal((K, meta.total)).astype(np.float32))).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((K, 32, 128)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((K, 32, 2)).astype(np.float32)).to(cuda)
+
+    def grads(c):
+        def loss(wv, xb, yb):
+            return F.mse_loss(c, pt.tree_unflatten_from_vector(wv, meta), xb, yb)
+        return torch.func.vmap(torch.func.grad_and_value(loss))(w, x, y)
+
+    before = dict(ops.ROUTE_LAUNCHES)
+    g_flash, l_flash = grads(dataclasses.replace(cfg, use_flash_attn=True))
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES == {**before, "short": before["short"] + 1}
+    g_dense, l_dense = grads(cfg)
+    torch.testing.assert_close(l_flash, l_dense, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(g_flash, g_dense, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 27])
+def test_psgf_mix_count_across_graph_replays(cuda, K):
+    """One call captured in a CUDA graph and replayed three times: the same
+    bitwise mix and the exact count every time (the last block resets the
+    ticket counter, so each replay starts clean); two calls back to back
+    give identical counts."""
+    g, w, m = _mix_inputs(20 + K, K, 273_284, "binary", cuda)
+    want, want_count = psgf_mix_batch_ref(g, w, m)
+    first = mix_ops.psgf_mix_batch(g, w, m)[1]
+    second = mix_ops.psgf_mix_batch(g, w, m)[1]
+    assert torch.equal(first, want_count) and torch.equal(second, first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mixed, count = mix_ops.psgf_mix_batch(g, w, m)
+    for _ in range(3):
+        mixed.zero_()
+        count.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(mixed, want)
+        assert torch.equal(count, want_count)
+
+
+@pytest.mark.cuda
+def test_psgf_mix_many_clients_one_launch(cuda):
+    """70,000 short client rows: more slices than the grid holds, so every
+    block walks several; the mix bitwise, the count exact."""
+    g, w, m = _mix_inputs(30, 70_000, 8, "binary", cuda)
+    before = mix_ops.LAUNCHES
+    mixed, count = mix_ops.psgf_mix_batch(g, w, m)
+    torch.cuda.synchronize()
+    assert mix_ops.LAUNCHES == before + 1
+    want, want_count = psgf_mix_batch_ref(g, w, m)
+    assert torch.equal(mixed, want) and torch.equal(count, want_count)
 
 
 # ---------------- ssm_scan ----------------
