@@ -52,9 +52,21 @@ Phases, each of which raises (exit code != 0) on failure:
      counts of its prefill (32 of each kernel, flash all on the tensor-core
      route), a profiled prefill, full-width block 0 on the card against the
      CPU, and reduced hymba in float32 on the card against the CPU (tokens
-     equal).
+     equal);
+  7. training drivers: ``driver="while"`` against ``driver="scan"`` at
+     phase 5's full width — run A through ``run_experiment`` (3 clusters, 10
+     rounds in chunks of 4, 4 and 2: the remainder graph; rows and trained
+     models compared), then run A and run B (patience 1: the stop fires on
+     the device, also run with every remaining chunk enqueued and masked)
+     on the 27-station cluster stage by stage with the chunk loop under
+     ``set_sync_debug_mode("error")``, set-up, warm wall per round and one
+     profiled warm chunk of each driver; then ``driver="host"`` against
+     ``driver="loop"`` on a 2,048-station ``nn5`` fleet (cohort 256, client
+     chunk 64): bitwise, the store pinned, bytes per round, peak device
+     memory of each.
 
-Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``, one
+Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
+``{"training_drivers": ...}``, one
 ``{"kernels": [...]}`` line (flash attention with its three routes,
 psgf_mix_batch, psgf_mix, ssm_scan), and last ``{"ok": true, "device":
 {...}}``. It imports ``torch``, ``numpy``, the
@@ -1026,6 +1038,331 @@ def drive_training(mix_ops, flash_ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the while and host FL drivers
+# ---------------------------------------------------------------------------
+
+WHILE_A = dict(max_rounds=10, eval_every=4, patience=100)   # chunks 4, 4, 2
+WHILE_B = dict(max_rounds=48, eval_every=4, patience=1)     # the stop fires
+HOST_K, HOST_S, HOST_CHUNK, HOST_ROUNDS, HOST_EVAL = 2048, 256, 64, 4, 2
+KERNEL_NAMES = {"flash_short": "flash_short_kernel",
+                "psgf_mix_batch": "psgf_mix_kernel"}
+
+
+def profile_chunk(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (a chunk of rounds, ended
+    by a device sync): host wall ms, device busy ms, the idle share, the
+    device kernels and how many of them each of the port's kernels is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events, without the engine's record_function ranges ("fl.*"),
+    # which eager runs also show on the device and which span their kernels
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("fl.")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    named = {k: sum(1 for e in kernels if pat in e.name)
+             for k, pat in KERNEL_NAMES.items()}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "device_idle_share": (max(0.0, 1 - busy_ms / wall_ms)
+                                  if busy_ms else None),
+            "device_ops": len(kernels), "kernels": named}
+
+
+def event_ms(fn) -> float:
+    """Device time of one ``fn()`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def while_stepwise(E, R, cfg, fl, tr, te, seed, depth, max_rounds,
+                   eval_every, patience):
+    """The while driver stage by stage, as ``run_fl`` runs it, with the
+    chunk loop (first replay to the final read) under
+    ``set_sync_debug_mode("error")``: any host sync in it raises."""
+    key = R.split(R.PRNGKey(seed, device="cuda")).unbind(0)
+    state, meta = E.init_fl_state(cfg, fl, key[1], device="cuda")
+    run = E._WhileRun(state, key[0], torch.from_numpy(tr).cuda(),
+                      torch.from_numpy(te).cuda(), cfg, fl, meta,
+                      E.pol.from_config(fl), max_rounds, eval_every, patience)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run.launch(depth=depth)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rounds, chunks, losses, comms, rmses = run.read()
+    return run, meta, {"rounds_run": rounds, "chunks_run": chunks,
+                       "train_loss": losses, "comm": comms, "rmse": rmses}
+
+
+def while_vs_scan(E, R, cfg, fl, tr, te, seed, run_kw) -> dict:
+    """One cluster under the while driver (stage by stage, chunks pipelined
+    two deep; for run B also with every remaining chunk enqueued and masked)
+    and under ``run_fl(driver="scan")`` from the same key: ``rounds_run``,
+    comm and the RMSE indices bitwise, states within ROUND_TOL; set-up and
+    warm wall per round apart; one warm chunk profiled for each."""
+    E.run_fl(cfg, fl, tr, te, R.PRNGKey(seed), driver="scan", device="cuda",
+             max_rounds=1)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = E.run_fl(cfg, fl, tr, te, R.PRNGKey(seed), driver="scan",
+                  device="cuda", **run_kw)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    run, meta, wh = while_stepwise(E, R, cfg, fl, tr, te, seed, 2, **run_kw)
+    n = run_kw["eval_every"]
+    rmse_rounds = [min((i + 1) * n, run_kw["max_rounds"]) - 1
+                   for i in range(wh["chunks_run"])]
+    same = {"rounds_run": wh["rounds_run"] == sh["rounds_run"],
+            "comm": wh["comm"] == sh["comm"],
+            "rmse_rounds": rmse_rounds == [r for r, _ in sh["rmse"]]}
+    if not all(same.values()):
+        raise RuntimeError(f"while != scan on the card: {same}")
+    keep = E.bk_free(meta).cuda()
+    state_err, bitwise = 0.0, True
+    for k, want in sh["state"].items():
+        got = run.state[k]
+        bitwise = bitwise and torch.equal(got, want)
+        if got.is_floating_point() and got.dim():
+            state_err = max(state_err, float(
+                (got[..., keep] - want[..., keep]).abs().max()))
+        elif not torch.equal(got, want):
+            raise RuntimeError(f"while vs scan counter {k} differs")
+    if not state_err <= ROUND_TOL:
+        raise RuntimeError(f"while vs scan states: {state_err} > {ROUND_TOL}")
+    rounds = wh["rounds_run"]
+    out = {
+        "rounds_run": rounds, "stopped_early": rounds < run_kw["max_rounds"],
+        "bitwise": same, "states_bitwise": bitwise,
+        "state_max_abs_err": state_err,
+        "loss_max_abs_err": float(np.max(np.abs(
+            np.subtract(wh["train_loss"], sh["train_loss"])))),
+        "while": {"warmup_s": run.warmup_s, "capture_s": run.capture_s,
+                  "replay_s": run.replay_s,
+                  "wall_ms_per_round": run.replay_s * 1e3 / rounds,
+                  "replays": {str(k): v for k, v in run.replays.items()},
+                  "graphs": sorted(run.graphs)},
+        "scan": {"run_s": scan_s, "wall_ms_per_round": scan_s * 1e3 / rounds},
+    }
+    if run_kw["patience"] <= 1:
+        masked, _, mh = while_stepwise(E, R, cfg, fl, tr, te, seed, None,
+                                       **run_kw)
+        if (mh["rounds_run"], mh["comm"]) != (rounds, wh["comm"]):
+            raise RuntimeError("masking every remaining chunk changed the run")
+        out["while_mask_all"] = {
+            "replay_s": masked.replay_s,
+            "wall_ms_per_round": masked.replay_s * 1e3 / rounds,
+            "replays": {str(k): v for k, v in masked.replays.items()}}
+        del masked
+    # one warm chunk each: a replay of the full-chunk graph (the run is
+    # over, so the chunk is masked back: the same kernels, nothing kept)
+    # and the scan driver's chunk body with its RMSE on the scan's state
+    graph = run.graphs[n]
+    out["while"]["profile_chunk"] = profile_chunk(graph.replay)
+    out["while"]["event_ms_chunk"] = event_ms(graph.replay)
+    pol = E.pol.from_config(fl)
+    data = torch.from_numpy(tr).cuda()
+    test = torch.from_numpy(te).cuda()
+
+    def scan_chunk():
+        st, _, ms = E._run_chunk(sh["state"], R.PRNGKey(seed, device="cuda"),
+                                 data, cfg, fl, sh["meta"], pol, n)
+        ms["train_loss"].cpu()
+        float(E._rmse_device(cfg, st["w_global"], sh["meta"], test,
+                             fl.client_chunk))
+
+    out["scan"]["profile_chunk"] = profile_chunk(scan_chunk)
+    per = out["while"]["profile_chunk"]["kernels"]
+    if per["psgf_mix_batch"] != n or per["flash_short"] == 0:
+        raise RuntimeError(f"a {n}-round replay ran kernels {per}")
+    return out
+
+
+def drive_training_drivers(mix_ops, flash_ops) -> dict:
+    """Phase 7: ``run_fl(driver="while")`` and ``driver="host"`` on the
+    card at full width, each against the driver that runs the same
+    rounds."""
+    from repro_torch import random as R
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.core.fl import engine as E
+    from repro_torch.core.forecaster import load_forecaster
+    from repro_torch.core.tasks import (ExperimentSpec, get_task,
+                                        run_experiment, task_forecaster)
+
+    out = {}
+    # run A: the 3-cluster pipeline through run_experiment, while then scan
+    task = get_task("ev", quick=False, clusters=3, num_days=420,
+                    min_cluster_clients=4)
+    model = task_forecaster(task, "logtst", quick=False, use_flash_attn=True)
+    grid = (("psgf", {"share_ratio": 0.3, "forward_ratio": 0.2,
+                      "use_pallas_mix": True}),)
+    series = task.series()
+    labels = task.cluster_labels(series, device="cuda")
+    rows, ckpt = {}, {}
+    for driver in ("while", "scan"):
+        spec = ExperimentSpec(task=task, model=model, grid=grid,
+                              select_ratio=0.5, local_steps=4,
+                              batch_size=TRAIN_BATCH, driver=driver, **WHILE_A)
+        ckpt[driver] = os.path.join(ROOT, "build", f"chip_smoke_{driver}")
+        shutil.rmtree(ckpt[driver], ignore_errors=True)
+        torch.cuda.synchronize()
+        if driver == "while":
+            mix_ops.LAUNCHES = 0           # every kernel count, just before
+            flash_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_experiment(spec, checkpoint_dir=ckpt[driver], series=series,
+                             labels=labels, device="cuda")
+        torch.cuda.synchronize()
+        if driver == "while":              # ... and just after
+            captured = {"psgf_mix_batch": mix_ops.LAUNCHES,
+                        "flash_attention": flash_ops.LAUNCHES,
+                        "flash_short": flash_ops.ROUTE_LAUNCHES["short"]}
+        rows[driver] = (res["rows"], time.perf_counter() - t0)
+    keys = ("cluster", "clients", "rounds", "comm_params", "comm_bytes")
+    same = [[w[k] for k in keys] == [s[k] for k in keys]
+            for w, s in zip(rows["while"][0], rows["scan"][0])]
+    if not all(same) or len(same) != 3:
+        raise RuntimeError(f"run_experiment while vs scan rows: {rows}")
+    if captured["psgf_mix_batch"] == 0 or captured["flash_short"] == 0:
+        raise RuntimeError(f"the while pipeline captured no kernel: {captured}")
+    # per cluster: 1 warm-up round + one capture of each chunk length
+    want_mix = 3 * (1 + WHILE_A["eval_every"]
+                    + WHILE_A["max_rounds"] % WHILE_A["eval_every"])
+    if captured["psgf_mix_batch"] != want_mix:
+        raise RuntimeError(f"{captured['psgf_mix_batch']} psgf_mix calls "
+                           f"captured, expected {want_mix}")
+    ckpt_err = 0.0
+    for r in rows["while"][0]:
+        sub = f"psgf-s30-f20_c{r['cluster']}"
+        got = load_forecaster(os.path.join(ckpt["while"], sub), device="cpu")[1]
+        want = load_forecaster(os.path.join(ckpt["scan"], sub), device="cpu")[1]
+        gv, meta = pt.tree_flatten_to_vector(got)
+        wv, _ = pt.tree_flatten_to_vector(want)
+        keep = E.bk_free(meta)
+        ckpt_err = max(ckpt_err, float((gv - wv)[keep].abs().max()))
+    if not ckpt_err <= ROUND_TOL:
+        raise RuntimeError(f"while vs scan trained models: {ckpt_err}")
+    out["run_A_pipeline"] = {
+        "config": dict(WHILE_A), "rows_while": rows["while"][0],
+        "rows_scan": rows["scan"][0], "while_s": rows["while"][1],
+        "scan_s": rows["scan"][1], "captured_calls": captured,
+        "checkpoint_w_global_max_abs_err": ckpt_err}
+
+    # runs A and B on the 27-station cluster, stage by stage
+    c = int(np.argmax(np.bincount(labels)))
+    tr, _, te, _ = task.client_data(series, np.nonzero(labels == c)[0])
+    fl = spec.fl_config("psgf", tr.shape[0], grid[0][1])
+    for name, run_kw in (("run_A_c%d" % c, WHILE_A), ("run_B_c%d" % c, WHILE_B)):
+        out[name] = while_vs_scan(E, R, model.cfg, fl, tr, te, spec.seed + c,
+                                  run_kw)
+        log(json.dumps({name: out[name]}))
+    if not out["run_B_c%d" % c]["stopped_early"]:
+        raise RuntimeError("run B: the stop did not fire on the device")
+    per = out["run_B_c%d" % c]["while"]
+    launches = {k: sum(v for v in per["replays"].values()) * n
+                for k, n in per["profile_chunk"]["kernels"].items()}
+    # the third way to stop, a conditional graph node, needs this API
+    out["conditional_node_in_torch"] = hasattr(torch.cuda.CUDAGraph,
+                                               "begin_capture_to_if_node")
+    out["while_launches_run_B"] = {
+        "how": "profiler kernels of one replay x replays (one chunk length)",
+        **launches}
+
+    # the host driver against the loop driver: a 2,048-station fleet
+    out["host_vs_loop"] = drive_host_vs_loop(E, R, mix_ops, flash_ops)
+    return out
+
+
+def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
+    """``run_fl(driver="host")`` against ``driver="loop"`` on the same
+    inputs: nn5 at K = 2,048 stations, cohort 256, full-width LoGTST;
+    states, comm and rounds bitwise; host memory, bytes per round and peak
+    device memory of each."""
+    from repro_torch.core.fl.client_store import ClientStore
+    from repro_torch.core.tasks import get_task, task_forecaster
+
+    task = get_task("nn5", quick=False, num_clients=HOST_K)
+    model = task_forecaster(task, "logtst", quick=False, use_flash_attn=True)
+    series = task.series()
+    tr, _, te, _ = task.client_data(series, streaming=True)
+    fl = E.FLConfig(policy="psgf", num_clients=HOST_K, select_ratio=0.5,
+                    share_ratio=0.3, forward_ratio=0.2, local_steps=4,
+                    batch_size=TRAIN_BATCH, use_pallas_mix=True,
+                    streaming_windows=True, participation=HOST_S,
+                    client_chunk=HOST_CHUNK)
+    kw = dict(max_rounds=HOST_ROUNDS, eval_every=HOST_EVAL, patience=100)
+    # the store's set-up alone (pin, fill), to split it from the rounds
+    t0 = time.perf_counter()
+    ClientStore(model.cfg, fl, tr, te, R.PRNGKey(SEED, device="cuda"),
+                device="cuda").close()
+    store_s = time.perf_counter() - t0
+    res = {}
+    for driver in ("host", "loop"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mix_ops.LAUNCHES = 0
+        flash_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        h = E.run_fl(model.cfg, fl, tr, te, R.PRNGKey(SEED), driver=driver,
+                     device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[driver] = (h, wall, torch.cuda.max_memory_allocated(),
+                       {"psgf_mix_batch": mix_ops.LAUNCHES,
+                        "flash_short": flash_ops.ROUTE_LAUNCHES["short"]})
+    (hh, hs, hpeak, hl), (lh, ls, lpeak, ll) = res["host"], res["loop"]
+    store = hh["client_store"]
+    if not all(getattr(store, k).is_pinned()
+               for k in ("w_clients", "adam_m", "adam_v", "adam_t", "train")):
+        raise RuntimeError("the host store is not pinned")
+    same = {k: hh[k] == lh[k] for k in ("rounds_run", "comm", "train_loss")}
+    same.update({f"state/{k}": torch.equal(hh["state"][k].cuda(), v)
+                 for k, v in lh["state"].items()})
+    if not all(same.values()):
+        raise RuntimeError(f"host driver != loop driver: {same}")
+    if not hpeak < lpeak:
+        raise RuntimeError(f"host peak device memory {hpeak} >= loop's {lpeak}")
+    if hl["psgf_mix_batch"] != HOST_ROUNDS or hl["flash_short"] == 0:
+        raise RuntimeError(f"host driver launches {hl}")
+    D = hh["meta"].total
+    T = tr.shape[1]
+    row_bytes = 3 * D * 4 + 4
+    with open("/proc/meminfo") as f:
+        mem_total = f.readline().split()[1]
+    rounds = hh["rounds_run"]
+    return {
+        "task": f"nn5 full, {HOST_K} stations, look_back {task.look_back}, "
+                f"horizon {task.horizon}, {task.num_days} days",
+        "params": D, "cohort": HOST_S, "client_chunk": HOST_CHUNK,
+        "rounds": rounds, "host_ram_kb": int(mem_total),
+        "store_state_bytes": store.state_nbytes,
+        "store_series_bytes": store.series_nbytes,
+        "h2d_bytes_per_round": HOST_S * (row_bytes + T * 4),
+        "d2h_bytes_per_round": HOST_S * row_bytes,
+        "bitwise": same,
+        "host": {"run_s": hs, "rounds_per_s": rounds / hs,
+                 "store_setup_s": store_s,
+                 "rounds_per_s_after_setup": rounds / (hs - store_s),
+                 "peak_device_bytes": hpeak, "launches": hl},
+        "loop": {"run_s": ls, "rounds_per_s": rounds / ls,
+                 "peak_device_bytes": lpeak, "launches": ll},
+        "final_rmse": {"host": hh["final_rmse"], "loop": lh["final_rmse"]},
+    }
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: hymba-1.5b hybrid decoder serving (the model zoo's hybrid family)
 # ---------------------------------------------------------------------------
 
@@ -1442,6 +1779,16 @@ def main() -> int:
     record["hybrid_prefill"]["launches"] = hybrid["launches_prefill"]["flash_attention"]
     log(json.dumps({"hybrid_serving": hybrid}))
 
+    # 7. the while and host FL drivers
+    drivers = drive_training_drivers(mix_ops, ops)
+    log(json.dumps({"training_drivers": drivers}))
+    on_while = drivers["while_launches_run_B"]
+    on_host = drivers["host_vs_loop"]["host"]["launches"]
+    record["launches_while_run_B"] = on_while["flash_short"]
+    record["launches_host"] = on_host["flash_short"]
+    mix_record["launches_while_run_B"] = on_while["psgf_mix_batch"]
+    mix_record["launches_host"] = on_host["psgf_mix_batch"]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -1451,6 +1798,8 @@ def main() -> int:
                   "max_abs_err": record["max_abs_err"],
                   "launches_serving": record["launches"],
                   "launches_training": record["launches_training"],
+                  "launches_while_run_B": record["launches_while_run_B"],
+                  "launches_host": record["launches_host"],
                   "ms": record["ms"],
                   "ms_training_shape": record["training_shape"]["ms"]},
         "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",

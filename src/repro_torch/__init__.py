@@ -9,8 +9,9 @@ Ported so far, both halves of the paper's main path:
 
   * training — ``repro_torch.core.tasks.run_experiment``: DTW clustering of
     the stations, PSGF-Fed per cluster (``repro_torch.core.fl``: masks,
-    policies and the engine with the ``loop`` and ``scan`` drivers, every
-    random draw from ``repro_torch.random``, a bit-exact threefry), a
+    policies and the engine with the ``loop``, ``scan``, ``while``
+    (CUDA-graph chunks) and ``host`` (pinned host client store) drivers,
+    every random draw from ``repro_torch.random``, a bit-exact threefry), a
     checkpoint per cluster and the routing manifest. With
     ``FLConfig.use_pallas_mix`` the downlink runs the hand-written CUDA
     kernel ``repro_torch/csrc/psgf_mix.cu``;

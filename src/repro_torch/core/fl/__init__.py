@@ -10,3 +10,4 @@ from repro_torch.core.fl.engine import (
     fl_round, gate_bytes, gate_count, init_fl_state, mix_down, mix_down_count,
     quantize_wire_vec, run_fl, sample_cohort, wire_scale_count,
 )
+from repro_torch.core.fl.client_store import ClientStore, run_fl_host

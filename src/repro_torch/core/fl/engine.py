@@ -32,18 +32,30 @@ Each stage runs inside a ``torch.profiler.record_function`` range
 ``fl.aggregate``), so a profile of a round splits by stage; outside a
 profiler the ranges cost a few microseconds each.
 
-Drivers: ``"loop"`` (one round per step, patience may stop mid-chunk) and
-``"scan"`` (the default: ``eval_every`` rounds per chunk, patience checked at
-chunk boundaries only, so ``rounds_run`` equals the reference's scan
-driver). Not ported yet: ``driver="while"`` (ROADMAP A8: CUDA-graph-captured
-chunks), ``driver="host"`` (A9, the host client store), ``shard_clients`` and
-``client_mesh`` (A13, multi-GPU), and ``sync_round`` with leaf-granularity
-policies (A14, ``psgf_dp``).
+Drivers (the same rounds, in the same order, from the same key):
+
+  * ``"loop"`` — one round per step, patience checked after every round;
+  * ``"scan"`` (the default) — :func:`_run_chunk` runs ``eval_every`` rounds,
+    then the host reads the losses and checks patience at the chunk
+    boundary, so ``rounds_run`` equals the reference's scan driver;
+  * ``"while"`` — the same chunks with the patience test, the round and
+    chunk counters and the history buffers on the device
+    (:class:`_WhileRun`): on the card each chunk length is one captured
+    CUDA graph, replayed without a host read per chunk; ``rounds_run``
+    equals the scan driver's;
+  * ``"host"`` — the client state in host memory, pinned on the card, and
+    only each round's cohort on the device
+    (:mod:`repro_torch.core.fl.client_store`), with the loop driver's stop.
+
+Not ported yet: ``shard_clients`` and ``client_mesh`` (ROADMAP A13,
+multi-GPU), and ``sync_round`` with leaf-granularity policies (A14,
+``psgf_dp``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -378,6 +390,16 @@ def _local_update_all(model_cfg, fl_cfg, meta, w, m, v, t, data, keys):
     return w, m, v, t, torch.stack(losses, dim=1).mean(dim=1)
 
 
+def _local_update(model_cfg, fl_cfg, meta, w, m, v, t, data, key):
+    """LocalUpdate of ONE client (the reference's per-client function):
+    :func:`_local_update_all` on a client axis of one. ``w``, ``m``, ``v``
+    ``(D,)``, ``t`` 0-d, ``data`` the client's windows or raw series, ``key``
+    ``(2,)``."""
+    out = _local_update_all(model_cfg, fl_cfg, meta, w[None], m[None], v[None],
+                            t[None], data[None], key[None])
+    return tuple(o[0] for o in out)
+
+
 # ---------------------------------------------------------------------------
 # one round
 # ---------------------------------------------------------------------------
@@ -582,6 +604,184 @@ def _improved(loss, best) -> bool:
     return bool(np.float32(loss) < np.float32(best) - np.float32(1e-5))
 
 
+def _run_chunk(state, key, data, model_cfg, fl_cfg, meta, policy,
+               num_rounds: int):
+    """``num_rounds`` rounds through :func:`_round`, each on the next key of
+    the chain (``key, rk = split(key)``): the body of every multi-round
+    driver. Returns ``(state, key, {"train_loss", "comm_total"})``, the
+    per-round metrics stacked ``(num_rounds,)``."""
+    losses, comms = [], []
+    for _ in range(num_rounds):
+        key, rk = R.split(key).unbind(0)
+        state, metrics = _round(state, data, rk, model_cfg, fl_cfg, meta,
+                                policy)
+        losses.append(metrics["train_loss"])
+        comms.append(metrics["comm_total"])
+    return state, key, {"train_loss": torch.stack(losses),
+                        "comm_total": torch.stack(comms)}
+
+
+def _while_chunk(state, flags, num_rounds: int, train_data, test_data,
+                 model_cfg, fl_cfg, meta, policy, max_rounds: int,
+                 patience: int):
+    """One chunk of the while driver, every step on the device (the body of
+    the reference's ``_run_while_impl`` loop): ``num_rounds`` rounds through
+    :func:`_run_chunk`; the scan driver's patience test after each round,
+    in float32 (an improvement is ``loss < best - 1e-5``; once ``stop``
+    fires, ``best`` and ``stall`` freeze, and the chunk's remaining rounds
+    still run and count); the losses and comm totals written at the round
+    counter ``r``, the new global model's RMSE at the chunk counter ``c``.
+
+    A chunk that starts with the run over (``stop`` set, or ``r`` at
+    ``max_rounds``) changes nothing: each tensor is masked back once, at the
+    end. Returns the new ``(state, flags)``."""
+    done = flags["stop"] | (flags["r"] >= max_rounds)
+    new_state, key, ms = _run_chunk(state, flags["key"], train_data,
+                                    model_cfg, fl_cfg, meta, policy, num_rounds)
+    best, stall, stop = flags["best"], flags["stall"], flags["stop"]
+    for loss in ms["train_loss"].unbind(0):
+        improved = loss < best - 1e-5
+        nstall = torch.where(improved, 0, stall + 1)
+        best = torch.where(stop, best, torch.where(improved, loss, best))
+        stall = torch.where(stop, stall, nstall)
+        stop = stop | (nstall >= patience)
+    # a chunk past the end writes at 0, never past the buffers, and is
+    # masked back below
+    r0 = torch.where(done, 0, flags["r"])
+    rows = r0 + torch.arange(num_rounds, device=r0.device)
+    c0 = torch.where(done, 0, flags["c"]).reshape(1)
+    rmse = _rmse_device(model_cfg, new_state["w_global"], meta, test_data,
+                        fl_cfg.client_chunk)
+    new_flags = {
+        "key": key, "best": best, "stall": stall, "stop": stop,
+        "r": flags["r"] + num_rounds, "c": flags["c"] + 1,
+        "loss_buf": flags["loss_buf"].index_copy(0, rows, ms["train_loss"]),
+        "comm_buf": flags["comm_buf"].index_copy(0, rows, ms["comm_total"]),
+        "rmse_buf": flags["rmse_buf"].index_copy(0, c0, rmse.reshape(1)),
+    }
+    return ({k: torch.where(done, v, new_state[k]) for k, v in state.items()},
+            {k: torch.where(done, v, new_flags[k]) for k, v in flags.items()})
+
+
+class _WhileRun:
+    """One run of the while driver (the reference's ``_run_while_impl``):
+    chunks of ``eval_every`` rounds, the last of ``max_rounds % eval_every``
+    when that is not 0, with the patience state, both counters and the
+    history buffers on the device (:func:`_while_chunk`).
+
+    On the CPU each chunk runs eagerly. On the card each chunk length is
+    captured once as a ``torch.cuda.CUDAGraph`` that reads and writes the
+    static tensors ``state`` and ``flags``; one warm-up round on copies, on
+    a side stream, comes first (it builds the kernels and allocates
+    psgf_mix's ticket counter, neither of which may happen under capture),
+    and a failed capture or replay raises: there is no eager fallback on the
+    card. :meth:`launch` enqueues the chunks, :meth:`read` is the run's one
+    blocking read. ``warmup_s`` and ``capture_s`` (capture and instantiate)
+    time the set-up, ``replay_s`` the first replay to the end of
+    :meth:`read`; ``replays`` counts the replays of each chunk length, and
+    ``graphs`` holds one graph per length."""
+
+    def __init__(self, state, key, train_data, test_data, model_cfg, fl_cfg,
+                 meta, policy, max_rounds: int, eval_every: int,
+                 patience: int):
+        dev = key.device
+        full, rem = divmod(max_rounds, eval_every)
+        self.lengths = [eval_every] * full + ([rem] if rem else [])
+        n = len(self.lengths)
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,  # noqa: E731
+                                                 device=dev)
+        self.state = state
+        self.flags = {
+            "key": key.clone(),
+            "best": torch.full((), math.inf, dtype=torch.float32, device=dev),
+            "stall": zeros((), torch.int32),
+            "stop": zeros((), torch.bool),
+            "r": zeros((), torch.int64),
+            "c": zeros((), torch.int64),
+            "loss_buf": zeros(n * eval_every, torch.float32),
+            "comm_buf": zeros(n * eval_every, ACCOUNTING_DTYPE),
+            "rmse_buf": zeros(n, torch.float32),
+        }
+        self._chunk = lambda st, fl, rounds: _while_chunk(  # noqa: E731
+            st, fl, rounds, train_data, test_data, model_cfg, fl_cfg, meta,
+            policy, max_rounds, patience)
+        self.graphs = {}
+        self.replays = {length: 0 for length in self.lengths}
+        self.warmup_s = self.capture_s = self.replay_s = 0.0
+        self._t0 = None
+        if dev.type == "cuda":
+            self._capture()
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(self.flags["key"].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._chunk({k: v.clone() for k, v in self.state.items()},
+                        {k: v.clone() for k, v in self.flags.items()}, 1)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pool = None
+        for length in sorted(set(self.lengths), reverse=True):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                state, flags = self._chunk(self.state, self.flags, length)
+                for k, v in state.items():
+                    self.state[k].copy_(v)
+                for k, v in flags.items():
+                    self.flags[k].copy_(v)
+            del state, flags      # lets the next capture reuse the pool
+            pool = graph.pool()   # graphs replay in turn, never at once
+            self.graphs[length] = graph
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+    def launch(self, depth: Optional[int] = 2):
+        """Enqueue the chunks in order. Before it enqueues chunk ``c`` the
+        host reads chunk ``c - depth``'s stop flag, copied into pinned
+        memory behind an event, and ends the run if it is set: with the
+        default ``depth=2`` chunk ``c - 1`` is already queued, so the card
+        never waits on the host and at most one chunk runs past the stop,
+        masked. ``depth=None`` never reads: every remaining chunk runs,
+        masked. No call in the loop waits for the card, other than on the
+        event of a chunk older than the one in flight."""
+        cuda = bool(self.graphs)
+        stops = [torch.zeros((), dtype=torch.bool, pin_memory=cuda)
+                 for _ in self.lengths]
+        events = []
+        self._t0 = time.perf_counter()
+        for c, length in enumerate(self.lengths):
+            seen = -1 if depth is None else c - depth
+            if seen >= 0:
+                if cuda:
+                    events[seen].synchronize()
+                if stops[seen]:
+                    break
+            if cuda:
+                self.graphs[length].replay()
+            else:
+                self.state, self.flags = self._chunk(self.state, self.flags,
+                                                     length)
+            self.replays[length] += 1
+            stops[c].copy_(self.flags["stop"], non_blocking=cuda)
+            if cuda:
+                events.append(torch.cuda.Event())
+                events[-1].record()
+
+    def read(self):
+        """The run's one blocking read: ``(rounds_run, chunks_run, losses,
+        comm totals, RMSE per chunk)`` as Python lists of the rounds and
+        chunks run."""
+        host = {k: self.flags[k].cpu()
+                for k in ("r", "c", "loss_buf", "comm_buf", "rmse_buf")}
+        if self._t0 is not None:
+            self.replay_s = time.perf_counter() - self._t0
+        rounds, chunks = int(host["r"]), int(host["c"])
+        return (rounds, chunks, host["loss_buf"][:rounds].tolist(),
+                host["comm_buf"][:rounds].tolist(),
+                host["rmse_buf"][:chunks].tolist())
+
+
 def run_fl(
     model_cfg: forecast.ForecastConfig,
     fl_cfg: FLConfig,
@@ -610,30 +810,41 @@ def run_fl(
     materialized ``(K, n_win, L+T)`` windows, or with
     ``fl_cfg.streaming_windows`` the raw ``(K, T)`` split slices.
 
-    ``driver="loop"`` checks patience after every round; ``driver="scan"``
-    (default) runs ``eval_every`` rounds per chunk and checks patience and
-    evaluates at chunk boundaries only, so its ``rounds_run`` equals the
-    reference's scan (and while) driver. ``init_params`` warm-starts from a
-    params tree. ``checkpoint_dir`` saves the final global model with
-    ``save_forecaster``.
+    Drivers, the same rounds from the same key:
+
+    * ``"loop"`` checks patience after every round;
+    * ``"scan"`` (default) runs ``eval_every`` rounds per chunk and checks
+      patience and evaluates at chunk boundaries only, so its
+      ``rounds_run`` equals the reference's scan and while drivers';
+    * ``"while"`` stops where scan stops, with the patience test and the
+      history on the device (:class:`_WhileRun`: CUDA-graph chunks on the
+      card, no host read per chunk); ``history["while_run"]`` holds the
+      run's graphs, replay counts and set-up and replay times;
+    * ``"host"`` keeps the client state in host memory and moves each
+      round's cohort only (:func:`repro_torch.core.fl.client_store.
+      run_fl_host`; needs ``streaming_windows``; the loop driver's stop;
+      ``history["client_store"]``).
+
+    ``init_params`` warm-starts from a params tree. ``checkpoint_dir`` saves
+    the final global model with ``save_forecaster``.
     """
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
-    if driver == "while":
-        raise NotImplementedError(
-            "driver='while' is not ported yet (ROADMAP A8: the one-dispatch "
-            "driver as CUDA-graph-captured chunks); use driver='scan', which "
-            "stops after the same rounds")
-    if driver == "host":
-        raise NotImplementedError(
-            "driver='host' (the host-resident ClientStore) is not ported yet "
-            "(ROADMAP A9)")
-    if driver not in ("loop", "scan"):
+    if driver not in ("loop", "scan", "while", "host"):
         raise ValueError(f"unknown driver: {driver!r}")
     if shard_clients or client_mesh is not None:
         raise NotImplementedError(
             "shard_clients / client_mesh (the client axis over several GPUs "
             "or hosts) are not ported yet (ROADMAP A13)")
+    if driver == "host":
+        # before any (K, D) allocation on the device: that is what it avoids
+        from repro_torch.core.fl.client_store import run_fl_host
+
+        return run_fl_host(model_cfg, fl_cfg, train_data, test_data, key,
+                           max_rounds=max_rounds, patience=patience,
+                           eval_every=eval_every, verbose=verbose,
+                           policy=policy, checkpoint_dir=checkpoint_dir,
+                           init_params=init_params, device=device)
     dev = resolve_device(device)
     train_data = _as_device(train_data, dev, torch.float32)
     test_data = _as_device(test_data, dev, torch.float32)
@@ -659,45 +870,58 @@ def run_fl(
                                 init_params=init_params, device=dev)
 
     history = {"round": [], "train_loss": [], "comm": [], "rmse": []}
-    best_loss, stall, comm_total = math.inf, 0, 0.0
+    comm_total = 0.0
 
     def rmse_now():
         return float(_rmse_device(model_cfg, state["w_global"], meta,
                                   test_data, fl_cfg.client_chunk))
 
-    r, stop = 0, False
-    while r < max_rounds and not stop:
-        # loop: one round per chunk; scan: eval_every rounds, one host sync
-        n = 1 if driver == "loop" else min(eval_every, max_rounds - r)
-        losses, comms = [], []
-        for _ in range(n):
-            key, rk = R.split(key).unbind(0)
-            state, metrics = _round(state, train_data, rk, model_cfg, fl_cfg,
-                                    meta, policy)
-            losses.append(metrics["train_loss"])
-            comms.append(metrics["comm_total"])
-        losses = torch.stack(losses).cpu().tolist()
-        comms = torch.stack(comms).cpu().tolist()
-        history["round"].extend(range(r, r + n))
-        history["train_loss"].extend(losses)
-        history["comm"].extend(comms)
-        comm_total = comms[-1]
-        r += n
-        if driver == "loop" and (r % eval_every == 0 or r == max_rounds):
-            history["rmse"].append((r - 1, rmse_now()))
-        for loss in losses:
-            if _improved(loss, best_loss):
-                best_loss, stall = loss, 0
-            else:
-                stall += 1
-                if stall >= patience:
-                    stop = True
-                    break
-        if driver == "scan":
-            history["rmse"].append((r - 1, rmse_now()))
-        if verbose and history["rmse"] and history["rmse"][-1][0] == r - 1:
-            print(f"round {r - 1:4d}  loss {losses[-1]:.4f}  "
-                  f"rmse {history['rmse'][-1][1]:.4f}  comm {comm_total:.3e}")
+    if driver == "while":
+        run = _WhileRun(state, key, train_data, test_data, model_cfg, fl_cfg,
+                        meta, policy, max_rounds, eval_every, patience)
+        run.launch()
+        rounds_run, _, losses, comms, rmses = run.read()
+        state = run.state
+        history["round"] = list(range(rounds_run))
+        history["train_loss"], history["comm"] = losses, comms
+        comm_total = comms[-1] if comms else 0.0
+        for i, rmse in enumerate(rmses):
+            r_end = min((i + 1) * eval_every, max_rounds) - 1
+            history["rmse"].append((r_end, rmse))
+            if verbose:
+                print(f"round {r_end:4d}  loss {losses[r_end]:.4f}  "
+                      f"rmse {rmse:.4f}  comm {comms[r_end]:.3e}")
+        history["while_run"] = run
+    else:
+        best_loss, stall = math.inf, 0
+        r, stop = 0, False
+        while r < max_rounds and not stop:
+            # loop: one round per chunk; scan: eval_every rounds, one read
+            n = 1 if driver == "loop" else min(eval_every, max_rounds - r)
+            state, key, ms = _run_chunk(state, key, train_data, model_cfg,
+                                        fl_cfg, meta, policy, n)
+            losses = ms["train_loss"].cpu().tolist()
+            comms = ms["comm_total"].cpu().tolist()
+            history["round"].extend(range(r, r + n))
+            history["train_loss"].extend(losses)
+            history["comm"].extend(comms)
+            comm_total = comms[-1]
+            r += n
+            if driver == "loop" and (r % eval_every == 0 or r == max_rounds):
+                history["rmse"].append((r - 1, rmse_now()))
+            for loss in losses:
+                if _improved(loss, best_loss):
+                    best_loss, stall = loss, 0
+                else:
+                    stall += 1
+                    if stall >= patience:
+                        stop = True
+                        break
+            if driver == "scan":
+                history["rmse"].append((r - 1, rmse_now()))
+            if verbose and history["rmse"] and history["rmse"][-1][0] == r - 1:
+                print(f"round {r - 1:4d}  loss {losses[-1]:.4f}  "
+                      f"rmse {history['rmse'][-1][1]:.4f}  comm {comm_total:.3e}")
 
     # the last chunk boundary evaluated the final state unless the loop
     # driver stopped between evaluations

@@ -148,9 +148,11 @@ class ExperimentSpec:
     """Everything :func:`run_experiment` needs (the reference's fields and
     defaults); grid entries are ``(policy_name, fl_overrides)`` pairs
     layered over the shared knobs (overrides reach every ``FLConfig``
-    field, e.g. ``use_pallas_mix``). ``driver`` is ``"scan"`` (default) or
-    ``"loop"``; ``shard_clients`` is not ported yet (ROADMAP A13) and raises
-    in ``run_fl``."""
+    field, e.g. ``use_pallas_mix``). ``driver`` is any of ``run_fl``'s:
+    ``"scan"`` (default), ``"loop"``, ``"while"`` (CUDA-graph chunks with
+    the stop on the device) or ``"host"`` (the client state in pinned host
+    memory; needs ``streaming_windows``); ``shard_clients`` is not ported
+    yet (ROADMAP A13) and raises in ``run_fl``."""
 
     task: ForecastTask
     model: Forecaster

@@ -1,6 +1,6 @@
 """N-round runs of the port's engine against the JAX package's
 ``repro.core.fl.engine.run_fl`` (one named driver per test: ``loop`` and
-``scan``), the flat parameter vector and the comm accounting, on the CPU.
+``scan``; ``while`` and ``host`` are in ``test_torch_fl_drivers.py``), the flat parameter vector and the comm accounting, on the CPU.
 
 Bitwise: ``rounds_run``, the round indices of every history entry, the
 cumulative comm and wire bytes. Within ``FL_PARITY_TOL``: losses, RMSE and
@@ -61,8 +61,8 @@ def test_run_fl_matches_reference(driver, data, tmp_path):
 def test_run_fl_refuses_what_is_not_ported(data):
     tr, te = data[False]
     _, tfl = configs(tr.shape[0])
-    for kw, match in ((dict(driver="while"), "A8"), (dict(driver="host"), "A9"),
-                      (dict(shard_clients=True), "A13"),
+    for kw, match in ((dict(shard_clients=True), "A13"),
+                      (dict(driver="while", client_mesh=object()), "A13"),
                       (dict(driver="bogus"), "unknown driver")):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             TE.run_fl(TCFG, tfl, tr, te, R.PRNGKey(0), device="cpu", **kw)

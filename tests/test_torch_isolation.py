@@ -58,6 +58,9 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.kernels.flash_attention.ops" in rep["modules"]
     for name in ("repro_torch.random", "repro_torch.core.fl.engine",
                  "repro_torch.core.fl.masks", "repro_torch.core.fl.policies",
+                 "repro_torch.core.fl.client_store",
+                 "repro_torch.core.fl.simulator",
+                 "repro_torch.core.fl.strategies",
                  "repro_torch.data.clustering",
                  "repro_torch.kernels.psgf_mix.ops",
                  "repro_torch.kernels.ssm_scan.ops",
@@ -134,7 +137,11 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
     from repro_torch.core.fl import engine as E
     from repro_torch.data.clustering import cluster_clients
 
+    from repro_torch.core.fl.client_store import ClientStore
+
     fl = E.FLConfig(num_clients=2, batch_size=2, local_steps=1)
+    sfl = E.FLConfig(num_clients=4, batch_size=2, local_steps=1,
+                     streaming_windows=True)
     state, meta = E.init_fl_state(fc.cfg, fl, R.PRNGKey(0), device="cpu")
     windows = np.zeros((2, 4, 18), np.float32)
     series = np.random.default_rng(0).standard_normal((4, 70))
@@ -145,6 +152,11 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: E.init_fl_state(fc.cfg, fl, R.PRNGKey(0)),
         lambda: E.fl_round(state, windows, R.PRNGKey(1), fc.cfg, fl, meta),
         lambda: E.run_fl(fc.cfg, fl, windows, windows, R.PRNGKey(0)),
+        lambda: E.run_fl(fc.cfg, fl, windows, windows, R.PRNGKey(0),
+                         driver="while"),
+        lambda: E.run_fl(fc.cfg, sfl, series, series, R.PRNGKey(0),
+                         driver="host"),
+        lambda: ClientStore(fc.cfg, sfl, series, series, R.PRNGKey(0)),
         lambda: cluster_clients(series, 2),
         lambda: T.run_experiment(spec),
         lambda: T.main(["--rounds", "1"]),

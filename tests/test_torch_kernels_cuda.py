@@ -564,3 +564,126 @@ def test_hybrid_prefill_and_decode_on_the_card_match_cpu(cuda):
         want_l, want_c = TD.decode_step(cfg, params, want_c, tok, 48 + i)
         torch.testing.assert_close(got_l.cpu(), want_l, atol=tol, rtol=tol)
         tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# the while and host FL drivers on the card
+# ---------------------------------------------------------------------------
+
+DRIVER_CASES = {
+    # FLConfig overrides, run_fl's (max_rounds, patience, eval_every)
+    "patience_fires": (dict(), (9, 1, 2)),
+    "ragged_last_chunk": (dict(), (7, 50, 3)),
+    "cohort_streaming": (dict(participation=4, streaming_windows=True,
+                              client_chunk=2), (5, 50, 2)),
+}
+
+
+def _driver_inputs(case):
+    """A small LoGTST (flash on) and PSGF-Fed with the fused downlink over
+    six ``ev`` stations, in the layout ``case`` asks for."""
+    from repro_torch.core.fl import engine as E
+    from repro_torch.data.synthetic import ev_synthetic
+    from repro_torch.data.windowing import client_datasets, client_series_datasets
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fl_kw, (max_rounds, patience, eval_every) = DRIVER_CASES[case]
+    cfg = F.logtst_config(look_back=16, horizon=2, d_model=16, num_heads=2,
+                          d_ff=32, patch_len=8, stride=4, use_flash_attn=True)
+    series = ev_synthetic(seed=0, num_clients=6, num_days=120)
+    build = (client_series_datasets if fl_kw.get("streaming_windows")
+             else client_datasets)
+    tr, _, te, _ = build(series, 16, 2)
+    fl = E.FLConfig(num_clients=6, batch_size=8, local_steps=2,
+                    use_pallas_mix=True, **fl_kw)
+    kw = dict(max_rounds=max_rounds, patience=patience, eval_every=eval_every)
+    return cfg, fl, tr, te, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DRIVER_CASES))
+def test_while_driver_on_the_card_matches_scan(cuda, case):
+    """``run_fl(driver="while")`` on the card replays one captured graph per
+    chunk length and stops where the scan driver on the card stops:
+    ``rounds_run``, comm, the history's round indices and the counters
+    bitwise; losses, RMSE and states within FL_PARITY_TOL (the graphs run
+    the same kernels; the tolerance covers a cuBLAS algorithm that differs
+    under capture). The same run driven stage by stage replays its chunks
+    under ``set_sync_debug_mode("error")`` up to the final read, and equals
+    ``run_fl``'s bitwise."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+
+    cfg, fl, tr, te, kw = _driver_inputs(case)
+    wh = E.run_fl(cfg, fl, tr, te, R.PRNGKey(1), driver="while",
+                  device="cuda", **kw)
+    sh = E.run_fl(cfg, fl, tr, te, R.PRNGKey(1), driver="scan",
+                  device="cuda", **kw)
+    run = wh["while_run"]
+    assert sorted(run.graphs) == sorted(set(run.lengths))
+    assert len(wh["rmse"]) <= sum(run.replays.values()) <= len(wh["rmse"]) + 1
+    assert wh["rounds_run"] == sh["rounds_run"]
+    if case == "patience_fires":
+        assert wh["rounds_run"] < kw["max_rounds"]
+    assert wh["round"] == sh["round"] and wh["comm"] == sh["comm"]
+    assert [r for r, _ in wh["rmse"]] == [r for r, _ in sh["rmse"]]
+    tol = E.FL_PARITY_TOL
+    np.testing.assert_allclose(wh["train_loss"], sh["train_loss"], rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose([v for _, v in wh["rmse"]],
+                               [v for _, v in sh["rmse"]], rtol=tol, atol=tol)
+    keep = E.bk_free(wh["meta"]).to(cuda)
+    for name, want in sh["state"].items():
+        got = wh["state"][name]
+        if name in ("comm_down", "comm_up", "round", "adam_t"):
+            assert torch.equal(got, want), name
+        else:
+            torch.testing.assert_close(got[..., keep], want[..., keep],
+                                       atol=tol, rtol=tol, msg=name)
+
+    # stage by stage, as run_fl runs it, with every host sync an error
+    key = R.split(R.PRNGKey(1, device="cuda")).unbind(0)
+    state, meta = E.init_fl_state(cfg, fl, key[1], device="cuda")
+    step = E._WhileRun(state, key[0], torch.from_numpy(tr).to(cuda),
+                       torch.from_numpy(te).to(cuda), cfg, fl, meta,
+                       E.pol.from_config(fl), kw["max_rounds"],
+                       kw["eval_every"], kw["patience"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.launch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rounds, chunks, losses, comms, rmses = step.read()
+    assert (rounds, losses, comms) == (wh["rounds_run"], wh["train_loss"],
+                                       wh["comm"])
+    assert rmses == [v for _, v in wh["rmse"]]
+    assert all(torch.equal(step.state[k], wh["state"][k]) for k in state)
+
+
+@pytest.mark.cuda
+def test_host_driver_on_the_card_equals_loop(cuda):
+    """``run_fl(driver="host")`` on the card, the store pinned in host
+    memory, against the loop driver on the card with the fleet on the
+    device: states, comm and ``rounds_run`` bitwise."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+
+    cfg, fl, tr, te, _ = _driver_inputs("cohort_streaming")
+    kw = dict(max_rounds=5, patience=2, eval_every=2)
+    lh = E.run_fl(cfg, fl, tr, te, R.PRNGKey(3), driver="loop",
+                  device="cuda", **kw)
+    hh = E.run_fl(cfg, fl, tr, te, R.PRNGKey(3), driver="host",
+                  device="cuda", **kw)
+    store = hh["client_store"]
+    assert store.pinned
+    for name in E._CLIENT_AXIS_KEYS + ("train", "test"):
+        assert getattr(store, name).is_pinned(), name
+    assert hh["state"]["w_global"].is_cuda
+    for name in ("rounds_run", "round", "train_loss", "comm", "final_comm"):
+        assert hh[name] == lh[name], name
+    for name, want in lh["state"].items():
+        assert torch.equal(hh["state"][name].to(cuda), want), name
+    np.testing.assert_allclose(hh["final_rmse"], lh["final_rmse"], rtol=1e-6)
+    store.close()
+    assert not store.w_clients.is_pinned()
