@@ -74,6 +74,7 @@ standard library and ``repro_torch`` (from ``src/`` beside this file) only.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -1085,33 +1086,84 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def while_stepwise(E, R, cfg, fl, tr, te, seed, depth, max_rounds,
-                   eval_every, patience):
+def while_stepwise(E, R, cfg, fl, tr, te, seed, max_rounds, eval_every,
+                   patience, counts=None, mask_all=False):
     """The while driver stage by stage, as ``run_fl`` runs it, with the
     chunk loop (first replay to the final read) under
-    ``set_sync_debug_mode("error")``: any host sync in it raises."""
+    ``set_sync_debug_mode("error")``: any host sync in it raises.
+
+    With ``counts`` (a function that reads the kernel wrappers' counters)
+    the run's kernel launches are counted two ways: each captured graph's
+    wrapper calls (the counters' change across its capture) times that
+    graph's replays, exact; and ``torch.profiler`` over the run itself
+    (:func:`profile_chunk`; the profiler does not synchronize), which shows
+    the kernels ran inside the replays but may lose a few events. With
+    ``mask_all`` the host never reads the stop flag: every chunk's graph is
+    replayed in turn and the chunks past the stop are masked on the card
+    (the design the pipelined stop replaced, measured beside it)."""
     key = R.split(R.PRNGKey(seed, device="cuda")).unbind(0)
     state, meta = E.init_fl_state(cfg, fl, key[1], device="cuda")
-    run = E._WhileRun(state, key[0], torch.from_numpy(tr).cuda(),
-                      torch.from_numpy(te).cuda(), cfg, fl, meta,
-                      E.pol.from_config(fl), max_rounds, eval_every, patience)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
+    captured, capture = {}, torch.cuda.graph
+
+    @contextlib.contextmanager
+    def counted_capture(graph, **kw):
+        before = counts()
+        with capture(graph, **kw):
+            yield
+        after = counts()
+        captured[id(graph)] = {k: after[k] - before[k] for k in after}
+
+    if counts is not None:
+        torch.cuda.graph = counted_capture
     try:
-        run.launch(depth=depth)
+        run = E._WhileRun(state, key[0], torch.from_numpy(tr).cuda(),
+                          torch.from_numpy(te).cuda(), cfg, fl, meta,
+                          E.pol.from_config(fl), max_rounds, eval_every,
+                          patience)
     finally:
-        torch.cuda.set_sync_debug_mode("default")
-    rounds, chunks, losses, comms, rmses = run.read()
-    return run, meta, {"rounds_run": rounds, "chunks_run": chunks,
-                       "train_loss": losses, "comm": comms, "rmse": rmses}
+        torch.cuda.graph = capture
+    torch.cuda.synchronize()
+    got = []
+
+    def go():
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if mask_all:
+                for length in run.lengths:
+                    run.graphs[length].replay()
+            else:
+                run.launch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got.extend(run.read())
+        got.append(time.perf_counter() - t0)
+
+    prof = profile_chunk(go) if counts is not None else go()
+    rounds, chunks, losses, comms, rmses, replay_s = got
+    wh = {"rounds_run": rounds, "chunks_run": chunks, "train_loss": losses,
+          "comm": comms, "rmse": rmses, "replay_s": replay_s, "profile": prof}
+    if counts is not None:
+        per = {n: captured[id(g)] for n, g in run.graphs.items()}
+        if any(per[n]["psgf_mix_batch"] != n for n in per):
+            raise RuntimeError(f"one psgf_mix call a round expected: {per}")
+        wh["captured_per_replay"] = {str(n): v for n, v in per.items()}
+        wh["launches"] = {k: sum(per[n][k] * run.replays[n] for n in per)
+                          for k in KERNEL_NAMES}
+        if not all(prof["kernels"].values()):
+            raise RuntimeError(f"a kernel is missing from the run's trace: "
+                               f"{prof['kernels']}")
+    return run, meta, wh
 
 
-def while_vs_scan(E, R, cfg, fl, tr, te, seed, run_kw) -> dict:
+def while_vs_scan(E, R, cfg, fl, tr, te, seed, run_kw, counts=None) -> dict:
     """One cluster under the while driver (stage by stage, chunks pipelined
-    two deep; for run B also with every remaining chunk enqueued and masked)
-    and under ``run_fl(driver="scan")`` from the same key: ``rounds_run``,
-    comm and the RMSE indices bitwise, states within ROUND_TOL; set-up and
-    warm wall per round apart; one warm chunk profiled for each."""
+    two deep; for run B also with every chunk replayed and masked past the
+    stop) and under ``run_fl(driver="scan")`` from the same key:
+    ``rounds_run``, comm and the RMSE indices bitwise, states within
+    ROUND_TOL; set-up and warm wall per round apart; one warm chunk
+    profiled for each, and with ``counts`` the while run's own launches
+    and trace (:func:`while_stepwise`)."""
     E.run_fl(cfg, fl, tr, te, R.PRNGKey(seed), driver="scan", device="cuda",
              max_rounds=1)                                   # warm
     torch.cuda.synchronize()
@@ -1120,7 +1172,8 @@ def while_vs_scan(E, R, cfg, fl, tr, te, seed, run_kw) -> dict:
                   device="cuda", **run_kw)
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
-    run, meta, wh = while_stepwise(E, R, cfg, fl, tr, te, seed, 2, **run_kw)
+    run, meta, wh = while_stepwise(E, R, cfg, fl, tr, te, seed, **run_kw,
+                                   counts=counts)
     n = run_kw["eval_every"]
     rmse_rounds = [min((i + 1) * n, run_kw["max_rounds"]) - 1
                    for i in range(wh["chunks_run"])]
@@ -1149,21 +1202,25 @@ def while_vs_scan(E, R, cfg, fl, tr, te, seed, run_kw) -> dict:
         "loss_max_abs_err": float(np.max(np.abs(
             np.subtract(wh["train_loss"], sh["train_loss"])))),
         "while": {"warmup_s": run.warmup_s, "capture_s": run.capture_s,
-                  "replay_s": run.replay_s,
+                  "replay_s": run.replay_s, "profiled": counts is not None,
                   "wall_ms_per_round": run.replay_s * 1e3 / rounds,
                   "replays": {str(k): v for k, v in run.replays.items()},
                   "graphs": sorted(run.graphs)},
         "scan": {"run_s": scan_s, "wall_ms_per_round": scan_s * 1e3 / rounds},
     }
+    if counts is not None:
+        out["while"]["profile_run"] = wh["profile"]
+        out["while"]["captured_per_replay"] = wh["captured_per_replay"]
+        out["while"]["launches"] = wh["launches"]
     if run_kw["patience"] <= 1:
-        masked, _, mh = while_stepwise(E, R, cfg, fl, tr, te, seed, None,
-                                       **run_kw)
+        masked, _, mh = while_stepwise(E, R, cfg, fl, tr, te, seed, **run_kw,
+                                       mask_all=True)
         if (mh["rounds_run"], mh["comm"]) != (rounds, wh["comm"]):
             raise RuntimeError("masking every remaining chunk changed the run")
         out["while_mask_all"] = {
-            "replay_s": masked.replay_s,
-            "wall_ms_per_round": masked.replay_s * 1e3 / rounds,
-            "replays": {str(k): v for k, v in masked.replays.items()}}
+            "replay_s": mh["replay_s"],
+            "wall_ms_per_round": mh["replay_s"] * 1e3 / rounds,
+            "replays": len(masked.lengths)}
         del masked
     # one warm chunk each: a replay of the full-chunk graph (the run is
     # over, so the chunk is masked back: the same kernels, nothing kept)
@@ -1263,21 +1320,25 @@ def drive_training_drivers(mix_ops, flash_ops) -> dict:
     c = int(np.argmax(np.bincount(labels)))
     tr, _, te, _ = task.client_data(series, np.nonzero(labels == c)[0])
     fl = spec.fl_config("psgf", tr.shape[0], grid[0][1])
-    for name, run_kw in (("run_A_c%d" % c, WHILE_A), ("run_B_c%d" % c, WHILE_B)):
+    def counts():
+        return {"psgf_mix_batch": mix_ops.LAUNCHES,
+                "flash_short": flash_ops.ROUTE_LAUNCHES["short"]}
+
+    for name, run_kw, count in (("run_A_c%d" % c, WHILE_A, None),
+                                ("run_B_c%d" % c, WHILE_B, counts)):
         out[name] = while_vs_scan(E, R, model.cfg, fl, tr, te, spec.seed + c,
-                                  run_kw)
+                                  run_kw, count)
         log(json.dumps({name: out[name]}))
     if not out["run_B_c%d" % c]["stopped_early"]:
         raise RuntimeError("run B: the stop did not fire on the device")
     per = out["run_B_c%d" % c]["while"]
-    launches = {k: sum(v for v in per["replays"].values()) * n
-                for k, n in per["profile_chunk"]["kernels"].items()}
     # the third way to stop, a conditional graph node, needs this API
     out["conditional_node_in_torch"] = hasattr(torch.cuda.CUDAGraph,
                                                "begin_capture_to_if_node")
     out["while_launches_run_B"] = {
-        "how": "profiler kernels of one replay x replays (one chunk length)",
-        **launches}
+        "how": "calls captured in run B's own graphs x their replays",
+        **per["launches"],
+        "in_the_trace": per["profile_run"]["kernels"]}
 
     # the host driver against the loop driver: a 2,048-station fleet
     out["host_vs_loop"] = drive_host_vs_loop(E, R, mix_ops, flash_ops)
@@ -1289,7 +1350,6 @@ def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
     inputs: nn5 at K = 2,048 stations, cohort 256, full-width LoGTST;
     states, comm and rounds bitwise; host memory, bytes per round and peak
     device memory of each."""
-    from repro_torch.core.fl.client_store import ClientStore
     from repro_torch.core.tasks import get_task, task_forecaster
 
     task = get_task("nn5", quick=False, num_clients=HOST_K)
@@ -1302,11 +1362,6 @@ def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
                     streaming_windows=True, participation=HOST_S,
                     client_chunk=HOST_CHUNK)
     kw = dict(max_rounds=HOST_ROUNDS, eval_every=HOST_EVAL, patience=100)
-    # the store's set-up alone (pin, fill), to split it from the rounds
-    t0 = time.perf_counter()
-    ClientStore(model.cfg, fl, tr, te, R.PRNGKey(SEED, device="cuda"),
-                device="cuda").close()
-    store_s = time.perf_counter() - t0
     res = {}
     for driver in ("host", "loop"):
         torch.cuda.synchronize()
@@ -1353,8 +1408,9 @@ def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
         "d2h_bytes_per_round": HOST_S * row_bytes,
         "bitwise": same,
         "host": {"run_s": hs, "rounds_per_s": rounds / hs,
-                 "store_setup_s": store_s,
-                 "rounds_per_s_after_setup": rounds / (hs - store_s),
+                 "store_setup_s": hh["client_store_setup_s"],
+                 "round_s": hh["round_s"],
+                 "rounds_per_s_rounds_alone": rounds / sum(hh["round_s"]),
                  "peak_device_bytes": hpeak, "launches": hl},
         "loop": {"run_s": ls, "rounds_per_s": rounds / ls,
                  "peak_device_bytes": lpeak, "launches": ll},

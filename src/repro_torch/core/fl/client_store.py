@@ -31,6 +31,7 @@ ported yet (ROADMAP Queue A 7).
 from __future__ import annotations
 
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -239,7 +240,10 @@ def run_fl_host(model_cfg, fl_cfg, train_data, test_data, key, *,
     ``(K, D)`` client state in a :class:`ClientStore` and only each round's
     cohort on ``device`` (see the module docstring). Returns
     ``engine.run_fl``'s history plus ``history["client_store"]``, the live
-    store. ``partition=`` (several processes) is not ported yet (ROADMAP
+    store, ``history["client_store_setup_s"]``, the host seconds that built
+    it, and ``history["round_s"]``, each round's host seconds (its cohort's
+    copies, its evaluation where due, and the read of its loss, which waits
+    for the round). ``partition=`` (several processes) is not ported yet (ROADMAP
     Queue A 7) and raises."""
     if partition is not None:
         raise NotImplementedError(
@@ -249,6 +253,7 @@ def run_fl_host(model_cfg, fl_cfg, train_data, test_data, key, *,
     policy = pol.from_config(fl_cfg) if policy is None else policy
     key = E._as_device(key, dev, torch.int64)
     key, init_key = R.split(key).unbind(0)
+    t0 = time.perf_counter()
     store = ClientStore(model_cfg, fl_cfg, train_data, test_data, init_key,
                         init_params=init_params, device=dev)
     W = model_cfg.look_back + model_cfg.horizon
@@ -267,9 +272,12 @@ def run_fl_host(model_cfg, fl_cfg, train_data, test_data, key, *,
         server["comm_scales"] = zero()
     full_cohort = torch.arange(K)
 
-    history = {"round": [], "train_loss": [], "comm": [], "rmse": []}
+    history = {"round": [], "train_loss": [], "comm": [], "rmse": [],
+               "client_store_setup_s": time.perf_counter() - t0,
+               "round_s": []}
     best_loss, stall, comm_total = math.inf, 0, 0.0
     for r in range(max_rounds):
+        t0 = time.perf_counter()
         key, rk = R.split(key).unbind(0)
         if S < K:
             # the device drivers' key chain: _round splits (k_cohort,
@@ -301,6 +309,7 @@ def run_fl_host(model_cfg, fl_cfg, train_data, test_data, key, *,
             if verbose:
                 print(f"round {r:4d}  loss {loss:.4f}  rmse {rmse:.4f}  "
                       f"comm {comm_total:.3e}")
+        history["round_s"].append(time.perf_counter() - t0)
         if E._improved(loss, best_loss):
             best_loss, stall = loss, 0
         else:

@@ -736,26 +736,24 @@ class _WhileRun:
             self.graphs[length] = graph
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
 
-    def launch(self, depth: Optional[int] = 2):
+    def launch(self):
         """Enqueue the chunks in order. Before it enqueues chunk ``c`` the
-        host reads chunk ``c - depth``'s stop flag, copied into pinned
-        memory behind an event, and ends the run if it is set: with the
-        default ``depth=2`` chunk ``c - 1`` is already queued, so the card
-        never waits on the host and at most one chunk runs past the stop,
-        masked. ``depth=None`` never reads: every remaining chunk runs,
-        masked. No call in the loop waits for the card, other than on the
-        event of a chunk older than the one in flight."""
+        host reads chunk ``c - 2``'s stop flag, copied into pinned memory
+        behind an event, and ends the run if it is set: chunk ``c - 1`` is
+        already queued, so the card never waits on the host and at most one
+        chunk runs past the stop, masked. No call in the loop waits for the
+        card, other than on the event of a chunk older than the one in
+        flight."""
         cuda = bool(self.graphs)
         stops = [torch.zeros((), dtype=torch.bool, pin_memory=cuda)
                  for _ in self.lengths]
         events = []
         self._t0 = time.perf_counter()
         for c, length in enumerate(self.lengths):
-            seen = -1 if depth is None else c - depth
-            if seen >= 0:
+            if c >= 2:
                 if cuda:
-                    events[seen].synchronize()
-                if stops[seen]:
+                    events[c - 2].synchronize()
+                if stops[c - 2]:
                     break
             if cuda:
                 self.graphs[length].replay()
@@ -819,7 +817,8 @@ def run_fl(
     * ``"while"`` stops where scan stops, with the patience test and the
       history on the device (:class:`_WhileRun`: CUDA-graph chunks on the
       card, no host read per chunk); ``history["while_run"]`` holds the
-      run's graphs, replay counts and set-up and replay times;
+      chunk lengths captured, the replays of each, and the set-up and
+      replay times;
     * ``"host"`` keeps the client state in host memory and moves each
       round's cohort only (:func:`repro_torch.core.fl.client_store.
       run_fl_host`; needs ``streaming_windows``; the loop driver's stop;
@@ -891,7 +890,13 @@ def run_fl(
             if verbose:
                 print(f"round {r_end:4d}  loss {losses[r_end]:.4f}  "
                       f"rmse {rmse:.4f}  comm {comms[r_end]:.3e}")
-        history["while_run"] = run
+        # the run's record, not the run: its graphs and their memory pool
+        # go with it, and nothing replays into the returned state again
+        history["while_run"] = {
+            "captured": sorted(run.graphs), "replays": dict(run.replays),
+            "warmup_s": run.warmup_s, "capture_s": run.capture_s,
+            "replay_s": run.replay_s}
+        del run
     else:
         best_loss, stall = math.inf, 0
         r, stop = 0, False

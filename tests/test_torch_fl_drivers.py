@@ -101,10 +101,9 @@ def test_while_driver_equals_scan_driver(case, data):
     for name, t in sh["state"].items():
         assert torch.equal(wh["state"][name], t), name
     run = wh["while_run"]
-    _, run_kw = WHILE_CASES[case]
     chunks_run = len(wh["rmse"])
-    assert chunks_run <= sum(run.replays.values()) <= chunks_run + 1
-    assert run.graphs == {}                       # the CPU runs eagerly
+    assert chunks_run <= sum(run["replays"].values()) <= chunks_run + 1
+    assert run["captured"] == []                  # the CPU runs eagerly
 
 
 HOST_CASES = {
@@ -134,6 +133,10 @@ def test_host_driver_equals_loop_driver(case, data):
     assert [r for r, _ in hh["rmse"]] == [r for r, _ in lh["rmse"]]
     np.testing.assert_allclose([v for _, v in hh["rmse"]],
                                [v for _, v in lh["rmse"]], rtol=1e-6)
+    # the store's set-up and each round are timed apart
+    assert hh["client_store_setup_s"] > 0
+    assert len(hh["round_s"]) == hh["rounds_run"]
+    assert all(t > 0 for t in hh["round_s"])
     assert set(hh["state"]) == set(lh["state"])
     for name, t in lh["state"].items():
         assert torch.equal(hh["state"][name], t), name

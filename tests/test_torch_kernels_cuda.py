@@ -620,8 +620,11 @@ def test_while_driver_on_the_card_matches_scan(cuda, case):
     sh = E.run_fl(cfg, fl, tr, te, R.PRNGKey(1), driver="scan",
                   device="cuda", **kw)
     run = wh["while_run"]
-    assert sorted(run.graphs) == sorted(set(run.lengths))
-    assert len(wh["rmse"]) <= sum(run.replays.values()) <= len(wh["rmse"]) + 1
+    lengths = {kw["eval_every"], kw["max_rounds"] % kw["eval_every"]} - {0}
+    assert run["captured"] == sorted(lengths)
+    assert sorted(run["replays"]) == sorted(lengths)
+    assert (len(wh["rmse"]) <= sum(run["replays"].values())
+            <= len(wh["rmse"]) + 1)
     assert wh["rounds_run"] == sh["rounds_run"]
     if case == "patience_fires":
         assert wh["rounds_run"] < kw["max_rounds"]
