@@ -63,10 +63,25 @@ Phases, each of which raises (exit code != 0) on failure:
      profiled warm chunk of each driver; then ``driver="host"`` against
      ``driver="loop"`` on a 2,048-station ``nn5`` fleet (cohort 256, client
      chunk 64): bitwise, the store pinned, bytes per round, peak device
-     memory of each.
+     memory of each;
+  8. the flywheel behind the gateway: phase 5's generation-0 root served
+     raw by ``ForecastServer.from_manifest`` (watching its manifest) behind
+     an authed ``ForecastGateway``, 16 closed-loop HTTP clients sending
+     station-routed raw requests throughout; three stable
+     ``stream_evaluate`` reports fed to ``RetrainController.step``, then 40
+     drifted days of the 27-station cluster, so ``step`` retrains it with
+     the scan driver (generation 1); then a while-driver controller
+     retrains it again under the same traffic, capturing its CUDA graphs
+     while the gateway serves (generation 2), and the same retrain runs
+     alone from a copy of the generation-1 root. Every response 200,
+     nothing shed, /healthz through generations 0, 1, 2, sampled forecasts
+     of each generation against its checkpoint's CPU forward, the
+     untouched clusters' engines and norm stats kept, the online RMSE
+     recovered, the while retrain under load bitwise equal to the one
+     alone, and the launches of both kernels on this path.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
-``{"training_drivers": ...}``, one
+``{"training_drivers": ...}``, ``{"flywheel": ...}``, one
 ``{"kernels": [...]}`` line (flash attention with its three routes,
 psgf_mix_batch, psgf_mix, ssm_scan), and last ``{"ok": true, "device":
 {...}}``. It imports ``torch``, ``numpy``, the
@@ -479,18 +494,27 @@ def check_flash_training(ops, ref, tol_f32: float) -> dict:
     return errs
 
 
-def latency_quantiles(server) -> dict:
-    """p50/p99 submit -> result latency over every request so far, estimated
-    from the server's latency histogram (all clusters pooled)."""
-    from repro_torch.launch.metrics import quantile_from_buckets
-
+def latency_histogram(server):
+    """The server's submit -> result latency histogram, all clusters pooled:
+    ``(cumulative bucket counts, bounds)``."""
     hist = server.metrics.families()
     hist = next(f for f in hist if f.name == "forecast_latency_seconds")
-    cum = None
+    cum = [0] * (len(hist.bounds) + 1)
     for _, child in hist.samples():
-        c = child.get()[0]
-        cum = c if cum is None else [a + b for a, b in zip(cum, c)]
-    return {q: quantile_from_buckets(cum, hist.bounds, q) for q in (0.5, 0.99)}
+        cum = [a + b for a, b in zip(cum, child.get()[0])]
+    return cum, hist.bounds
+
+
+def latency_quantiles(server, since=None, until=None) -> dict:
+    """p50/p99 submit -> result latency over every request so far, or
+    between two ``latency_histogram`` snapshots, estimated from the server's
+    latency histogram (all clusters pooled)."""
+    from repro_torch.launch.metrics import quantile_from_buckets
+
+    cum, bounds = until or latency_histogram(server)
+    if since is not None:
+        cum = [a - b for a, b in zip(cum, since[0])]
+    return {q: quantile_from_buckets(cum, bounds, q) for q in (0.5, 0.99)}
 
 
 def host_ms(fn) -> float:
@@ -1086,6 +1110,29 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+@contextlib.contextmanager
+def counting_captures(E, counts):
+    """Count the kernel wrappers' calls captured in each CUDA graph that the
+    engine captures in the block: its capture helper is wrapped so that each
+    capture appends ``(id(graph), change of counts() across it)`` to the
+    list yielded. Graphs of one run are captured longest chunk first."""
+    captured, capture = [], E._capture_graph
+
+    @contextlib.contextmanager
+    def counted(graph, pool, stream):
+        before = counts()
+        with capture(graph, pool, stream):
+            yield
+        after = counts()
+        captured.append((id(graph), {k: after[k] - before[k] for k in after}))
+
+    E._capture_graph = counted
+    try:
+        yield captured
+    finally:
+        E._capture_graph = capture
+
+
 def while_stepwise(E, R, cfg, fl, tr, te, seed, max_rounds, eval_every,
                    patience, counts=None, mask_all=False):
     """The while driver stage by stage, as ``run_fl`` runs it, with the
@@ -1103,25 +1150,12 @@ def while_stepwise(E, R, cfg, fl, tr, te, seed, max_rounds, eval_every,
     (the design the pipelined stop replaced, measured beside it)."""
     key = R.split(R.PRNGKey(seed, device="cuda")).unbind(0)
     state, meta = E.init_fl_state(cfg, fl, key[1], device="cuda")
-    captured, capture = {}, torch.cuda.graph
-
-    @contextlib.contextmanager
-    def counted_capture(graph, **kw):
-        before = counts()
-        with capture(graph, **kw):
-            yield
-        after = counts()
-        captured[id(graph)] = {k: after[k] - before[k] for k in after}
-
-    if counts is not None:
-        torch.cuda.graph = counted_capture
-    try:
+    with counting_captures(E, counts or (lambda: {})) as captured:
         run = E._WhileRun(state, key[0], torch.from_numpy(tr).cuda(),
                           torch.from_numpy(te).cuda(), cfg, fl, meta,
                           E.pol.from_config(fl), max_rounds, eval_every,
                           patience)
-    finally:
-        torch.cuda.graph = capture
+    captured = dict(captured)
     torch.cuda.synchronize()
     got = []
 
@@ -1768,6 +1802,428 @@ def drive_hybrid_serving(ssm_ops, flash_ops) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the flywheel behind the gateway
+# ---------------------------------------------------------------------------
+
+FLY_CLIENTS = 16            # closed-loop HTTP clients, one keep-alive each
+FLY_CHANNELS = 3
+FLY_TOKEN = "chip-smoke-token"
+FLY_QUIET_S = 3.0           # traffic alone before the drift and after
+FLY_SAMPLES = 32            # requests per generation held to the CPU forward
+FLY_POLL_S = 0.01           # /healthz and manifest poll
+FLY_REASONS = ("draining", "unroutable", "rate_limit", "queue_full",
+               "deadline")
+
+
+class _Traffic:
+    """``FLY_CLIENTS`` closed-loop clients, each on one keep-alive
+    connection, sending station-routed raw requests (a uniform station,
+    three look-back windows of its raw series) until stopped; every
+    request's send and receive time, status and forecast is kept."""
+
+    def __init__(self, address, series, stations, look_back):
+        import threading
+
+        self.address, self.series = address, series
+        self.stations, self.L = stations, look_back
+        self.stop = threading.Event()
+        self.records = [[] for _ in range(FLY_CLIENTS)]
+        self.failures = []
+        self.threads = [threading.Thread(target=self._client, args=(i,),
+                                         daemon=True)
+                        for i in range(FLY_CLIENTS)]
+
+    def x_of(self, s, t):
+        return np.stack([self.series[s, t + k: t + k + self.L]
+                         for k in (0, 7, 14)]).astype(np.float32)
+
+    def _client(self, i):
+        import http.client
+
+        from repro_torch.launch.gateway import request_json
+
+        rng = np.random.default_rng(SEED + 100 + i)
+        conn = http.client.HTTPConnection(*self.address, timeout=60)
+        top = self.series.shape[1] - self.L - 14
+        try:
+            while not self.stop.is_set():
+                s = self.stations[int(rng.integers(len(self.stations)))]
+                t = int(rng.integers(top))
+                body = {"x": self.x_of(s, t).tolist(), "station": s}
+                t0 = time.perf_counter()
+                status, _, out = request_json(*self.address, "POST",
+                                              "/v1/forecast", body,
+                                              token=FLY_TOKEN, conn=conn)
+                t1 = time.perf_counter()
+                self.records[i].append(
+                    (t0, t1, status, s, t,
+                     out.get("y") if isinstance(out, dict) else None))
+        except Exception as exc:           # counted, and fails the phase
+            self.failures.append(repr(exc))
+        finally:
+            conn.close()
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+
+    def join(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in self.threads):
+            raise RuntimeError("a traffic client did not stop")
+
+    def all(self):
+        return [r for rec in self.records for r in rec]
+
+
+class _Watch:
+    """Polls ``/healthz`` and the manifest every ``FLY_POLL_S``: the first
+    time (perf_counter) each generation shows in /healthz."""
+
+    def __init__(self, address):
+        import threading
+
+        self.address = address
+        self.shown, self.errors = {}, []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._poll, daemon=True)
+
+    def _poll(self):
+        import http.client
+
+        from repro_torch.launch.gateway import request_json
+
+        conn = http.client.HTTPConnection(*self.address, timeout=60)
+        try:
+            while not self.stop.is_set():
+                status, _, health = request_json(*self.address, "GET",
+                                                 "/healthz", conn=conn)
+                now = time.perf_counter()
+                if status != 200:
+                    self.errors.append(status)
+                self.shown.setdefault(health["generation"], now)
+                time.sleep(FLY_POLL_S)
+        except Exception as exc:
+            self.errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    def wait_for(self, generation, timeout=120.0):
+        deadline = time.perf_counter() + timeout
+        while generation not in self.shown:
+            if time.perf_counter() > deadline or self.errors:
+                raise RuntimeError(f"/healthz never showed generation "
+                                   f"{generation}: {self.errors}")
+            time.sleep(FLY_POLL_S)
+        return self.shown[generation]
+
+
+def window_stats(records, t0, t1, h0, h1, groups) -> dict:
+    """Forecasts/s and client-side p50/p99 latency of the requests that
+    completed in ``[t0, t1)``; the server's own submit -> result p50/p99
+    (its queue and forward, no HTTP) between its histogram's snapshots
+    ``h0`` and ``h1`` taken at ``t0`` and ``t1``; and, from the worker's
+    ``(start, end)`` of each group it served, the longest group and the
+    longest time the worker served none."""
+    lat = sorted(r[1] - r[0] for r in records if t0 <= r[1] < t1)
+    if not lat or t1 <= t0:
+        raise RuntimeError(f"no request completed in a {t1 - t0:.3f} s window")
+    out = {"seconds": t1 - t0, "requests": len(lat),
+           "forecasts_per_sec": len(lat) * FLY_CHANNELS / (t1 - t0),
+           "latency_s_p50": float(np.quantile(lat, 0.5)),
+           "latency_s_p99": float(np.quantile(lat, 0.99))}
+    q = latency_quantiles(None, since=h0, until=h1)
+    out["server_latency_s_p50"], out["server_latency_s_p99"] = q[0.5], q[0.99]
+    spans = sorted(g for g in groups if t0 <= g[0] < t1)
+    out["worker_groups"] = len(spans)
+    out["worker_longest_group_s"] = max((b - a for a, b in spans), default=0.0)
+    out["worker_longest_idle_s"] = max(
+        (n[0] - p[1] for p, n in zip(spans, spans[1:])), default=0.0)
+    return out
+
+
+def drive_flywheel(mix_ops, flash_ops) -> dict:
+    """Phase 8: phase 5's generation-0 root served behind the gateway to
+    ``FLY_CLIENTS`` closed-loop HTTP clients, and retrained twice while they
+    run: the drift path (``step`` -> scan) and ``retrain`` with the while
+    driver, whose CUDA graphs are captured while the gateway serves."""
+    import dataclasses
+
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.core import forecast as F
+    from repro_torch.core.fl import engine as E
+    from repro_torch.core.fl.flywheel import DriftDetector, RetrainController
+    from repro_torch.core.forecaster import load_forecaster
+    from repro_torch.core.tasks import (ExperimentSpec, get_task,
+                                        read_routing_manifest,
+                                        task_forecaster)
+    from repro_torch.launch.gateway import ForecastGateway, request_json
+    from repro_torch.launch.metrics import parse_exposition, sum_samples
+    from repro_torch.launch.serve_forecast import (ForecastServer,
+                                                   stream_evaluate)
+
+    root = os.path.join(ROOT, "build", "chip_smoke_flywheel")
+    quiet = os.path.join(ROOT, "build", "chip_smoke_flywheel_quiet")
+    for d in (root, quiet):
+        shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "build", "chip_smoke_train"), root)
+    task = get_task("ev", quick=False, clusters=3, num_days=420,
+                    min_cluster_clients=4)
+    model = task_forecaster(task, "logtst", quick=False, use_flash_attn=True)
+    grid = (("psgf", {"share_ratio": 0.3, "forward_ratio": 0.2,
+                      "use_pallas_mix": True}),)
+    spec = ExperimentSpec(task=task, model=model, grid=grid, select_ratio=0.5,
+                          local_steps=4, batch_size=TRAIN_BATCH,
+                          max_rounds=TRAIN_ROUNDS, patience=10,
+                          eval_every=TRAIN_EVAL_EVERY, driver="scan")
+    wspec = dataclasses.replace(spec, driver="while")
+    series = task.series()
+    labels = np.asarray(read_routing_manifest(root)[1]["station_cluster"])
+    if np.bincount(labels).tolist() != [21, 27, 10]:
+        raise RuntimeError(f"generation 0 clusters {np.bincount(labels)}")
+
+    server = ForecastServer.from_manifest(root, denormalize=True,
+                                          device="cuda", max_batch=32)
+    server.warmup(channels=FLY_CHANNELS)
+    server.watch_manifest(interval_s=0.1)
+    engines0 = dict(server.engines)
+    groups, run_group = [], server._run_group
+
+    def timed_group(items):        # the worker's timeline, for the windows
+        t0 = time.perf_counter()
+        run_group(items)
+        groups.append((t0, time.perf_counter()))
+
+    server._run_group = timed_group
+    gw = ForecastGateway(server, auth_token=FLY_TOKEN, max_pending=1024,
+                         deadline_s=30.0)
+    address = gw.start()
+    traffic = _Traffic(address, series, server.routable_stations(),
+                       task.look_back)
+    watch = _Watch(address)
+
+    def counts():
+        return {"psgf_mix_batch": mix_ops.LAUNCHES,
+                "flash_attention": flash_ops.LAUNCHES}
+
+    marks, hists = {}, {}
+    try:
+        with counting_captures(E, counts) as captured_loaded:
+            torch.cuda.synchronize()
+            mix_ops.LAUNCHES = 0               # every kernel count, just before
+            flash_ops.reset_launch_counts()
+            watch.thread.start()
+            watch.wait_for(0)
+            marks["start"] = time.perf_counter()
+            hists["start"] = latency_histogram(server)
+            traffic.start()
+            time.sleep(FLY_QUIET_S)
+            marks["steady_end"] = time.perf_counter()
+            hists["steady_end"] = latency_histogram(server)
+
+            # the drift path: three stable reports, then 40 drifted days
+            # (every test window: the drifted days are the latest ones)
+            ctl = RetrainController(spec, root, series=series.copy(),
+                                    labels=labels, server=server,
+                                    detector=DriftDetector(), device="cuda")
+            for _ in range(3):
+                rep = stream_evaluate(server, task, series=ctl.series)
+                if ctl.step(rep)["retrained"]:
+                    raise RuntimeError("a stable report retrained a cluster")
+            tail = ctl.series[:, -40:].copy()
+            tail[labels == 1] = tail[labels == 1] * 3.0 + 5.0
+            ctl.append_windows(tail)
+            drifted = stream_evaluate(server, task, series=ctl.series)
+            marks["scan_call"] = time.perf_counter()
+            hists["scan_call"] = latency_histogram(server)
+            step = ctl.step(drifted)
+            marks["scan_return"] = time.perf_counter()
+            if (step["drifted"] != [1] or sorted(step["retrained"]) != [1]
+                    or step["generation"] != 1):
+                raise RuntimeError(f"drift step: {step}")
+            marks["gen1_shown"] = watch.wait_for(1)
+            hists["gen1_shown"] = latency_histogram(server)
+            recovered = stream_evaluate(server, task, series=ctl.series)
+            rmse = {"stable": rep["per_cluster"][1]["rmse"],
+                    "drifted": drifted["per_cluster"][1]["rmse"],
+                    "after_swap": recovered["per_cluster"][1]["rmse"]}
+            if not rmse["after_swap"] < rmse["drifted"]:
+                raise RuntimeError(f"cluster 1's online RMSE did not fall: "
+                                   f"{rmse}")
+
+            # the capture path: a while retrain from generation 1, under load
+            shutil.copytree(root, quiet)
+            wctl = RetrainController(wspec, root, series=ctl.series,
+                                     labels=labels, server=server,
+                                     device="cuda")
+            marks["while_call"] = time.perf_counter()
+            hists["while_call"] = latency_histogram(server)
+            wres = wctl.retrain([1])
+            marks["while_return"] = time.perf_counter()
+            if wres["generation"] != 2:
+                raise RuntimeError(f"while retrain published "
+                                   f"{wres['generation']}")
+            marks["gen2_shown"] = watch.wait_for(2)
+            hists["gen2_shown"] = latency_histogram(server)
+            time.sleep(FLY_QUIET_S)
+            marks["stop"] = time.perf_counter()
+            hists["stop"] = latency_histogram(server)
+            traffic.join()
+            torch.cuda.synchronize()
+            launched = counts()                # ... and just after
+            routes = dict(flash_ops.ROUTE_LAUNCHES)
+            metricz = request_json(*address, "GET", "/metricz")[2]
+    finally:
+        traffic.stop.set()
+        watch.stop.set()
+        if watch.thread.is_alive():
+            watch.thread.join(timeout=60)  # before the drain answers 503
+        gw.stop(close_server=True)
+    engines2 = dict(server.engines)
+    clock_offset = time.time() - time.perf_counter()
+
+    # the same while retrain from the same generation-1 root, alone
+    with counting_captures(E, counts) as captured_quiet:
+        qres = RetrainController(wspec, quiet, series=ctl.series,
+                                 labels=labels, device="cuda").retrain([1])
+    sub = "psgf-s30-f20_c1_g2"
+    got = load_forecaster(os.path.join(root, sub), device="cpu")[1]
+    want = load_forecaster(os.path.join(quiet, sub), device="cpu")[1]
+    if not all(torch.equal(g, w) for (_, g), (_, w) in zip(
+            pt.flatten_with_paths(got), pt.flatten_with_paths(want))):
+        raise RuntimeError("the while retrain under load differs from the "
+                           "same retrain alone")
+
+    # every response 200, nothing shed, no client failed
+    records = traffic.all()
+    codes = {}
+    for r in records:
+        codes[r[2]] = codes.get(r[2], 0) + 1
+    samples = parse_exposition(metricz)
+    shed = {k: sum_samples(samples, "gateway_shed_total", reason=k)
+            for k in FLY_REASONS}
+    if traffic.failures or set(codes) != {200} or any(shed.values()):
+        raise RuntimeError(f"traffic: codes {codes}, shed {shed}, failures "
+                           f"{traffic.failures[:3]}")
+    if sorted(watch.shown) != [0, 1, 2] or watch.errors:
+        raise RuntimeError(f"/healthz showed {sorted(watch.shown)}, "
+                           f"errors {watch.errors}")
+    if not all(engines2[c] is engines0[c] for c in (0, 2)):
+        raise RuntimeError("an unchanged cluster's engine was rebuilt")
+
+    # norm stats: only cluster 1's stations moved, and only at generation 1
+    norms = [np.asarray(read_routing_manifest(root, g)[1]["norm"][k])
+             for g in (0, 1, 2) for k in ("mu", "sd")]
+    moved = (norms[2] != norms[0]) | (norms[3] != norms[1])
+    if not (moved[labels == 1].all() and not moved[labels != 1].any()
+            and np.array_equal(norms[4], norms[2])
+            and np.array_equal(norms[5], norms[3])):
+        raise RuntimeError("norm stats moved outside cluster 1")
+
+    # requests sent once /healthz showed g, before generation g+1 could be
+    # published, against the CPU forward of generation g's checkpoint
+    windows = {0: (marks["start"], marks["scan_call"]),
+               1: (marks["gen1_shown"], marks["while_call"]),
+               2: (marks["gen2_shown"], marks["stop"])}
+    rng = np.random.default_rng(SEED)
+    serve_err = 0.0
+    for g, (t0, t1) in windows.items():
+        pool = [r for r in records if t0 <= r[0] < t1]
+        if len(pool) < FLY_SAMPLES:
+            raise RuntimeError(f"generation {g}: {len(pool)} requests")
+        _, man = read_routing_manifest(root, g)
+        cpu = {}
+        for i in rng.choice(len(pool), FLY_SAMPLES, replace=False):
+            _, _, _, s, t, y = pool[i]
+            c = man["station_cluster"][s]
+            sub = man["policies"]["psgf-s30-f20"][str(c)]
+            if sub not in cpu:
+                cpu[sub] = load_forecaster(os.path.join(root, sub),
+                                           device="cpu")
+            fc, params, _ = cpu[sub]
+            # the server's float32 stats, as it rescales raw requests
+            mu = float(np.float32(man["norm"]["mu"][s]))
+            sd = float(np.float32(man["norm"]["sd"][s]))
+            x = (traffic.x_of(s, t) - mu) / sd
+            with torch.inference_mode():
+                want = F.forward_multivariate(fc.cfg, params,
+                                              torch.from_numpy(x)[None])
+            want = want[0].numpy() * sd + mu
+            got = np.asarray(y, np.float32)
+            serve_err = max(serve_err, float(np.max(np.abs(got - want))))
+            if not np.allclose(got, want, atol=SERVE_TOL, rtol=SERVE_TOL):
+                raise RuntimeError(f"generation {g} station {s}: served vs "
+                                   f"CPU max |err| {serve_err}")
+
+    # launches: a captured call is counted once, at its capture, and runs at
+    # every replay of its graph. psgf_mix's calls per graph are the loaded
+    # run's own (serving never calls it); flash's are the quiet run's, since
+    # the serving thread's launches fall inside the loaded capture's window
+    if routes["short"] != launched["flash_attention"]:
+        raise RuntimeError(f"flash launches left the short route: {routes}")
+    scan_rounds = step["retrained"][1]["rounds"]
+    wrow, qrow = wres["rows"][1], qres["rows"][1]
+    lengths = sorted(wrow["while_run"]["captured"], reverse=True)
+    per_loaded = dict(zip(lengths, (d for _, d in captured_loaded)))
+    per_quiet = dict(zip(lengths, (d for _, d in captured_quiet)))
+    replays = {int(n): k for n, k in wrow["while_run"]["replays"].items()}
+    if any(per_loaded[n]["psgf_mix_batch"] != per_quiet[n]["psgf_mix_batch"]
+           or per_quiet[n]["psgf_mix_batch"] != n for n in lengths):
+        raise RuntimeError(f"one psgf_mix call a round expected: {per_quiet}")
+    replayed = {k: sum(per_quiet[n][k] * replays[n] for n in lengths)
+                for k in ("psgf_mix_batch", "flash_attention")}
+    captured_once = {k: sum(per_quiet[n][k] for n in lengths)
+                     for k in replayed}
+    launches = {k: launched[k] - captured_once[k] + replayed[k]
+                for k in replayed}
+    while_mix = replayed["psgf_mix_batch"] + 1       # + the warm-up round
+    if (replayed["psgf_mix_batch"] != wrow["rounds"]
+            or launches["psgf_mix_batch"] != scan_rounds + while_mix):
+        raise RuntimeError(f"psgf_mix launches {launches} for rounds "
+                           f"{scan_rounds} (scan) and {wrow['rounds']} (while)")
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel did not run on this path: {launches}")
+
+    def swap_s(g):
+        """Manifest snapshot written -> /healthz first showed it."""
+        stamp = os.stat(os.path.join(root, f"routing.g{g:06d}.json")).st_mtime
+        return watch.shown[g] - (stamp - clock_offset)
+
+    return {
+        "task": "ev full (58 stations, 420 + 40 days)",
+        "model": model.name, "params": model.num_params(),
+        "clients": FLY_CLIENTS, "channels": FLY_CHANNELS,
+        "requests": len(records), "status_codes": codes,
+        "shed_by_reason": shed, "client_failures": len(traffic.failures),
+        "generations_shown": sorted(watch.shown),
+        "windows": {name: window_stats(records, marks[a], marks[b],
+                                       hists[a], hists[b], groups)
+                    for name, (a, b) in (
+                        ("steady", ("start", "steady_end")),
+                        ("retrain_scan", ("scan_call", "gen1_shown")),
+                        ("retrain_while", ("while_call", "gen2_shown")),
+                        ("after", ("gen2_shown", "stop")))},
+        "retrain_s": {"scan": marks["scan_return"] - marks["scan_call"],
+                      "while": marks["while_return"] - marks["while_call"]},
+        "rows": {"scan": step["retrained"][1], "while": wrow,
+                 "while_alone": qrow},
+        "swap_s": {"1": swap_s(1), "2": swap_s(2)},
+        "rmse_cluster1": rmse,
+        "checked_vs_cpu_per_generation": FLY_SAMPLES,
+        "served_max_abs_err_vs_cpu": serve_err,
+        "while_bitwise_vs_alone": True,
+        "captured_per_graph": {
+            "loaded": {str(n): v for n, v in per_loaded.items()},
+            "alone": {str(n): v for n, v in per_quiet.items()}},
+        "launches": {**launches, "counted": launched, "flash_routes": routes,
+                     "psgf_mix_batch_scan": scan_rounds,
+                     "psgf_mix_batch_while": while_mix},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1845,6 +2301,12 @@ def main() -> int:
     mix_record["launches_while_run_B"] = on_while["psgf_mix_batch"]
     mix_record["launches_host"] = on_host["psgf_mix_batch"]
 
+    # 8. the flywheel behind the gateway
+    flywheel = drive_flywheel(mix_ops, ops)
+    log(json.dumps({"flywheel": flywheel}))
+    record["launches_flywheel"] = flywheel["launches"]["flash_attention"]
+    mix_record["launches_flywheel"] = flywheel["launches"]["psgf_mix_batch"]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -1856,6 +2318,7 @@ def main() -> int:
                   "launches_training": record["launches_training"],
                   "launches_while_run_B": record["launches_while_run_B"],
                   "launches_host": record["launches_host"],
+                  "launches_flywheel": record["launches_flywheel"],
                   "ms": record["ms"],
                   "ms_training_shape": record["training_shape"]["ms"]},
         "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",

@@ -19,7 +19,13 @@ Ported so far, both halves of the paper's main path:
     .from_manifest`` restores the per-cluster checkpoints and serves them
     through bucketed micro-batching; with ``use_flash_attn=True`` the
     forecaster's attention block runs ``repro_torch/csrc/flash_attention.cu``
-    (in training too, under ``torch.func.vmap(grad)``).
+    (in training too, under ``torch.func.vmap(grad)``);
+  * the loop between them — ``repro_torch.core.fl.flywheel``
+    (``DriftDetector``, ``RetrainController``) retrains a drifted cluster and
+    publishes the next manifest generation, which the server hot-swaps, and
+    ``repro_torch.launch.gateway`` serves it over HTTP; on the card a
+    retrain (the while driver's CUDA-graph capture included) and serving
+    share one GPU, each on its own stream.
 
 Importing this package (or any subpackage) imports nothing heavier than
 ``torch``: kernels are compiled and loaded at their first launch.

@@ -11,3 +11,4 @@ from repro_torch.core.fl.engine import (
     quantize_wire_vec, run_fl, sample_cohort, wire_scale_count,
 )
 from repro_torch.core.fl.client_store import ClientStore, run_fl_host
+from repro_torch.core.fl.flywheel import DriftDetector, RetrainController

@@ -53,6 +53,7 @@ multi-GPU), and ``sync_round`` with leaf-granularity policies (A14,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -663,6 +664,29 @@ def _while_chunk(state, flags, num_rounds: int, train_data, test_data,
             {k: torch.where(done, v, new_flags[k]) for k, v in flags.items()})
 
 
+@contextlib.contextmanager
+def _capture_graph(graph, pool, stream):
+    """Capture the work this thread enqueues in the block into ``graph`` on
+    ``stream`` (which must not be the legacy default stream), allocating
+    from ``pool``. The capture is in ``thread_local`` error mode: only this
+    thread's unsafe calls break it, so other threads may go on with their
+    own device work meanwhile (a server's forwards, its pinned copies and
+    allocations). Unlike ``torch.cuda.graph`` it neither synchronizes the
+    card nor empties the allocator's cache before it starts, which would
+    wait for, and take the cached memory of, the other threads' work."""
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            yield
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass      # the capture is void; the body's error says why
+            raise
+        graph.capture_end()
+
+
 class _WhileRun:
     """One run of the while driver (the reference's ``_run_while_impl``):
     chunks of ``eval_every`` rounds, the last of ``max_rounds % eval_every``
@@ -675,7 +699,9 @@ class _WhileRun:
     a side stream, comes first (it builds the kernels and allocates
     psgf_mix's ticket counter, neither of which may happen under capture),
     and a failed capture or replay raises: there is no eager fallback on the
-    card. :meth:`launch` enqueues the chunks, :meth:`read` is the run's one
+    card. The set-up waits on its own streams only and captures in
+    ``thread_local`` mode (:func:`_capture_graph`), so it may run while
+    another thread serves on the same card. :meth:`launch` enqueues the chunks, :meth:`read` is the run's one
     blocking read. ``warmup_s`` and ``capture_s`` (capture and instantiate)
     time the set-up, ``replay_s`` the first replay to the end of
     :meth:`read`; ``replays`` counts the replays of each chunk length, and
@@ -713,19 +739,22 @@ class _WhileRun:
             self._capture()
 
     def _capture(self):
+        dev = self.flags["key"].device
+        current = torch.cuda.current_stream(dev)
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.flags["key"].device)
-        side.wait_stream(torch.cuda.current_stream())
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
         with torch.cuda.stream(side):
             self._chunk({k: v.clone() for k, v in self.state.items()},
                         {k: v.clone() for k, v in self.flags.items()}, 1)
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
+        side.synchronize()      # this run's streams only, not the card
         t1 = time.perf_counter()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(side)
         pool = None
         for length in sorted(set(self.lengths), reverse=True):
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
+            with _capture_graph(graph, pool, stream):
                 state, flags = self._chunk(self.state, self.flags, length)
                 for k, v in state.items():
                     self.state[k].copy_(v)
@@ -734,6 +763,7 @@ class _WhileRun:
             del state, flags      # lets the next capture reuse the pool
             pool = graph.pool()   # graphs replay in turn, never at once
             self.graphs[length] = graph
+        current.wait_stream(stream)
         self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
 
     def launch(self):

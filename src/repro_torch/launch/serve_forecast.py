@@ -9,7 +9,11 @@ plus the routing manifest into a batched, routed inference endpoint:
   * each cluster engine runs ``forward_multivariate`` under
     ``torch.inference_mode`` into a PREALLOCATED per-``(bucket, channels)``
     output tensor on the server's device — the counterpart of the
-    reference's jitted step with donated output buffers;
+    reference's jitted step with donated output buffers; on the card every
+    forward runs on the server's own high-priority CUDA stream through
+    pinned staging buffers and waits on its own event, so serving goes on
+    beside training in another thread (a flywheel retrain, its CUDA-graph
+    capture included) without queueing behind it;
   * ragged request batches are padded up to a small set of SHAPE BUCKETS
     (powers of two up to ``max_batch``), so the set of shapes the device
     sees stays bounded whatever batch sizes arrive;
@@ -48,6 +52,7 @@ CLI (restore + synthetic load, reports forecasts/sec):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import queue
@@ -94,38 +99,96 @@ def batch_buckets(max_batch: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
+class _Slot:
+    """The static buffers of one ``(bucket, channels)`` forward on the card:
+    pinned host staging for the input and the result, the device input and
+    output, and the event the host waits on."""
+
+    __slots__ = ("host_in", "host_out", "dev_in", "dev_out", "done")
+
+    def __init__(self, bucket: int, M: int, L: int, H: int,
+                 device: torch.device):
+        self.host_in = torch.empty((bucket, M, L), dtype=torch.float32,
+                                   pin_memory=True)
+        self.host_out = torch.empty((bucket, M, H), dtype=torch.float32,
+                                    pin_memory=True)
+        self.dev_in = torch.empty((bucket, M, L), dtype=torch.float32,
+                                  device=device)
+        self.dev_out = torch.empty((bucket, M, H), dtype=torch.float32,
+                                   device=device)
+        self.done = torch.cuda.Event()
+
+
 class _ClusterEngine:
     """One restored model's inference machinery: its params, moved to the
-    server's device once, and its per-(bucket, channels) output tensors. The
-    routed server holds one engine per cluster; the single-model server is
-    the one-engine case, so both run exactly the same step."""
+    server's device once, and its per-(bucket, channels) buffers. The routed
+    server holds one engine per cluster; the single-model server is the
+    one-engine case, so both run exactly the same step.
 
-    def __init__(self, forecaster: Forecaster, params, device: torch.device):
+    On the card every step runs on the server's own ``stream`` through
+    static buffers (:class:`_Slot`: pinned host staging, device input and
+    output), allocated by the first step of each shape (the warm-up), and
+    the host waits on the step's own event only. So a step neither queues
+    behind nor synchronizes with work that another thread has put on the
+    card (training, a CUDA-graph capture in ``thread_local`` mode), and
+    makes no pageable copy and no allocation of its own after the warm-up."""
+
+    def __init__(self, forecaster: Forecaster, params, device: torch.device,
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.forecaster = forecaster
         self.device = device
+        self.stream = stream
         self.params = pt.tree_map(lambda t: t.to(device), params)
-        # (bucket, channels) -> output buffer, taken out while a step fills it
-        self._out: Dict[Tuple[int, int], torch.Tensor] = {}
+        if stream is not None:
+            # the params were written on this thread's current stream
+            stream.wait_stream(torch.cuda.current_stream(device))
+        # (bucket, channels) -> free buffers, taken out while a step uses them
+        self._free: Dict[Tuple[int, int], list] = {}
+
+    def _take(self, key, x_shape):
+        try:
+            return self._free.setdefault(key, []).pop()
+        except IndexError:    # first step of this shape, or one in flight
+            bucket, M, L = x_shape
+            H = self.forecaster.cfg.horizon
+            if self.device.type == "cuda":
+                with _on(self.stream):
+                    return _Slot(bucket, M, L, H, self.device)
+            return torch.empty((bucket, M, H), dtype=torch.float32)
 
     def run_padded(self, x: np.ndarray, rows: int) -> np.ndarray:
         """x: (bucket, M, L) already padded to a bucket size. Fills this
-        shape's output buffer and returns the first ``rows`` live rows
-        COPIED to the host — the copy happens before the buffer is put back
-        into ``self._out``, where a concurrent caller (the worker thread and
-        a warmup/predict from another thread) could take and overwrite it.
-        Inference mode is thread-local, so it is entered here, per call."""
-        bucket, M, _ = x.shape
-        key = (bucket, M)
+        shape's buffers and returns the first ``rows`` live rows COPIED to
+        the host — the copy happens before the buffers are put back, where a
+        concurrent caller (the worker thread and a warmup/predict from
+        another thread) could take and overwrite them. Inference mode and
+        the current stream are thread-local, so both are entered here, per
+        call."""
+        key = (x.shape[0], x.shape[1])
+        slot = self._take(key, x.shape)
+        cfg = self.forecaster.cfg
         with torch.inference_mode():
-            xt = torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
-            out = self._out.pop(key, None)
-            if out is None:
-                out = torch.empty((bucket, M, self.forecaster.cfg.horizon),
-                                  dtype=torch.float32, device=self.device)
-            out.copy_(forward_multivariate(self.forecaster.cfg, self.params, xt))
-            result = out[:rows].to("cpu", copy=True).numpy()
-        self._out[key] = out
+            if self.device.type != "cuda":
+                slot.copy_(forward_multivariate(
+                    cfg, self.params, torch.from_numpy(np.asarray(x, np.float32))))
+                result = slot[:rows].numpy().copy()
+            else:
+                slot.host_in.numpy()[...] = x
+                with torch.cuda.stream(self.stream):
+                    slot.dev_in.copy_(slot.host_in, non_blocking=True)
+                    slot.dev_out.copy_(forward_multivariate(cfg, self.params,
+                                                            slot.dev_in))
+                    slot.host_out.copy_(slot.dev_out, non_blocking=True)
+                    slot.done.record(self.stream)
+                slot.done.synchronize()
+                result = slot.host_out[:rows].numpy().copy()
+        self._free[key].append(slot)
         return result
+
+
+def _on(stream):
+    """``torch.cuda.stream(stream)``, or nothing on the CPU."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
 
 class _Generation:
@@ -205,9 +268,13 @@ class ForecastServer:
         self.buckets = tuple(sorted(set(buckets or batch_buckets(max_batch))))
         self.max_batch = self.buckets[-1]
         self.max_wait_ms = max_wait_ms
+        # every forward of this server runs on its own high-priority stream
+        # (see _ClusterEngine), whichever thread calls it
+        self._stream = (torch.cuda.Stream(self.device, priority=-1)
+                        if self.device.type == "cuda" else None)
         self._gen = _Generation(
             generation,
-            {c: _ClusterEngine(fc, p, self.device)
+            {c: _ClusterEngine(fc, p, self.device, self._stream)
              for c, (fc, p) in models.items()},
             station_cluster=station_cluster, station_norm=station_norm)
         self._manifest_source: Optional[dict] = None  # set by from_manifest
@@ -441,8 +508,9 @@ class ForecastServer:
                 new_gen = staged   # already built and warmed on a prior tick
             else:
                 try:
-                    new_gen = self._build_generation(src, generation, manifest,
-                                                     warm_channels)
+                    with _on(self._stream):
+                        new_gen = self._build_generation(
+                            src, generation, manifest, warm_channels)
                 except Exception:
                     if self.metrics is not None:
                         self._m_reloads.labels("error").inc()
@@ -470,7 +538,8 @@ class ForecastServer:
             src["comm_bits"], self.device, reuse=reuse,
             process_shard=self.process_shard)
         engines = {c: (v if isinstance(v, _ClusterEngine)
-                       else _ClusterEngine(v[0], v[1], self.device))
+                       else _ClusterEngine(v[0], v[1], self.device,
+                                           self._stream))
                    for c, v in restored.items()}
         station_norm = None
         if src["denormalize"]:

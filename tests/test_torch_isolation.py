@@ -59,6 +59,8 @@ def test_importing_every_module_pulls_in_no_jax():
     for name in ("repro_torch.random", "repro_torch.core.fl.engine",
                  "repro_torch.core.fl.masks", "repro_torch.core.fl.policies",
                  "repro_torch.core.fl.client_store",
+                 "repro_torch.core.fl.flywheel",
+                 "repro_torch.launch.gateway",
                  "repro_torch.core.fl.simulator",
                  "repro_torch.core.fl.strategies",
                  "repro_torch.data.clustering",
@@ -174,6 +176,24 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: decoder.init_params(hymba, R.PRNGKey(0)),
         lambda: decoder.init_cache(hymba, 1, 4),
         lambda: decoder.params_from_numpy({"w": np.ones(2, np.float32)}),
+    ]
+    from repro_torch.core.fl.flywheel import RetrainController
+    from repro_torch.launch import gateway
+
+    root = str(tmp_path / "fly")
+    write_routing_manifest(root, spec.task, fc, np.zeros(4),
+                           [{"policy": "psgf-s30-f20", "cluster": 0}],
+                           series=series)
+    ctl = RetrainController(spec, root, series=series, labels=np.zeros(4),
+                            device="cpu")
+    ctl.device = "cuda"      # a controller made for the card, on this machine
+    calls += [
+        lambda: RetrainController(spec, root, series=series,
+                                  labels=np.zeros(4)),
+        lambda: RetrainController(spec, root),
+        lambda: ctl.retrain([0]),
+        lambda: gateway.main(["--manifest", str(tmp_path)]),
+        lambda: gateway.main(["--manifest", str(tmp_path), "--port", "0"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -690,3 +690,126 @@ def test_host_driver_on_the_card_equals_loop(cuda):
     np.testing.assert_allclose(hh["final_rmse"], lh["final_rmse"], rtol=1e-6)
     store.close()
     assert not store.w_clients.is_pinned()
+
+
+# ---------------------------------------------------------------------------
+# the gateway and the flywheel on the card
+# ---------------------------------------------------------------------------
+
+SERVE_TOL = 1e-4     # served on the card against the CPU forward (chip_smoke.py)
+
+
+def _flywheel_root(root):
+    """A generation-0 root of two clusters of six ``ev`` stations, trained
+    on the card by the port (small LoGTST, flash on, the fused downlink)."""
+    from repro_torch.core.tasks import (ExperimentSpec, get_task,
+                                        run_experiment, task_forecaster)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    task = get_task("ev", quick=True, clusters=2, num_clients=12,
+                    num_days=150, look_back=32, horizon=2)
+    model = task_forecaster(task, "logtst", quick=True, d_model=16,
+                            num_heads=2, d_ff=32, use_flash_attn=True)
+    spec = ExperimentSpec(task=task, model=model,
+                          grid=(("psgf", {"use_pallas_mix": True}),),
+                          local_steps=2, batch_size=16, max_rounds=4,
+                          patience=10, eval_every=2)
+    series = task.series()
+    labels = task.cluster_labels(series, device="cuda")
+    run_experiment(spec, checkpoint_dir=root, series=series, labels=labels,
+                   device="cuda")
+    return spec, series, labels
+
+
+@pytest.mark.cuda
+def test_gateway_on_the_card_matches_cpu_forward(cuda, tmp_path):
+    """HTTP requests through the gateway, served on the card, against the
+    CPU forward of the same checkpoint within SERVE_TOL."""
+    from repro_torch.core.forecaster import load_forecaster
+    from repro_torch.launch.gateway import ForecastGateway, request_json
+    from repro_torch.launch.serve_forecast import ForecastServer
+
+    root = str(tmp_path / "root")
+    spec, _, labels = _flywheel_root(root)
+    server = ForecastServer.from_manifest(root, device="cuda", max_batch=8)
+    server.warmup(channels=3)
+    cpu = {c: load_forecaster(f"{root}/psgf-s30-f20_c{c}", device="cpu")
+           for c in (0, 1)}
+    rng = np.random.default_rng(0)
+    with ForecastGateway(server, auth_token="t") as gw:
+        for s in range(len(labels)):
+            x = rng.standard_normal((3, 32)).astype(np.float32)
+            status, _, body = request_json(*gw.address, "POST", "/v1/forecast",
+                                           {"x": x.tolist(), "station": s},
+                                           token="t")
+            assert status == 200 and body["cluster"] == int(labels[s])
+            fc, params, _ = cpu[body["cluster"]]
+            with torch.inference_mode():
+                want = F.forward_multivariate(fc.cfg, params,
+                                              torch.from_numpy(x)[None])[0]
+            np.testing.assert_allclose(np.asarray(body["y"], np.float32),
+                                       want.numpy(), atol=SERVE_TOL,
+                                       rtol=SERVE_TOL)
+        status, _, health = request_json(*gw.address, "GET", "/healthz")
+        assert status == 200 and health["generation"] == 0
+    server.close()
+
+
+@pytest.mark.cuda
+def test_while_retrain_beside_serving_equals_the_retrain_alone(cuda, tmp_path):
+    """A ``while`` retrain (warm-up, CUDA-graph capture, replays) in one
+    thread while another submits to the server on the same card without a
+    pause: no error, every future resolved, the server hot-swapped, and the
+    retrained parameters bitwise equal to the same retrain run alone."""
+    import dataclasses
+    import shutil
+    import threading
+
+    from repro_torch.core.fl.flywheel import RetrainController
+    from repro_torch.core.forecaster import load_forecaster
+    from repro_torch.launch.serve_forecast import ForecastServer
+
+    root = str(tmp_path / "root")
+    spec, series, labels = _flywheel_root(root)
+    spec = dataclasses.replace(spec, driver="while")
+    alone = str(tmp_path / "alone")
+    shutil.copytree(root, alone)
+    server = ForecastServer.from_manifest(root, device="cuda", max_batch=8,
+                                          max_wait_ms=0.5)
+    server.warmup(channels=1)
+    server.start()
+    ctl = RetrainController(spec, root, series=series, labels=labels,
+                            server=server, device="cuda")
+    out, errors = {}, []
+
+    def retrain():
+        try:
+            out.update(ctl.retrain([1]))
+        except Exception as exc:          # reported below
+            errors.append(exc)
+
+    t = threading.Thread(target=retrain)
+    futs = []
+    x = np.random.default_rng(1).standard_normal((1, 32)).astype(np.float32)
+    t.start()
+    while t.is_alive():
+        futs.append(server.submit(x, station=int(np.flatnonzero(labels == 1)[0])))
+        if len(futs) % 16 == 0:
+            futs[-16].result(timeout=60)
+    t.join()
+    ys = [f.result(timeout=60) for f in futs]
+    assert not errors, errors
+    assert out["generation"] == server.generation == 1
+    assert len(ys) > 0 and all(np.isfinite(y).all() for y in ys)
+    row = out["rows"][1]
+    assert row["while_run"]["captured"] == [2]
+    server.close()
+
+    RetrainController(spec, alone, series=series, labels=labels,
+                      device="cuda").retrain([1])
+    sub = "psgf-s30-f20_c1_g1"
+    got = load_forecaster(f"{root}/{sub}", device="cpu")[1]
+    want = load_forecaster(f"{alone}/{sub}", device="cpu")[1]
+    for (path, g), (_, w) in zip(pt.flatten_with_paths(got),
+                                 pt.flatten_with_paths(want)):
+        assert torch.equal(g, w), path
