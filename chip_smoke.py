@@ -2009,9 +2009,13 @@ def drive_flywheel(mix_ops, flash_ops) -> dict:
         return {"psgf_mix_batch": mix_ops.LAUNCHES,
                 "flash_attention": flash_ops.LAUNCHES}
 
+    def captured_calls():       # this thread's calls recorded into graphs
+        return {"psgf_mix_batch": mix_ops.captured_calls(),
+                "flash_attention": flash_ops.captured_calls()}
+
     marks, hists = {}, {}
     try:
-        with counting_captures(E, counts) as captured_loaded:
+        with counting_captures(E, captured_calls) as captured_loaded:
             torch.cuda.synchronize()
             mix_ops.LAUNCHES = 0               # every kernel count, just before
             flash_ops.reset_launch_counts()
@@ -2086,7 +2090,7 @@ def drive_flywheel(mix_ops, flash_ops) -> dict:
     clock_offset = time.time() - time.perf_counter()
 
     # the same while retrain from the same generation-1 root, alone
-    with counting_captures(E, counts) as captured_quiet:
+    with counting_captures(E, captured_calls) as captured_quiet:
         qres = RetrainController(wspec, quiet, series=ctl.series,
                                  labels=labels, device="cuda").retrain([1])
     sub = "psgf-s30-f20_c1_g2"
@@ -2159,9 +2163,10 @@ def drive_flywheel(mix_ops, flash_ops) -> dict:
                                    f"CPU max |err| {serve_err}")
 
     # launches: a captured call is counted once, at its capture, and runs at
-    # every replay of its graph. psgf_mix's calls per graph are the loaded
-    # run's own (serving never calls it); flash's are the quiet run's, since
-    # the serving thread's launches fall inside the loaded capture's window
+    # every replay of its graph. Each graph's calls are the loaded run's own:
+    # the wrappers count the calls on a capturing stream per thread, so the
+    # serving thread's launches during the capture are not among them. The
+    # same retrain alone must have captured the same calls
     if routes["short"] != launched["flash_attention"]:
         raise RuntimeError(f"flash launches left the short route: {routes}")
     scan_rounds = step["retrained"][1]["rounds"]
@@ -2170,12 +2175,13 @@ def drive_flywheel(mix_ops, flash_ops) -> dict:
     per_loaded = dict(zip(lengths, (d for _, d in captured_loaded)))
     per_quiet = dict(zip(lengths, (d for _, d in captured_quiet)))
     replays = {int(n): k for n, k in wrow["while_run"]["replays"].items()}
-    if any(per_loaded[n]["psgf_mix_batch"] != per_quiet[n]["psgf_mix_batch"]
-           or per_quiet[n]["psgf_mix_batch"] != n for n in lengths):
-        raise RuntimeError(f"one psgf_mix call a round expected: {per_quiet}")
-    replayed = {k: sum(per_quiet[n][k] * replays[n] for n in lengths)
+    if (len(captured_loaded) != len(lengths) or per_loaded != per_quiet
+            or any(per_loaded[n]["psgf_mix_batch"] != n for n in lengths)):
+        raise RuntimeError(f"one psgf_mix call a round expected, the same "
+                           f"calls alone: {per_loaded} vs {per_quiet}")
+    replayed = {k: sum(per_loaded[n][k] * replays[n] for n in lengths)
                 for k in ("psgf_mix_batch", "flash_attention")}
-    captured_once = {k: sum(per_quiet[n][k] for n in lengths)
+    captured_once = {k: sum(per_loaded[n][k] for n in lengths)
                      for k in replayed}
     launches = {k: launched[k] - captured_once[k] + replayed[k]
                 for k in replayed}
@@ -2186,6 +2192,14 @@ def drive_flywheel(mix_ops, flash_ops) -> dict:
                            f"{scan_rounds} (scan) and {wrow['rounds']} (while)")
     if not all(launches.values()):
         raise RuntimeError(f"a kernel did not run on this path: {launches}")
+
+    # what counting captured calls adds to each launch of a wrapper: one
+    # capture-status query of the current stream
+    with torch.cuda.stream(torch.cuda.Stream()):
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            torch.cuda.is_current_stream_capturing()
+        capture_query_us = (time.perf_counter() - t0) * 100
 
     def swap_s(g):
         """Manifest snapshot written -> /healthz first showed it."""
@@ -2212,6 +2226,7 @@ def drive_flywheel(mix_ops, flash_ops) -> dict:
                  "while_alone": qrow},
         "swap_s": {"1": swap_s(1), "2": swap_s(2)},
         "rmse_cluster1": rmse,
+        "capture_query_us_per_launch": capture_query_us,
         "checked_vs_cpu_per_generation": FLY_SAMPLES,
         "served_max_abs_err_vs_cpu": serve_err,
         "while_bitwise_vs_alone": True,

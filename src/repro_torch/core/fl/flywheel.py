@@ -24,10 +24,11 @@ thread calls it (the caller's, the timer's): the current stream is per
 thread in PyTorch, so it is set here rather than inherited. A server on the
 same card serves on its own stream meanwhile (``repro_torch.launch.
 serve_forecast``), also while the ``while`` driver captures its CUDA graphs
-(in ``thread_local`` mode). Retrains of one controller never overlap: the
-drift path and the timer take one lock, which also keeps two runs of the
-psgf_mix kernel, whose ticket counter is one per device, from running at
-once.
+(in ``thread_local`` mode). Retrains never overlap on one device: each
+takes its controller's lock (the drift path and the timer share it) and
+then the device's lock, which every controller on that device shares. The
+second keeps two runs of the psgf_mix kernel, whose ticket counter is one
+per device, from running at once on two controllers' streams.
 
 Usage::
 
@@ -52,6 +53,19 @@ import torch
 
 from repro_torch import random as R
 from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
+
+_DEVICE_LOCKS: Dict[tuple, threading.Lock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def _device_lock(dev: torch.device) -> threading.Lock:
+    """The lock that every controller's retrains on ``dev`` take (``cuda``
+    and ``cuda:<current device>`` are one device)."""
+    index = dev.index
+    if index is None and dev.type == "cuda":
+        index = torch.cuda.current_device()
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault((dev.type, index), threading.Lock())
 
 
 class DriftDetector:
@@ -234,7 +248,7 @@ class RetrainController:
         dev = resolve_device(self.device)
         spec, task = self.spec, self.spec.task
         policy_name, overrides = self._grid_entry
-        with self._lock:
+        with self._lock, _device_lock(dev):
             series = self.series
             current_gen, manifest = read_routing_manifest(self.checkpoint_root)
             generation = current_gen + 1

@@ -30,7 +30,11 @@ per-client LocalUpdate — runs through the kernel on the card.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
 that its main path went through the kernel; ``ROUTE_LAUNCHES`` splits the
-same count by route (it sums to ``LAUNCHES``).
+same count by route (it sums to ``LAUNCHES``). A call made while the calling
+thread's current stream is capturing a CUDA graph records a launch that
+runs at each replay of the graph; it counts once in ``LAUNCHES`` and also in
+this thread's :func:`captured_calls`, so a run that captures beside other
+threads' launches can tell its graphs' calls apart.
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ FLASH_BF16_ATOL = 2.0 ** -8
 LAUNCHES = 0
 ROUTE_LAUNCHES = {route: 0 for route in ROUTES}
 _COUNT_LOCK = threading.Lock()
+_CAPTURED = threading.local()
 _FNS = {}
 
 
@@ -123,6 +128,12 @@ def kernel_route(dtype, hd, q_shape=None, kv_shape=None) -> str:
     if q_shape is not None and _in_short_envelope(dtype, hd, q_shape, kv_shape):
         return "short"
     return "scalar"
+
+
+def captured_calls() -> int:
+    """This thread's calls made while its current stream was capturing a
+    CUDA graph (each also counted once in :data:`LAUNCHES`)."""
+    return getattr(_CAPTURED, "calls", 0)
 
 
 def reset_launch_counts():
@@ -190,12 +201,15 @@ def _launch(q, k, v, causal, window, kv_len, route=None):
         else:
             err = fn(*ptrs, _DTYPE_CODES[q.dtype], B, Sq, Skv, H, KV, hd, *mask,
                      stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "
                            f"CUDA error {err}")
     with _COUNT_LOCK:
         LAUNCHES += 1
         ROUTE_LAUNCHES[route] += 1
+    if capturing:
+        _CAPTURED.calls = captured_calls() + 1
     return o
 
 

@@ -31,7 +31,10 @@ any CUDA graph capture (the counter cannot be allocated during one).
 
 ``LAUNCHES`` counts the kernel launches of ``psgf_mix_batch`` and
 ``LAUNCHES_SINGLE`` those of ``psgf_mix`` (and nothing else), so a run can
-show which wrapper its main path went through.
+show which wrapper its main path went through. A call made while the calling
+thread's current stream is capturing a CUDA graph records a launch that
+runs at each replay of the graph; it counts once there and also in this
+thread's :func:`captured_calls`.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from repro_torch.kernels.psgf_mix.ref import psgf_mix_batch_ref, psgf_mix_ref
 LAUNCHES = 0
 LAUNCHES_SINGLE = 0
 _COUNT_LOCK = threading.Lock()
+_CAPTURED = threading.local()
 _FNS = None
 _TICKETS = {}                # device index -> zeroed int32 ticket counter
 
@@ -82,6 +86,13 @@ def _ticket_counter(device):
     return counter
 
 
+def captured_calls() -> int:
+    """This thread's calls of either wrapper made while its current stream
+    was capturing a CUDA graph (each also counted once in :data:`LAUNCHES`
+    or :data:`LAUNCHES_SINGLE`)."""
+    return getattr(_CAPTURED, "calls", 0)
+
+
 def _launch(w_global, w_clients, mask, single=False):
     """Checks, then one kernel launch on the current stream. ``w_clients``
     and ``mask`` are (K, D); returns (mixed (K, D), count 0-d float32).
@@ -109,6 +120,7 @@ def _launch(w_global, w_clients, mask, single=False):
         err = fwd(w_global.data_ptr(), w_clients.data_ptr(), mask.data_ptr(),
                   out.data_ptr(), partials.data_ptr(), count.data_ptr(),
                   counter.data_ptr(), D, K, vector, stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"psgf_mix kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
@@ -116,6 +128,8 @@ def _launch(w_global, w_clients, mask, single=False):
             LAUNCHES_SINGLE += 1
         else:
             LAUNCHES += 1
+    if capturing:
+        _CAPTURED.calls = captured_calls() + 1
     return out, count
 
 

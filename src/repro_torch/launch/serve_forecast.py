@@ -127,11 +127,13 @@ class _ClusterEngine:
 
     On the card every step runs on the server's own ``stream`` through
     static buffers (:class:`_Slot`: pinned host staging, device input and
-    output), allocated by the first step of each shape (the warm-up), and
-    the host waits on the step's own event only. So a step neither queues
-    behind nor synchronizes with work that another thread has put on the
-    card (training, a CUDA-graph capture in ``thread_local`` mode), and
-    makes no pageable copy and no allocation of its own after the warm-up."""
+    output), allocated by the first step of each shape (the server's
+    warm-up; a reloaded engine's, at the channel counts the server warmed),
+    and the host waits on the step's own event only. So a step neither
+    queues behind nor synchronizes with work that another thread has put on
+    the card (training, a CUDA-graph capture in ``thread_local`` mode), and
+    makes no pageable copy and no allocation of its own for a warmed
+    shape."""
 
     def __init__(self, forecaster: Forecaster, params, device: torch.device,
                  stream: Optional["torch.cuda.Stream"] = None):
@@ -278,6 +280,7 @@ class ForecastServer:
              for c, (fc, p) in models.items()},
             station_cluster=station_cluster, station_norm=station_norm)
         self._manifest_source: Optional[dict] = None  # set by from_manifest
+        self._warm_channels: list = []   # channel counts warmup() has run
         self._reload_lock = threading.Lock()   # serializes builds + swaps
         # two-phase swap (process-sharded serving): the built-and-warmed
         # next generation announced but not yet published
@@ -478,14 +481,16 @@ class ForecastServer:
         built and warmed ``generation`` (phase one of the two-phase swap)."""
         return os.path.join(root, f".ready.g{generation:06d}.p{index}")
 
-    def reload(self, warm_channels: Sequence[int] = (1,),
+    def reload(self, warm_channels: Optional[Sequence[int]] = None,
                sync_timeout_s: float = 30.0) -> bool:
         """Hot-swap to the manifest's latest complete generation without
         dropping a request. Returns True if a newer generation was
         published, False if the manifest is at (or behind) the active one.
 
         Changed clusters are restored and their buckets warmed against the
-        NEW snapshot off the serving path; unchanged clusters keep their
+        NEW snapshot off the serving path, at ``warm_channels`` (default:
+        every channel count :meth:`warmup` has run, else 1), so requests of
+        those shapes find their buffers built; unchanged clusters keep their
         engine. Then one attribute store publishes it: queued requests drain
         through the engines they were admitted under. On a process-sharded
         server the swap waits (up to ``sync_timeout_s``) for every peer's
@@ -503,6 +508,8 @@ class ForecastServer:
                 if self.metrics is not None:
                     self._m_reloads.labels("stale").inc()
                 return False
+            if warm_channels is None:
+                warm_channels = tuple(self._warm_channels) or (1,)
             staged = self._staged_gen
             if staged is not None and staged.generation == generation:
                 new_gen = staged   # already built and warmed on a prior tick
@@ -733,7 +740,10 @@ class ForecastServer:
     def warmup(self, channels: int = 1, buckets: Optional[Sequence[int]] = None,
                gen: Optional[_Generation] = None):
         """Run every bucket of every cluster engine once (first-launch costs,
-        kernel builds included, off the serving path)."""
+        kernel builds included, off the serving path). :meth:`reload` warms
+        a new generation's engines at the same channel counts."""
+        if channels not in self._warm_channels:
+            self._warm_channels.append(channels)
         gen = gen or self._gen
         for c, eng in gen.engines.items():
             L = eng.forecaster.cfg.look_back

@@ -350,6 +350,72 @@ def test_reload_reuses_unchanged_engines_and_counts_outcomes(roots):
         server.close()
 
 
+def test_reload_warms_the_channels_the_server_warmed(roots):
+    """A retrained cluster's new engine is warmed at every channel count the
+    server was warmed at, so a request of such a shape after the swap takes
+    the buffer built at the warm-up and allocates none."""
+    server = TS.ForecastServer.from_manifest(roots["port"], max_batch=4,
+                                             device="cpu")
+    try:
+        server.warmup(channels=3)
+        assert _port_ctl(roots, server=server).retrain([1])["generation"] == 1
+        engine = server.engines[1]
+        assert sorted(engine._free) == [(b, 3) for b in server.buckets]
+        built = {k: list(v) for k, v in engine._free.items()}
+        x = np.ones((3, TASK["look_back"]), np.float32)
+        assert server.predict(x, cluster=1).shape == (3, TASK["horizon"])
+        assert sorted(engine._free) == sorted(built)
+        assert all(len(engine._free[k]) == 1 and engine._free[k][0] is v[0]
+                   for k, v in built.items())
+    finally:
+        server.close()
+
+
+def test_retrains_of_two_controllers_on_one_device_never_overlap(
+        roots, monkeypatch):
+    """Two controllers of one root on one device retrain in two threads at
+    once: their ``run_fl`` calls never overlap (the psgf_mix kernel's ticket
+    counter is one per device), both generations are published and the
+    manifest ends with both clusters' new checkpoints."""
+    from repro_torch.core.fl import engine
+
+    run_fl, active, most = engine.run_fl, [0], [0]
+    guard = threading.Lock()
+
+    def tracked(*args, **kw):
+        with guard:
+            active[0] += 1
+            most[0] = max(most[0], active[0])
+        try:
+            time.sleep(0.2)
+            return run_fl(*args, **kw)
+        finally:
+            with guard:
+                active[0] -= 1
+
+    monkeypatch.setattr(engine, "run_fl", tracked)
+    out, errors = {}, []
+
+    def retrain(c):
+        try:
+            out[c] = _port_ctl(roots).retrain([c])["generation"]
+        except Exception as exc:          # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=retrain, args=(c,)) for c in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert most[0] == 1
+    assert sorted(out.values()) == [1, 2]
+    gen, manifest = TT.read_routing_manifest(roots["port"])
+    assert gen == 2
+    assert manifest["policies"][POLICY] == {
+        str(c): f"{POLICY}_c{c}_g{g}" for c, g in out.items()}
+
+
 def test_swap_under_concurrent_queue_traffic_drops_nothing(roots):
     """A controller attached to a serving server retrains and hot-swaps
     while a thread keeps submitting: every future resolves, each answer is

@@ -3,6 +3,7 @@ and short routes' tolerances are what they are. CPU only: the routing is a
 pure function, and both kernels' numerics are emulated in torch (the short
 one also held against the JAX kernel in interpret mode)."""
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -38,6 +39,27 @@ def test_route_counts_reset_and_cpu_calls_launch_nothing():
     q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     assert ops.LAUNCHES == 0 and sum(ops.ROUTE_LAUNCHES.values()) == 0
+
+
+def test_cpu_calls_are_not_counted_as_captured():
+    """Calls of either wrapper on CPU tensors are no kernel launch, and so
+    never a call recorded into a CUDA graph, on any thread."""
+    from repro_torch.kernels.psgf_mix import ops as mix_ops
+
+    seen = []
+
+    def calls():
+        q = torch.zeros(2, 15, 4, 8)
+        ops.flash_attention(q, q, q)
+        mix_ops.psgf_mix_batch(torch.zeros(6), torch.zeros(3, 6),
+                               torch.ones(3, 6))
+        seen.append((ops.captured_calls(), mix_ops.captured_calls()))
+
+    calls()
+    worker = threading.Thread(target=calls)
+    worker.start()
+    worker.join()
+    assert seen == [(0, 0), (0, 0)]
 
 
 def tensor_core_emulation(q, k, v, *, causal, window, kv_len, tile=64):

@@ -813,3 +813,105 @@ def test_while_retrain_beside_serving_equals_the_retrain_alone(cuda, tmp_path):
     for (path, g), (_, w) in zip(pt.flatten_with_paths(got),
                                  pt.flatten_with_paths(want)):
         assert torch.equal(g, w), path
+
+
+@pytest.mark.cuda
+def test_two_controllers_retraining_at_once_equal_the_retrains_in_turn(
+        cuda, tmp_path):
+    """A scan controller and a while controller of one root retrain two
+    clusters in two threads at once on the card. The device lock runs them
+    one after the other, so each row and each retrained model is bitwise
+    the one the same two retrains give run in turn, in the order their
+    generations show (a psgf_mix run beside another would corrupt the
+    shared ticket counter and so the comm counts)."""
+    import dataclasses
+    import shutil
+    import threading
+
+    from repro_torch.core.fl.flywheel import RetrainController
+    from repro_torch.core.forecaster import load_forecaster
+
+    root = str(tmp_path / "root")
+    spec, series, labels = _flywheel_root(root)
+    specs = {0: spec, 1: dataclasses.replace(spec, driver="while")}
+    alone = str(tmp_path / "alone")
+    shutil.copytree(root, alone)
+    rows, errors = {}, []
+
+    def retrain(c):
+        try:
+            ctl = RetrainController(specs[c], root, series=series,
+                                    labels=labels, device="cuda")
+            rows.update(ctl.retrain([c])["rows"])
+        except Exception as exc:          # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=retrain, args=(c,)) for c in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert sorted(r["generation"] for r in rows.values()) == [1, 2]
+    for c in sorted(rows, key=lambda c: rows[c]["generation"]):
+        want = RetrainController(specs[c], alone, series=series, labels=labels,
+                                 device="cuda").retrain([c])["rows"][c]
+        keys = ("rounds", "comm_params", "rmse", "generation")
+        assert [rows[c][k] for k in keys] == [want[k] for k in keys]
+        sub = f"psgf-s30-f20_c{c}_g{want['generation']}"
+        got = load_forecaster(f"{root}/{sub}", device="cpu")[1]
+        ref = load_forecaster(f"{alone}/{sub}", device="cpu")[1]
+        for (path, g), (_, w) in zip(pt.flatten_with_paths(got),
+                                     pt.flatten_with_paths(ref)):
+            assert torch.equal(g, w), (c, path)
+
+
+@pytest.mark.cuda
+def test_captured_calls_are_counted_per_thread(cuda):
+    """Calls captured into a CUDA graph on one thread (``thread_local``
+    mode) count in that thread's ``captured_calls``; calls that another
+    thread launches on its own stream meanwhile count in ``LAUNCHES``
+    only."""
+    import threading
+    import time
+
+    q, k, v = _inputs(3, 96, 15, 15, 16, 16, 8, cuda)
+    g, w, m = _mix_inputs(4, 3, 4096, "binary", cuda)
+    flash_attention(q, k, v)
+    mix_ops.psgf_mix_batch(g, w, m)          # the ticket counter, outside
+    torch.cuda.synchronize()
+    capturing, stop, seen = threading.Event(), threading.Event(), {}
+
+    def serve():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            capturing.wait()
+            while not stop.is_set():
+                flash_attention(q, k, v)
+                seen["served"] = seen.get("served", 0) + 1
+            torch.cuda.current_stream().synchronize()
+        seen["captured"] = (ops.captured_calls(), mix_ops.captured_calls())
+
+    t = threading.Thread(target=serve)
+    t.start()
+    before = (ops.LAUNCHES, ops.captured_calls(), mix_ops.captured_calls())
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            capturing.set()
+            for _ in range(3):
+                flash_attention(q, k, v)
+                mix_ops.psgf_mix_batch(g, w, m)
+            deadline = time.time() + 30       # let the other thread launch
+            while seen.get("served", 0) < 5 and time.time() < deadline:
+                time.sleep(0.001)
+        finally:
+            graph.capture_end()
+    stop.set()
+    t.join()
+    assert (ops.captured_calls() - before[1],
+            mix_ops.captured_calls() - before[2]) == (3, 3)
+    assert seen["captured"] == (0, 0) and seen["served"] > 0
+    assert ops.LAUNCHES - before[0] == 3 + seen["served"]
+    graph.replay()
+    torch.cuda.synchronize()
