@@ -79,18 +79,32 @@ Phases, each of which raises (exit code != 0) on failure:
      untouched clusters' engines and norm stats kept, the online RMSE
      recovered, the while retrain under load bitwise equal to the one
      alone, and the launches of both kernels on this path.
+  9. zoo training: ``launch.train.train_psgf("qwen2-1.5b", reduced=False,
+     pods=2, sync_interval=4, batch=8, seq=64, steps=12)`` (three syncs)
+     and ``train("qwen2-1.5b", reduced=False, batch=4, seq=2048, steps=4)``
+     at full width: losses finite and falling, every sync's wire bytes
+     equal to the bytes worked out from its realised gates and below full
+     sync's, every flash launch on the tensor-core route (two per layer per
+     pod-step: the forward and its recompute); warm ms per step, tokens/s,
+     ms per sync, peak memory and a ``torch.profiler`` split of one warm
+     PSGF step and sync; then reduced qwen2 (one PSGF round) and reduced
+     hymba (two steps through both kernels' backward) in float32 on the
+     card against the CPU, ssm_scan's gradient against autograd through
+     its plain version at hymba's training shape (8, 64, 3200, 16), and
+     flash at qwen2's two training shapes, each timed.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
-``{"training_drivers": ...}``, ``{"flywheel": ...}``, one
-``{"kernels": [...]}`` line (flash attention with its three routes,
-psgf_mix_batch, psgf_mix, ssm_scan), and last ``{"ok": true, "device":
-{...}}``. It imports ``torch``, ``numpy``, the
+``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
+...}``, one ``{"kernels": [...]}`` line (flash attention with its three
+routes, psgf_mix_batch, psgf_mix, ssm_scan), and last ``{"ok": true,
+"device": {...}}``. It imports ``torch``, ``numpy``, the
 standard library and ``repro_torch`` (from ``src/`` beside this file) only.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -908,34 +922,49 @@ def card_vs_cpu_round(E, R, task, series, labels, model, spec_grid, seed):
 ROUND_TOL = 1e-4
 
 
-def profile_round(E, state, data, key, cfg, fl, meta) -> dict:
-    """``torch.profiler`` over one round: device busy time, device time per
-    engine stage (each kernel assigned to the ``record_function`` range
-    whose span on the device holds its start: this counts the kernels the
-    port launches through ``ctypes`` too) and the device idle share."""
+def profile_spans(fn, prefixes) -> dict:
+    """``torch.profiler`` over one ``fn()``: device busy time, device time
+    per ``record_function`` range named with one of ``prefixes`` (each
+    kernel assigned to the range whose span on the device holds its start:
+    this counts the kernels the port launches through ``ctypes`` too) and
+    the device idle share. A kernel in no span (autograd launches the
+    backward's from its own thread) goes to ``"other"``; each stage also
+    has its window (first kernel start to last kernel end, over each run of
+    its kernels in device order) and the idle share within it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    policy = E.pol.from_config(fl)
-    E._round(state, data, key, cfg, fl, meta, policy)      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        E._round(state, data, key, cfg, fl, meta, policy)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
+    named = lambda n: n.startswith(tuple(prefixes))  # noqa: E731
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
-             if e.device_type == DeviceType.CUDA and e.name.startswith("fl.")]
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA and not e.name.startswith("fl.")]
-    stages = {name: {"device_ms": 0.0, "kernels": 0} for name, _, _ in spans}
-    stages["other"] = {"device_ms": 0.0, "kernels": 0}
+             if e.device_type == DeviceType.CUDA and named(e.name)]
+    kernels = sorted((e for e in events
+                      if e.device_type == DeviceType.CUDA and not named(e.name)),
+                     key=lambda e: e.time_range.start)
+    stages = {name: {"device_ms": 0.0, "kernels": 0, "window_ms": 0.0}
+              for name, _, _ in spans}
+    stages["other"] = {"device_ms": 0.0, "kernels": 0, "window_ms": 0.0}
+    runs = []                    # [name, first start, last end] in device order
     for e in kernels:
         name = next((n for n, a, b in spans if a <= e.time_range.start < b),
                     "other")
         stages[name]["device_ms"] += e.time_range.elapsed_us() / 1e3
         stages[name]["kernels"] += 1
+        if runs and runs[-1][0] == name:
+            runs[-1][2] = max(runs[-1][2], e.time_range.end)
+        else:
+            runs.append([name, e.time_range.start, e.time_range.end])
+    for name, start, end in runs:
+        stages[name]["window_ms"] += (end - start) / 1e3
+    for stage in stages.values():
+        w = stage["window_ms"]
+        stage["idle_share"] = max(0.0, 1 - stage["device_ms"] / w) if w else None
     for ev in prof.key_averages():
         if ev.key in stages and ev.device_type == DeviceType.CPU:
             stages[ev.key]["cpu_ms"] = ev.cpu_time_total / 1e3
@@ -944,6 +973,14 @@ def profile_round(E, state, data, key, cfg, fl, meta) -> dict:
             "device_idle_share": (max(0.0, 1 - busy_ms / wall_ms)
                                   if busy_ms else None),
             "device_ops": len(kernels), "stages": stages}
+
+
+def profile_round(E, state, data, key, cfg, fl, meta) -> dict:
+    """``profile_spans`` over one warm round, split by engine stage."""
+    policy = E.pol.from_config(fl)
+    E._round(state, data, key, cfg, fl, meta, policy)      # warm
+    return profile_spans(lambda: E._round(state, data, key, cfg, fl, meta, policy),
+                         ("fl.",))
 
 
 TRAIN_ROUNDS = 4
@@ -1603,15 +1640,32 @@ def check_flash_hymba(ops, ref) -> dict:
         raise RuntimeError(f"flash at hymba's shape took the routes {routes}")
     log(json.dumps({"kernel_cases": {"flash_attention_hymba": errs}}))
     # q, k, v are the bf16 inputs of the last case
-    mask = ref.attention_mask(S, S, causal=True, window=HYMBA_WINDOW,
-                              kv_len=None, device="cuda")
+    record = tensor_core_times(ops, ref, q, k, v, HYMBA_WINDOW)
+    return {"kernel_route": "tensor_core",
+            "source": "src/repro_torch/csrc/flash_attention_tc.cu",
+            "shape": [B, S, H, KV, hd], "dtype": "bfloat16", "causal": True,
+            "window": HYMBA_WINDOW, "max_abs_err": errs["bfloat16"],
+            "bound_ratio": errs["bfloat16_bound_ratio"],
+            "max_abs_err_float32": errs["float32"], **record}
+
+
+def tensor_core_times(ops, ref, q, k, v, window) -> dict:
+    """The tensor-core route's causal call on bf16 ``q, k, v`` timed beside
+    its plain version and ``scaled_dot_product_attention`` under the same
+    mask, with the bound: each input read once and the output written once
+    at the HBM rate, or the kept (query, key) pairs' QK^T and PV at the bf16
+    tensor-core rate and their exponentials on the SFUs."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    mask = ref.attention_mask(S, S, causal=True, window=window, kv_len=None,
+                              device="cuda")
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
               for t in (k, v))
     kernel_ms = timed_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                     window=HYMBA_WINDOW), calls=5)
+                                                     window=window), calls=5)
     plain_ms = timed_ms(lambda: ref.flash_attention_ref(
-        q, k, v, causal=True, window=HYMBA_WINDOW), calls=2, reps=3)
+        q, k, v, causal=True, window=window), calls=2, reps=3)
     library_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask), calls=5)
     pairs = int(mask.sum())
@@ -1621,15 +1675,9 @@ def check_flash_hymba(ops, ref) -> dict:
              "operations": max(flops / BF16_FLOP_PER_S,
                                B * H * pairs / SFU_OPS_PER_S) * 1e3}
     by = max(times, key=times.get)
-    return {"kernel_route": "tensor_core",
-            "source": "src/repro_torch/csrc/flash_attention_tc.cu",
-            "shape": [B, S, H, KV, hd], "dtype": "bfloat16", "causal": True,
-            "window": HYMBA_WINDOW, "max_abs_err": errs["bfloat16"],
-            "bound_ratio": errs["bfloat16_bound_ratio"],
-            "max_abs_err_float32": errs["float32"], "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": times[by], "bound_by": by,
-            "library_ms": library_ms,
-            "library_call": "scaled_dot_product_attention(attn_mask=window mask)",
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": times[by],
+            "bound_by": by, "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention(attn_mask=the same mask)",
             "bytes": nbytes, "flops": flops, "pairs": pairs}
 
 
@@ -2239,6 +2287,332 @@ def drive_flywheel(mix_ops, flash_ops) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: zoo training (qwen2-1.5b with PSGF-DP, hymba's ssm_scan gradient)
+# ---------------------------------------------------------------------------
+
+QWEN = "qwen2-1.5b"
+QWEN_PSGF = dict(pods=2, sync_interval=4, batch=8, seq=64, steps=12)
+QWEN_TRAIN = dict(batch=4, seq=2048, steps=4)
+# flash at qwen2's training shapes: (B, S, H, KV, hd), causal, bf16
+QWEN_ATTN = {"psgf_step": (8, 64, 12, 2, 128), "train_step": (4, 2048, 12, 2, 128)}
+HYMBA_TRAIN_SSM = (8, 64, 3200, 16)      # B, S, d_inner, state at batch 8 x 64
+# card against CPU in float32 (no TF32) after training steps: the losses of
+# the first step are within HYBRID_CPU_TOL's matmul-order ulps; Adam then
+# moves each weight by ~lr whatever its gradient's size, so a float-noise
+# gradient's sign can differ (a 2 lr step, 6e-4 at the 3e-4 peak), and the
+# next losses move by far less than that; 1e-4 abs/rel still fails a wrong
+# gradient, which moves a reduced model's loss by 1e-2 or more
+TRAIN_CPU_TOL = 1e-4
+# ssm_scan's backward against autograd through its plain version on the
+# card: the same float32 products summed in other orders
+SSM_GRAD_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def float32_configs(train_mod):
+    """The trainer's configs in float32 for the card-against-CPU checks."""
+    import dataclasses
+
+    real = train_mod.get_config
+    train_mod.get_config = lambda arch: dataclasses.replace(real(arch),
+                                                            dtype="float32")
+    try:
+        yield
+    finally:
+        train_mod.get_config = real
+
+
+def gate_bytes_from_keys(cfg, keys, pods, share, fwd, select) -> list:
+    """Each sync's wire bytes worked out from its key: the selection and
+    leaf gates drawn again from it (``masks``), then every leaf's float32
+    bytes times its share gate for each selected pod, up and down, and its
+    forward gate for each unselected pod."""
+    from repro_torch import random as R
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.core.fl import masks as M
+    from repro_torch.models import decoder
+    from repro_torch.models import spec as S
+
+    spec = decoder.model_spec(cfg)
+    sizes = [math.prod(s.shape) * 4 for s in pt.leaves(spec, is_leaf=S.is_spec)]
+    out = []
+    for key in keys:
+        k_sel, k_share, k_fwd = R.split(torch.tensor(key), 3)
+        c = int(M.select_clients(k_sel, pods, select).sum())
+        gs = pt.leaves(M.leaf_gates(k_share, spec, share), is_leaf=S.is_spec)
+        gf = pt.leaves(M.leaf_gates(k_fwd, spec, fwd), is_leaf=S.is_spec)
+        out.append(float(sum(n * (2 * c * float(a) + (pods - c) * float(b))
+                             for n, a, b in zip(sizes, gs, gf))))
+    return out
+
+
+def check_losses(name, losses):
+    if not (losses and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise RuntimeError(f"{name}: losses {losses} not finite and falling")
+
+
+def free_device_memory():
+    """Collect reference cycles before a full-width run: torch imports
+    ``torch._dynamo`` at the first ``torch.utils.checkpoint`` call of a
+    process, and that import keeps the calling frames, and so the first
+    trainer's 40+ GB of state, in a cycle until the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run(name, fn, flash_ops, ssm_ops, **kw) -> dict:
+    """One trainer call on the card with every kernel count set to 0 just
+    before and read just after; its wall, peak memory and history."""
+    free_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = {}
+    ssm_ops.LAUNCHES = 0
+    flash_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = fn(device="cuda", history=hist, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    rec = {"losses": losses, "wall_s": wall_s,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "flash_launches": flash_ops.LAUNCHES,
+           "flash_route_launches": dict(flash_ops.ROUTE_LAUNCHES),
+           "ssm_scan_launches": ssm_ops.LAUNCHES, "history": hist}
+    check_losses(name, losses)
+    return rec
+
+
+def per_step(rec, steps, pods=1) -> dict:
+    """Warm host ms per step (the median past the first), tokens/s, and
+    flash launches per pod per step by route."""
+    warm = statistics.median(rec["history"]["step_s"][1:]) * 1e3
+    return {"warm_ms_per_step": warm,
+            "flash_launches_per_pod_step": {
+                r: n / (steps * pods) for r, n in rec["flash_route_launches"].items()}}
+
+
+def profile_psgf_step(api, optimizer, cfg, P, TR) -> dict:
+    """One warm local step of 2 pods and one sync under the profiler, split
+    into forward, backward, optimizer and sync. The backward's kernels are
+    launched from autograd's own thread, outside the ``train.backward``
+    range: ``profile_spans`` files them under ``other``, renamed
+    ``backward`` here (nothing else is launched in this window)."""
+    from repro_torch import random as R
+
+    pods, batch, seq = QWEN_PSGF["pods"], QWEN_PSGF["batch"], QWEN_PSGF["seq"]
+    free_device_memory()
+    glob = api.init_params(R.PRNGKey(0, device="cuda"))
+    local = P.stack_for_pods(glob, pods)
+    opt = P.init_pod_opt_state(optimizer, local)
+    step = P.make_local_train_step(api.loss_fn, optimizer)
+    per_pod = [TR.make_batch(cfg, p, batch, seq, "cuda") for p in range(pods)]
+    stacked = {k: torch.stack([b[k] for b in per_pod]) for k in per_pod[0]}
+    dp = P.PSGFDPConfig(sync_interval=QWEN_PSGF["sync_interval"])
+    key = R.PRNGKey(1, device="cuda")
+    step(local, opt, stacked)                                   # warm
+    P.psgf_sync(local, glob, key, dp, pods)
+
+    def one():
+        step(local, opt, stacked)
+        P.psgf_sync(local, glob, key, dp, pods)
+
+    prof = profile_spans(one, ("train.", "psgf."))
+    prof["stages"]["backward"] = prof["stages"].pop("other")
+    del glob, local, opt
+    return prof
+
+
+def ssm_scan_training_grads(ssm_ops, ssm_ref) -> dict:
+    """ssm_scan under autograd at hymba's full-width training shape (batch 8
+    x 64 tokens, d_inner 3200, state 16), float32 and bf16: the kernel's
+    forward with the plain backward against autograd through the plain
+    version, and the times of each part."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = ssm_inputs(gen, *HYMBA_TRAIN_SSM, dtype)
+        dy = torch.randn(args[0].shape, generator=gen).to("cuda", dtype)
+        a = [t.clone().requires_grad_() for t in args]
+        b = [t.clone().requires_grad_() for t in args]
+        got = torch.autograd.grad(ssm_ops.ssm_scan(*a), a, dy)
+        want = torch.autograd.grad(ssm_ref.ssm_scan_ref(*b), b, dy)
+        errs = {}
+        for name, g, w in zip(("x", "dt", "Bm", "Cm", "A"), got, want):
+            scale = max(1.0, float(w.abs().max()))
+            err = float((g.float() - w.float()).abs().max())
+            tol = SSM_GRAD_TOL if dtype == torch.float32 else SSM_BF16_RTOL
+            if not err <= tol * scale:
+                raise RuntimeError(f"ssm_scan grad of {name} ({dtype}): max |err| "
+                                   f"{err} against plain autograd (tol {tol} x {scale})")
+            errs[name] = err
+        key = str(dtype).replace("torch.", "")
+        y_plain = ssm_ref.ssm_scan_ref(*b)
+        bound, by, _, _ = ssm_bound_ms(args[0], args[2], args[4])
+        out[key] = {
+            "max_abs_err": errs, "forward_bound_ms": bound, "forward_bound_by": by,
+            "kernel_forward_ms": timed_ms(lambda: ssm_ops.ssm_scan(*args), calls=5),
+            "backward_ms": timed_ms(lambda: ssm_ref.ssm_scan_ref_backward(*args, dy),
+                                    calls=2, reps=3),
+            "plain_autograd_backward_ms": statistics.median(
+                event_ms(lambda: torch.autograd.grad(y_plain, b, dy, retain_graph=True))
+                for _ in range(3)),
+            "plain_forward_ms": timed_ms(lambda: ssm_ref.ssm_scan_ref(*args),
+                                         calls=2, reps=3),
+        }
+    return {"shape": list(HYMBA_TRAIN_SSM), **out}
+
+
+def check_flash_qwen2(ops, ref) -> dict:
+    """Flash attention at qwen2's two training shapes (bf16, causal, GQA
+    6:1, hd 128) against its plain version on the tensor-core route, timed
+    beside the plain version and ``scaled_dot_product_attention``."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    out = {}
+    for name, (B, S, H, KV, hd) in QWEN_ATTN.items():
+        q, k, v = attention_inputs(gen, B, S, S, H, KV, hd, torch.bfloat16)
+        if route_of(ops, q, k) != "tensor_core":
+            raise RuntimeError(f"flash at qwen2's {name} shape is not routed to "
+                               "the tensor cores")
+        _, err, ratio = flash_case(ops, ref, f"flash at qwen2's {name} shape",
+                                   q, k, v, True, None, None, BF16_TOL)
+        out[name] = {"shape": [B, S, H, KV, hd], "max_abs_err": err,
+                     "bound_ratio": ratio,
+                     **tensor_core_times(ops, ref, q, k, v, None)}
+        del q, k, v
+    return out
+
+
+def reduced_card_vs_cpu(TR, flash_ops, ssm_ops) -> dict:
+    """Reduced qwen2 (one PSGF round: 2 pods, 2 steps) and reduced hymba (2
+    training steps through both kernels' backward) in float32, on the card
+    and on the CPU from the same key: losses within TRAIN_CPU_TOL; the
+    sync's keys, selection, leaf gates and wire bytes bitwise."""
+    from repro_torch import random as R
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.configs import get_config
+    from repro_torch.core.fl import masks as M
+    from repro_torch.models import decoder
+    from repro_torch.models import spec as S
+
+    kw = dict(steps=2, batch=2, seq=64, log_every=100)
+    runs = {}
+    with float32_configs(TR):
+        for dev in ("cuda", "cpu"):
+            hist, hyst = {}, {}
+            ssm_ops.LAUNCHES = 0
+            flash_ops.reset_launch_counts()
+            runs[dev] = {
+                "qwen2": TR.train_psgf(QWEN, pods=2, sync_interval=2, device=dev,
+                                       history=hist, **kw),
+                "qwen2_history": hist,
+                "hymba": TR.train("hymba-1.5b", device=dev, history=hyst, **kw),
+                "launches": {"flash_attention": flash_ops.LAUNCHES,
+                             "ssm_scan": ssm_ops.LAUNCHES}}
+    card, cpu = runs["cuda"], runs["cpu"]
+    errs = {}
+    for name in ("qwen2", "hymba"):
+        check_losses(f"reduced {name} on the card", card[name])
+        diff = [abs(a - b) for a, b in zip(card[name], cpu[name])]
+        if not all(d <= TRAIN_CPU_TOL * (1 + abs(b)) for d, b in zip(diff, cpu[name])):
+            raise RuntimeError(f"reduced {name} losses card {card[name]} vs CPU "
+                               f"{cpu[name]}")
+        errs[name] = max(diff)
+    hc, hp = card["qwen2_history"], cpu["qwen2_history"]
+    if hc["sync_keys"] != hp["sync_keys"] or hc["wire_bytes"] != hp["wire_bytes"]:
+        raise RuntimeError(f"reduced qwen2 sync card {hc['wire_bytes']} vs CPU "
+                           f"{hp['wire_bytes']}")
+    spec = decoder.model_spec(get_config(QWEN).reduced())
+    for key in hc["sync_keys"]:
+        ks = {dev: R.split(torch.tensor(key, device=dev), 3) for dev in ("cuda", "cpu")}
+        sel = {dev: M.select_clients(k[0], 2, 0.5).cpu() for dev, k in ks.items()}
+        gates = {dev: [float(g) for g in pt.leaves(M.leaf_gates(k[1], spec, 0.3),
+                                                   is_leaf=S.is_spec)]
+                 for dev, k in ks.items()}
+        if not (torch.equal(sel["cuda"], sel["cpu"]) and gates["cuda"] == gates["cpu"]):
+            raise RuntimeError(f"sync key {key}: selection or gates differ")
+    if card["launches"]["ssm_scan"] == 0 or card["launches"]["flash_attention"] == 0:
+        raise RuntimeError(f"reduced training on the card launched {card['launches']}")
+    return {"losses_max_abs_err": errs, "sync_bitwise": True,
+            "wire_bytes": hc["wire_bytes"], "launches_card": card["launches"],
+            "qwen2_losses": card["qwen2"], "hymba_losses": card["hymba"]}
+
+
+def drive_zoo_training(flash_ops, flash_ref, ssm_ops, ssm_ref) -> dict:
+    """Phase 9: ``launch.train.train_psgf`` and ``train`` for qwen2-1.5b at
+    full width on the card, a profiled PSGF step, reduced qwen2 and hymba
+    against the CPU, ssm_scan's gradient and flash at qwen2's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import psgf_dp as P
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.api import ModelApi
+    from repro_torch.models import decoder
+    from repro_torch.models.spec import spec_num_params
+    from repro_torch.optim import Adam, one_cycle
+
+    cfg = get_config(QWEN)
+    n_params = spec_num_params(decoder.model_spec(cfg))
+    layers = cfg.num_layers * (2 if cfg.remat else 1)  # forward + recompute
+
+    psgf = train_run("train_psgf", lambda **k: TR.train_psgf(QWEN, **k),
+                     flash_ops, ssm_ops, reduced=False, log_every=4, **QWEN_PSGF)
+    hist = psgf["history"]
+    pods, steps = QWEN_PSGF["pods"], QWEN_PSGF["steps"]
+    want_bytes = gate_bytes_from_keys(cfg, hist["sync_keys"], pods, 0.3, 0.2, 0.5)
+    full = 2.0 * pods * n_params * 4
+    if (hist["wire_bytes"] != want_bytes or len(want_bytes) != steps // 4
+            or not 0 < hist["psgf_bytes"] < hist["full_bytes"]
+            or hist["full_bytes"] != full * len(want_bytes)):
+        raise RuntimeError(f"PSGF bytes {hist['wire_bytes']} (from the gates "
+                           f"{want_bytes}), total {hist['psgf_bytes']} vs full "
+                           f"{hist['full_bytes']}")
+    routes = psgf["flash_route_launches"]
+    if routes != {"scalar": 0, "short": 0, "tensor_core": steps * pods * layers}:
+        raise RuntimeError(f"train_psgf flash launches {routes}")
+    psgf.update(per_step(psgf, steps, pods))
+    tokens = pods * QWEN_PSGF["batch"] * QWEN_PSGF["seq"]
+    psgf["tokens_per_s"] = tokens / (psgf["warm_ms_per_step"] / 1e3)
+    psgf["ms_per_sync"] = [s * 1e3 for s in hist["sync_s"]]
+    psgf["psgf_over_full_bytes"] = hist["psgf_bytes"] / hist["full_bytes"]
+    log(json.dumps({"zoo_train_psgf": {k: v for k, v in psgf.items()
+                                       if k != "history"}}))
+
+    api = ModelApi(cfg, "cuda")
+    prof = profile_psgf_step(api, Adam(lr=one_cycle(3e-4, steps)), cfg, P, TR)
+    log(json.dumps({"zoo_profile_psgf_step": prof}))
+
+    plain = train_run("train", lambda **k: TR.train(QWEN, **k), flash_ops,
+                      ssm_ops, reduced=False, log_every=1, **QWEN_TRAIN)
+    routes = plain["flash_route_launches"]
+    if routes != {"scalar": 0, "short": 0,
+                  "tensor_core": QWEN_TRAIN["steps"] * layers}:
+        raise RuntimeError(f"train flash launches {routes}")
+    plain.update(per_step(plain, QWEN_TRAIN["steps"]))
+    plain["tokens_per_s"] = (QWEN_TRAIN["batch"] * QWEN_TRAIN["seq"]
+                             / (plain["warm_ms_per_step"] / 1e3))
+    log(json.dumps({"zoo_train": {k: v for k, v in plain.items()
+                                  if k != "history"}}))
+
+    reduced = reduced_card_vs_cpu(TR, flash_ops, ssm_ops)
+    ssm = ssm_scan_training_grads(ssm_ops, ssm_ref)
+    flash = check_flash_qwen2(flash_ops, flash_ref)
+    return {
+        "model": QWEN, "params": n_params, "activations": cfg.dtype,
+        "weights": "float32 from PRNGKey(0)", "remat": cfg.remat,
+        "train_psgf": {**{k: v for k, v in psgf.items() if k != "history"},
+                       "config": QWEN_PSGF, "wire_bytes": hist["wire_bytes"]},
+        "profile_psgf_step": prof,
+        "train": {**{k: v for k, v in plain.items() if k != "history"},
+                  "config": QWEN_TRAIN},
+        "reduced_card_vs_cpu": reduced,
+        "ssm_scan_training_grads": ssm,
+        "flash_qwen2": flash,
+        "launches": {"flash_attention": psgf["flash_launches"] + plain["flash_launches"],
+                     "ssm_scan": reduced["launches_card"]["ssm_scan"]},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2322,6 +2696,13 @@ def main() -> int:
     record["launches_flywheel"] = flywheel["launches"]["flash_attention"]
     mix_record["launches_flywheel"] = flywheel["launches"]["psgf_mix_batch"]
 
+    # 9. zoo training: qwen2-1.5b with PSGF-DP, hymba's ssm_scan gradient
+    zoo = drive_zoo_training(ops, ref, ssm_ops, ssm_ref)
+    log(json.dumps({"zoo_training": zoo}))
+    record["launches_zoo_training"] = zoo["launches"]["flash_attention"]
+    ssm_record["launches_zoo_training"] = zoo["launches"]["ssm_scan"]
+    ssm_record["training_grads"] = zoo["ssm_scan_training_grads"]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -2347,10 +2728,12 @@ def main() -> int:
                    "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
                    "library_ms": record["library_ms"]},
         "tensor_core": {"source": tc["source"], "launches": tc["launches"],
+                        "launches_zoo_training": record["launches_zoo_training"],
                         "ms": tc["ms"], "max_abs_err": tc["max_abs_err"],
                         "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
                         "bound_by": tc["bound_by"],
-                        "library_ms": tc["library_ms"]},
+                        "library_ms": tc["library_ms"],
+                        "qwen2_training": zoo["flash_qwen2"]},
     }
     k1_record = mix_record.pop("k1_psgf_mix")
     log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))

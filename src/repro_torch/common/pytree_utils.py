@@ -8,6 +8,8 @@ does too; the ``a/b/c`` path strings are the checkpoint keys both packages
 write. :func:`tree_flatten_to_vector` is the FL engine's flat ``(D,)``
 parameter vector, concatenated in that same leaf order: the engine's masks
 index it element by element, so both packages must lay it out alike.
+:func:`value_and_grad` is ``jax.value_and_grad(has_aux=True)`` for such a
+tree, as the trainers use it.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import math
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.profiler import record_function
 
 
 def _is_node(x) -> bool:
@@ -27,18 +30,21 @@ def flatten_with_paths(tree, is_leaf: Callable[[Any], bool] | None = None
     """``[(path, leaf)]`` in JAX's leaf order: dict keys sorted, sequences
     by index. ``path`` joins the keys with ``/`` (``"blocks/b2/attn/wq"``)."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        if (is_leaf is not None and is_leaf(node)) or not _is_node(node):
-            out.append(("/".join(prefix), node))
-            return
-        items = (sorted(node.items()) if isinstance(node, dict)
-                 else enumerate(node))
-        for k, child in items:
-            walk(child, prefix + (str(k),))
-
-    walk(tree, ())
+    _flatten_into(out, tree, (), is_leaf)
     return out
+
+
+def _flatten_into(out, node, prefix, is_leaf):
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``out`` (every leaf of the tree,
+    # gigabytes of device memory for a model's gradients) alive until the
+    # garbage collector runs
+    if (is_leaf is not None and is_leaf(node)) or not _is_node(node):
+        out.append(("/".join(prefix), node))
+        return
+    items = sorted(node.items()) if isinstance(node, dict) else enumerate(node)
+    for k, child in items:
+        _flatten_into(out, child, prefix + (str(k),), is_leaf)
 
 
 def leaves(tree, is_leaf: Callable[[Any], bool] | None = None) -> list:
@@ -75,22 +81,26 @@ def tree_map_indexed(fn: Callable, tree):
     """``fn(i, leaf)`` with ``i`` the leaf's position in JAX's leaf order
     (sorted dict keys), as ``enumerate(jax.tree_util.tree_leaves(tree))``
     numbers the leaves; the structure of ``tree`` is kept."""
-    counter = itertools.count()
+    return _map_indexed(fn, tree, itertools.count())
 
-    def walk(node):
-        if not _is_node(node):
-            return fn(next(counter), node)
-        if isinstance(node, dict):
-            done = {k: walk(node[k]) for k in sorted(node)}
-            return {k: done[k] for k in node}
-        return type(node)(walk(v) for v in node)
 
-    return walk(tree)
+def _map_indexed(fn, node, counter):
+    if not _is_node(node):
+        return fn(next(counter), node)
+    if isinstance(node, dict):
+        done = {k: _map_indexed(fn, node[k], counter) for k in sorted(node)}
+        return {k: done[k] for k in node}
+    return type(node)(_map_indexed(fn, v, counter) for v in node)
 
 
 def count_params(tree) -> int:
     """Total number of scalar parameters in a tree."""
     return sum(math.prod(x.shape) for x in leaves(tree))
+
+
+def tree_size_bytes(tree) -> int:
+    """Total bytes of a tree of tensors (each leaf's dtype)."""
+    return sum(math.prod(x.shape) * x.element_size() for x in leaves(tree))
 
 
 class TreeVectorMeta:
@@ -143,3 +153,19 @@ def tree_lerp(global_tree, local_tree, gate_tree):
     eqs. 4/6)."""
     return tree_map(lambda g, l, m: m * g + (1.0 - m) * l,
                     global_tree, local_tree, gate_tree)
+
+
+def value_and_grad(fn, params, *args):
+    """``jax.value_and_grad(fn, has_aux=True)`` for a dict tree of tensors:
+    ``fn(params, *args) -> (loss, aux)`` is run on detached leaves that
+    require grad, and ``((loss, aux), grads)`` come back detached, ``grads``
+    in the tree's shape."""
+    pairs = flatten_with_paths(params)
+    diff = [(path, leaf.detach().requires_grad_()) for path, leaf in pairs]
+    with record_function("train.forward"):
+        loss, aux = fn(unflatten(diff), *args)
+    with record_function("train.backward"):
+        grads = torch.autograd.grad(loss, [leaf for _, leaf in diff])
+    aux = tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor) else a, aux)
+    return (loss.detach(), aux), unflatten([(path, g) for (path, _), g
+                                            in zip(diff, grads)])

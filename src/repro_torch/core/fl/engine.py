@@ -47,9 +47,12 @@ Drivers (the same rounds, in the same order, from the same key):
     only each round's cohort on the device
     (:mod:`repro_torch.core.fl.client_store`), with the loop driver's stop.
 
+:func:`sync_round` is the train-free gate/aggregate/distribute cycle over
+client-stacked trees that ``core.psgf_dp`` syncs its pods with, under the
+leaf-granularity ``LeafPSGF`` policy.
+
 Not ported yet: ``shard_clients`` and ``client_mesh`` (ROADMAP A13,
-multi-GPU), and ``sync_round`` with leaf-granularity policies (A14,
-``psgf_dp``).
+multi-GPU).
 """
 from __future__ import annotations
 
@@ -285,6 +288,28 @@ def mix_down_count(client_tree, global_tree, gates, *, use_pallas: bool = False)
                 count.to(ACCOUNTING_DTYPE))
     return (mix_down(client_tree, global_tree, gates),
             gate_count(gates, client_tree))
+
+
+def sync_round(local, global_, key, policy, select_ratio: float):
+    """Train-free gate/aggregate/distribute cycle over client-stacked trees
+    (``psgf_dp.psgf_sync``'s core): select clients, aggregate the uplink
+    into the global model, mix the fresh global back into every client.
+    Returns ``(new_local, new_global, stats)`` with exact wire-byte
+    accounting (``stats``: ``wire_bytes``, ``num_selected``)."""
+    num_clients = pt.leaves(local)[0].shape[0]
+    k_sel, k_share, k_fwd = R.split(key, 3)
+    selected = M.select_clients(k_sel, num_clients, select_ratio)
+
+    down = policy.downlink_gates((k_share, k_fwd), global_, local, selected)
+    # k_share (not a fresh key) ties the uplink S-masks to the downlink ones:
+    # the same leaf subset is aggregated and written back within one sync
+    up = policy.uplink_gates(k_share, global_, local, selected)
+
+    new_global = aggregate(local, global_, up, selected)
+    new_local = mix_down(local, new_global, down)
+    stats = {"wire_bytes": gate_bytes(down, local) + gate_bytes(up, local),
+             "num_selected": selected.sum()}
+    return new_local, new_global, stats
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Gating policies for the FL engine (counterpart of
-``repro.core.fl.policies``, element granularity).
+``repro.core.fl.policies``).
 
 A :class:`Policy` answers the three questions of a partial-sharing round
 (paper eqs. 3-6):
@@ -9,10 +9,10 @@ A :class:`Policy` answers the three questions of a partial-sharing round
   * ``uplink_gates``   — which parameters each selected client SENDS back;
   * ``train_mask``     — which clients run LocalUpdate.
 
-State is the flat ``(K, D)`` client matrix and gates are dense ``(K, D)``
-float32 0/1 tensors. ``K`` is whatever rides the client axis (the fleet or
-a sampled cohort). The leaf-granularity ``LeafPSGF`` is not ported yet (it
-lands with ``psgf_dp``).
+At element granularity, state is the flat ``(K, D)`` client matrix and
+gates are dense ``(K, D)`` float32 0/1 tensors. ``K`` is whatever rides the
+client axis (the fleet or a sampled cohort). :class:`LeafPSGF` gates whole
+leaves of a client-stacked tree instead (``core.psgf_dp``'s pods).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from typing import Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.common import pytree_utils as pt
 from repro_torch.core.fl import masks as M
 
 
@@ -122,6 +123,52 @@ class PSGFTopK:
         diff_up = torch.abs(global_tree[None, :] - client_tree)
         m_up = M.topk_mask(diff_up, max(1, int(D * self.share_ratio)))
         return (_rows(selected, K, D) & m_up).to(torch.float32)
+
+    def train_mask(self, selected):
+        return torch.ones_like(selected)
+
+
+# ---------------------------------------------------------------------------
+# leaf granularity (pytree client state — the datacenter / cross-pod mode)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPSGF:
+    """PSGF at leaf granularity: the sync of ``repro_torch.core.psgf_dp``.
+
+    Each pod is a "client"; a random subset of parameter LEAVES (share_ratio
+    of leaves) is shared by selected pods and a smaller forwarded subset
+    (forward_ratio) is pushed to unselected pods. ``leaf_gates`` is
+    deterministic in its key, so passing the downlink share key to
+    ``uplink_gates`` ties the up and down S-masks together. Each gate leaf
+    is a per-client scalar of shape ``(K, 1, ..., 1)``."""
+
+    granularity = "leaf"
+    share_ratio: float = 0.3
+    forward_ratio: float = 0.2
+
+    @staticmethod
+    def _per_client(gate_scalar, client_leaf, selected, fallback_scalar=None):
+        K = selected.shape[0]
+        sel = selected.reshape((K,) + (1,) * (client_leaf.dim() - 1))
+        sel_f = sel.to(torch.float32)
+        if fallback_scalar is None:
+            return sel_f * gate_scalar
+        return sel_f * gate_scalar + (1.0 - sel_f) * fallback_scalar
+
+    def downlink_gates(self, keys, global_tree, client_tree, selected):
+        k_share, k_fwd = keys
+        g_share = M.leaf_gates(k_share, global_tree, self.share_ratio)
+        g_fwd = M.leaf_gates(k_fwd, global_tree, self.forward_ratio)
+        return pt.tree_map(
+            lambda ll, gs, gf: self._per_client(gs, ll, selected, gf),
+            client_tree, g_share, g_fwd)
+
+    def uplink_gates(self, key, global_tree, client_tree, selected):
+        g_share = M.leaf_gates(key, global_tree, self.share_ratio)
+        return pt.tree_map(lambda ll, gs: self._per_client(gs, ll, selected),
+                           client_tree, g_share)
 
     def train_mask(self, selected):
         return torch.ones_like(selected)

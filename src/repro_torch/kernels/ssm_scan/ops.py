@@ -8,8 +8,7 @@ SSM heads.
   * CUDA tensors launch the hand-written kernel
     (``repro_torch/csrc/ssm_scan.cu``, built at first use): x, dt, Bm, Cm
     float32 or bfloat16 (one type), A float32, contiguous, one device, N in
-    :data:`STATE_DIMS`, no input that requires grad. Anything else RAISES —
-    there is no fallback;
+    :data:`STATE_DIMS`. Anything else RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`).
 
 Unlike the reference's wrapper there is no ``chunk`` or ``d_block``: the
@@ -19,9 +18,15 @@ two only tiled the TPU's work.
 
 Replaces ``src/repro/kernels/ssm_scan/kernel.py::ssm_scan_kernel``
 (``pallas_call`` at kernel.py:73). Bound: the B*S*D*N exponentials on the
-special-function units (see the source's header). No gradient: the
-reference trains hymba through ``lax.scan`` and its kernel has no VJP
-(training is ROADMAP Queue A item 14).
+special-function units (see the source's header).
+
+Differentiation follows flash attention's design (``flash_attention/ops.py``):
+a ``torch.autograd.Function`` whose forward is the kernel and whose backward
+is the plain version's gradient, recomputed from the saved inputs
+(``ref.ssm_scan_ref_backward``, a reverse scan in torch ops). The reference
+has no ssm VJP kernel and trains hymba through ``lax.scan``
+(``models/layers.py:723-737`` there), so there is no backward kernel here
+either.
 
 ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
 that its main path went through the kernel.
@@ -34,7 +39,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref, ssm_scan_ref_backward
 
 STATE_DIMS = (4, 8, 16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,10 +85,6 @@ def _launch(x, dt, Bm, Cm, A, return_state):
         raise TypeError(f"ssm_scan kernel takes a float32 A; got {A.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssm_scan kernel takes contiguous tensors")
-    if any(t.requires_grad for t in tensors):
-        raise RuntimeError("ssm_scan kernel has no gradient (the reference's "
-                           "TPU kernel has no VJP; training hymba is ROADMAP "
-                           "Queue A item 14)")
     batch, S, D = x.shape
     N = A.shape[1]
     if N not in STATE_DIMS:
@@ -109,6 +110,26 @@ def _launch(x, dt, Bm, Cm, A, return_state):
     return (y, h) if return_state else y
 
 
+class _SsmScan(torch.autograd.Function):
+    """The kernel under autograd: forward launches the kernel; backward is
+    :func:`ssm_scan_ref_backward` on the saved inputs."""
+
+    @staticmethod
+    def forward(x, dt, Bm, Cm, A, return_state):
+        return _launch(x, dt, Bm, Cm, A, return_state)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:5])
+        ctx.return_state = inputs[5]
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        grads = ssm_scan_ref_backward(*ctx.saved_tensors, dy,
+                                      dh if ctx.return_state else None)
+        return (*grads, None)
+
+
 def ssm_scan(x, dt, Bm, Cm, A, *, return_state=False):
     """x, dt: (B, S, D); Bm, Cm: (B, S, N); A: (D, N) -> y (B, S, D) in
     x.dtype; with ``return_state`` also the final state h (B, D, N) float32
@@ -122,4 +143,4 @@ def ssm_scan(x, dt, Bm, Cm, A, *, return_state=False):
         return ssm_scan_ref(x, dt, Bm, Cm, A, return_state=return_state)
     if device.type != "cuda":
         raise ValueError(f"ssm_scan runs on CUDA or CPU tensors, not {device}")
-    return _launch(x, dt, Bm, Cm, A, return_state)
+    return _SsmScan.apply(x, dt, Bm, Cm, A, return_state)

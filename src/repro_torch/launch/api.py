@@ -1,10 +1,11 @@
 """ModelApi: one facade over the model zoo's implementations (counterpart of
 ``repro.launch.api``), for the decoder families the port has
-(``repro_torch.models.decoder``: ``hybrid`` so far), on one ``device``.
+(``repro_torch.models.decoder``: ``dense`` and ``hybrid``), on one
+``device``.
 
 The reference's ``input_specs`` / ``shard_structs`` (abstract, sharded
-inputs for its dry-run) and the audio ``encdec`` branch wait for the
-dry-run and ``encdec`` slices (ROADMAP Queue A item 14).
+inputs for its dry-run) wait for the launch modules (ROADMAP Queue A item
+9 (c)), the audio ``encdec`` branch for its family (item 9 (a)).
 """
 from __future__ import annotations
 
@@ -27,13 +28,16 @@ class ModelApi:
         if self.cfg.family == "audio":
             raise NotImplementedError(
                 "the encdec (audio) family is not ported yet (ROADMAP Queue A "
-                "item 14)")
+                "item 9 (a))")
 
     # --- params ------------------------------------------------------------
     def init_params(self, key):
         return decoder.init_params(self.cfg, key, self.device)
 
     # --- steps ---------------------------------------------------------------
+    def loss_fn(self, params, batch):
+        return decoder.loss_fn(self.cfg, params, batch)
+
     def prefill(self, params, batch, cache_len=None):
         return decoder.prefill(self.cfg, params, batch["tokens"],
                                batch.get("img_embeds"), cache_len=cache_len)

@@ -49,7 +49,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         cfg = cfg.reduced()
     if cfg.family == "vlm":
         raise NotImplementedError("the vlm family is not ported yet "
-                                  "(ROADMAP Queue A item 14)")
+                                  "(ROADMAP Queue A item 9 (a))")
     api = ModelApi(cfg, dev)
 
     t0 = time.perf_counter()

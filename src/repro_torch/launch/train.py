@@ -1,0 +1,210 @@
+"""Training launcher (counterpart of ``repro.launch.train``) on one device.
+
+Two modes, as the reference's:
+  * ``train``: one model, Adam with a 1cycle schedule, synthetic Zipf tokens;
+  * ``train_psgf`` (``--sync psgf``): ``--pods`` replicas train on different
+    data and exchange partial parameter subsets every ``--sync-interval``
+    steps through the FL engine's gate/aggregate/distribute core
+    (``core/psgf_dp.py``). On one card the pods are a leading axis.
+
+Weights come from ``PRNGKey(0)`` (float32; activations in the config's
+type), batches from ``synthetic_tokens`` with the reference's seeds: step s,
+or pod p at step s from ``s * pods + p``. Every entry point takes ``device``
+(default ``"cuda"``, which raises without a GPU).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --device cpu --steps 8 --batch 2 --seq 32               # reduced config
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --full --sync psgf --pods 2 --sync-interval 4 --device cuda
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import random as R
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.common import pytree_utils as pt
+from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.configs import get_config
+from repro_torch.core import psgf_dp as P
+from repro_torch.data.synthetic import synthetic_tokens
+from repro_torch.launch.api import ModelApi
+from repro_torch.launch.steps import build_train_step
+from repro_torch.optim import Adam, one_cycle
+
+
+def _config(arch: str, reduced: bool):
+    cfg = get_config(arch)
+    return cfg.reduced() if reduced else cfg
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_batch(cfg, step: int, batch: int, seq: int, device=DEFAULT_DEVICE):
+    """``{"tokens", "labels"}`` (batch, seq) int32: ``synthetic_tokens(step,
+    batch, seq + 1, vocab)`` shifted by one."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"the {cfg.family} family's inputs are not ported yet (ROADMAP "
+            "Queue A item 9 (a))")
+    toks = torch.from_numpy(synthetic_tokens(step, batch, seq + 1,
+                                             cfg.vocab_size)).to(resolve_device(device))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 64,
+          reduced: bool = True, lr: float = 3e-4, ckpt_dir: str | None = None,
+          log_every: int = 10, device=DEFAULT_DEVICE, history: dict | None = None):
+    """Returns the per-step losses. A given ``history`` dict receives
+    ``step_s`` (host seconds per step, each ending in a device sync)."""
+    dev = resolve_device(device)
+    cfg = _config(arch, reduced)
+    optimizer = Adam(lr=one_cycle(lr, steps))
+    fn, api, optimizer = build_train_step(cfg, optimizer, dev)
+    params = api.init_params(R.PRNGKey(0))
+    opt_state = optimizer.init(params)
+    history = {} if history is None else history
+    history["step_s"] = []
+
+    losses = []
+    _sync(dev)
+    t0 = time.time()
+    for step in range(steps):
+        ts = time.perf_counter()
+        b = make_batch(cfg, step, batch, seq, dev)
+        params, opt_state, metrics = fn(params, opt_state, b)
+        losses.append(float(metrics["loss"]))
+        history["step_s"].append(time.perf_counter() - ts)
+        if step % log_every == 0 or step == steps - 1:
+            print(f"step {step:5d}  loss {losses[-1]:.4f}  ({time.time()-t0:.1f}s)",
+                  flush=True)
+    if ckpt_dir:
+        save_checkpoint(ckpt_dir, steps, {"params": params},
+                        extra={"arch": arch, "final_loss": losses[-1]})
+    return losses
+
+
+def train_psgf(arch: str, steps: int = 50, batch: int = 8, seq: int = 64,
+               reduced: bool = True, lr: float = 3e-4,
+               ckpt_dir: str | None = None, log_every: int = 10,
+               pods: int = 2, sync_interval: int = 4,
+               share_ratio: float = 0.3, forward_ratio: float = 0.2,
+               select_ratio: float = 0.5, device=DEFAULT_DEVICE,
+               history: dict | None = None):
+    """PSGF-DP training: ``pods`` model replicas train on DIFFERENT data with
+    ``sync_interval`` local steps between partial syncs (paper eqs. 4-6 at
+    leaf granularity; see ``core/psgf_dp.py``), and a last sync after
+    trailing steps. Prints the sync wire bytes beside the full-sync
+    baseline's and returns the per-step losses (the mean over pods).
+
+    A given ``history`` dict receives ``step_s`` and ``sync_s`` (host
+    seconds, each ending in a device read), ``sync_keys`` (each sync's key
+    as two ints), ``wire_bytes`` (per sync), ``psgf_bytes`` and
+    ``full_bytes``."""
+    dev = resolve_device(device)
+    cfg = _config(arch, reduced)
+    api = ModelApi(cfg, dev)
+    optimizer = Adam(lr=one_cycle(lr, steps))
+    key = R.PRNGKey(0, device=dev)
+    glob = api.init_params(key)
+    local = P.stack_for_pods(glob, pods)
+    opt_state = P.init_pod_opt_state(optimizer, local)
+    step = P.make_local_train_step(api.loss_fn, optimizer)
+    dp_cfg = P.PSGFDPConfig(share_ratio=share_ratio, forward_ratio=forward_ratio,
+                            select_ratio=select_ratio, sync_interval=sync_interval)
+    history = {} if history is None else history
+    history.update(step_s=[], sync_s=[], sync_keys=[], wire_bytes=[])
+
+    losses = []
+    psgf_bytes = full_bytes = 0.0
+
+    def sync():
+        nonlocal key, local, glob, psgf_bytes, full_bytes
+        ts = time.perf_counter()
+        key, sk = R.split(key)
+        local, glob, stats = P.psgf_sync(local, glob, sk, dp_cfg, pods)
+        wire = float(stats["wire_bytes"])
+        history["sync_s"].append(time.perf_counter() - ts)
+        history["sync_keys"].append([int(w) for w in sk.tolist()])
+        history["wire_bytes"].append(wire)
+        psgf_bytes += wire
+        full_bytes += 2.0 * pods * pt.tree_size_bytes(glob)
+
+    _sync(dev)
+    t0 = time.time()
+    for s in range(steps):
+        ts = time.perf_counter()
+        # different data per pod: offset the synthetic-batch seed by pod index
+        per_pod = [make_batch(cfg, s * pods + p, batch, seq, dev) for p in range(pods)]
+        stacked = {k: torch.stack([b[k] for b in per_pod]) for k in per_pod[0]}
+        local, opt_state, loss = step(local, opt_state, stacked)
+        losses.append(float(loss.mean()))
+        history["step_s"].append(time.perf_counter() - ts)
+        if (s + 1) % dp_cfg.sync_interval == 0:
+            sync()
+        if s % log_every == 0 or s == steps - 1:
+            print(f"step {s:5d}  loss {losses[-1]:.4f}  "
+                  f"sync_bytes {psgf_bytes:.3e}  ({time.time()-t0:.1f}s)",
+                  flush=True)
+    if steps % dp_cfg.sync_interval != 0:
+        # fold the trailing local steps into the global model before
+        # reporting / checkpointing; otherwise they would be discarded
+        sync()
+    history.update(psgf_bytes=psgf_bytes, full_bytes=full_bytes)
+    if full_bytes:
+        print(f"PSGF sync wire bytes: {psgf_bytes:.3e} vs full-sync "
+              f"{full_bytes:.3e} (saving {1 - psgf_bytes / full_bytes:.0%})",
+              flush=True)
+    if ckpt_dir:
+        save_checkpoint(ckpt_dir, steps, {"params": glob},
+                        extra={"arch": arch, "final_loss": losses[-1],
+                               "sync": "psgf", "pods": pods})
+    return losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false",
+                    help="alias for --no-reduced")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--sync", choices=["none", "psgf"], default="none",
+                    help="psgf: pods train locally, partial-share every "
+                         "--sync-interval steps (engine-backed PSGF-DP)")
+    ap.add_argument("--pods", type=int, default=2)
+    ap.add_argument("--sync-interval", type=int, default=4)
+    ap.add_argument("--share-ratio", type=float, default=0.3)
+    ap.add_argument("--forward-ratio", type=float, default=0.2)
+    ap.add_argument("--select-ratio", type=float, default=0.5)
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="cuda (default; raises without a GPU) or cpu")
+    args = ap.parse_args(argv)
+    if args.sync == "psgf":
+        losses = train_psgf(args.arch, args.steps, args.batch, args.seq,
+                            args.reduced, args.lr, args.ckpt_dir,
+                            pods=args.pods, sync_interval=args.sync_interval,
+                            share_ratio=args.share_ratio,
+                            forward_ratio=args.forward_ratio,
+                            select_ratio=args.select_ratio, device=args.device)
+    else:
+        losses = train(args.arch, args.steps, args.batch, args.seq,
+                       args.reduced, args.lr, args.ckpt_dir, device=args.device)
+    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

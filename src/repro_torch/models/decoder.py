@@ -1,18 +1,25 @@
 """Decoder-only LM of the model zoo (counterpart of ``repro.models.decoder``),
-ported for the ``hybrid`` family (hymba: attention and a Mamba branch in
-parallel, then a gated MLP). Other families raise ``NotImplementedError``
-(ROADMAP Queue A item 14).
+ported for the ``dense`` family (qwen2: attention, then a gated MLP) and the
+``hybrid`` family (hymba: attention and a Mamba branch in parallel, then a
+gated MLP). The moe, vlm and ssm families raise ``NotImplementedError``
+(ROADMAP Queue A item 9 (a)).
 
 Public API, as the reference's:
   model_spec / init_params(cfg, key)              -- params from a key
   forward(cfg, params, tokens)                    -- logits over a sequence
+  loss_fn(cfg, params, batch)                     -- training loss
   prefill(cfg, params, tokens, cache_len=...)     -- prompt -> (logits, cache)
   decode_step(cfg, params, cache, token, pos)     -- one token
-  init_cache(cfg, batch, cache_len)               -- KV ring buffer + SSM state
+  init_cache(cfg, batch, cache_len)               -- KV ring buffer (+ SSM state)
 
-The reference scans over the stacked layer axis; the port loops over it.
-Its prefill derives each layer's final SSM state by a second scan
-(``_ssm_final_state``); here the ssm_scan kernel returns it with ``y``.
+The reference scans over the stacked layer axis; the port loops over it,
+unbinding each stacked leaf once so that the backward stacks the layers'
+gradients in one allocation. With ``cfg.remat`` and gradients enabled each
+layer runs under ``torch.utils.checkpoint`` (the reference's per-layer
+``jax.checkpoint``): its activations are recomputed in the backward, which
+launches its kernels a second time; the results are unchanged.
+The reference's prefill derives each layer's final SSM state by a second
+scan (``_ssm_final_state``); here the ssm_scan kernel returns it with ``y``.
 ``decode_step`` updates the cache in place (see ``layers.decode_attention``).
 :func:`params_from_numpy` / :func:`params_to_numpy` carry weights across
 packages: the JAX tree's paths and shapes, unchanged.
@@ -23,6 +30,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import pytree_utils as pt
 from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
@@ -31,14 +39,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import spec as S
 from repro_torch.models.config import ModelConfig
 
-FAMILIES = ("hybrid",)
+FAMILIES = ("dense", "hybrid")
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"decoder family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP Queue A item 14); ported: {FAMILIES}")
+            f"(ROADMAP Queue A item 9 (a): moe, vlm, ssm); ported: {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -49,13 +57,15 @@ def _check_family(cfg: ModelConfig):
 def block_spec(cfg: ModelConfig):
     _check_family(cfg)
     d = cfg.d_model
-    return {
+    spec = {
         "ln1": L.norm_spec(d),
         "attn": L.attention_spec(cfg),
-        "ssm": L.ssm_spec(cfg),
         "ln2": L.norm_spec(d),
         "mlp": L.mlp_spec(d, cfg.d_ff),
     }
+    if cfg.family == "hybrid":
+        spec["ssm"] = L.ssm_spec(cfg)
+    return spec
 
 
 def model_spec(cfg: ModelConfig):
@@ -80,8 +90,12 @@ def _layer_flags(cfg: ModelConfig):
     return [0.0] * cfg.num_layers
 
 
-def _layer(params, i: int):
-    return pt.tree_map(lambda a: a[i], params["blocks"])
+def _layers(params):
+    """Every layer's params: each stacked leaf unbound once."""
+    pairs = pt.flatten_with_paths(params["blocks"])
+    parts = [leaf.unbind(0) for _, leaf in pairs]
+    return [pt.unflatten([(path, part[i]) for (path, _), part in zip(pairs, parts)])
+            for i in range(len(parts[0]))]
 
 
 # ---------------------------------------------------------------------------
@@ -91,29 +105,41 @@ def _layer(params, i: int):
 
 def _block_apply(cfg: ModelConfig, p, x, positions, flag, attn_impl,
                  with_cache=False):
-    """One hybrid block over the full sequence. Returns (x, aux), and with
-    ``with_cache`` (x, aux, cache entries {"kv": (k, v), "ssm": state})."""
+    """One block over the full sequence. Returns (x, aux), and with
+    ``with_cache`` (x, aux, cache entries {"kv": (k, v)[, "ssm": state]})."""
     _check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    entries = {}
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     a = L.self_attention(p["attn"], h, positions, cfg,
                          window=cfg.attention_window, attn_impl=attn_impl,
                          return_kv=with_cache)
-    s = L.ssm_apply(p["ssm"], h, cfg, return_state=with_cache)
     if with_cache:
-        (a, k, v), (s, state) = a, s
-    x = x + 0.5 * (a + s)
+        a, k, v = a
+        entries["kv"] = (k, v)
+    if cfg.family == "hybrid":
+        s = L.ssm_apply(p["ssm"], h, cfg, return_state=with_cache)
+        if with_cache:
+            s, entries["ssm"] = s
+        x = x + 0.5 * (a + s)
+    else:
+        x = x + a
     h = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
     x = x + L.mlp_apply(p["mlp"], h)
-    return (x, aux, {"kv": (k, v), "ssm": state}) if with_cache else (x, aux)
+    return (x, aux, entries) if with_cache else (x, aux)
 
 
 def forward_hidden(cfg: ModelConfig, params, x, positions, attn_impl="auto"):
     """Run the block stack. x: (B,S,d) already embedded."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, flag in enumerate(_layer_flags(cfg)):
-        x, aux = _block_apply(cfg, _layer(params, i), x, positions, flag,
-                              attn_impl)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p, flag in zip(_layers(params), _layer_flags(cfg)):
+        if remat:
+            x, aux = checkpoint(_block_apply, cfg, p, x, positions, flag,
+                                attn_impl, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = _block_apply(cfg, p, x, positions, flag, attn_impl)
         aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, aux_total
@@ -129,8 +155,17 @@ def forward(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto")
     x = embed_inputs(cfg, params, tokens, img_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux = forward_hidden(cfg, params, x, positions, attn_impl)
-    logits = L.head_apply(params["head"], params["embed"], x, cfg)
+    logits = L.head_apply(params.get("head", {}), params["embed"], x, cfg)
     return logits, aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch, attn_impl="auto"):
+    """batch: dict(tokens (B,S), labels (B,S) [, loss_mask (B,S)]).
+    Returns ``(ce + aux, {"ce": ce, "aux": aux})``."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("img_embeds"), attn_impl)
+    ce = L.cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -144,14 +179,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    shp = L.ssm_state_shape(cfg, batch)
-    return {
-        "kv": L.init_kv_cache(cfg, batch, cache_len, dtype, dev),
-        "ssm": {
+    cache = {"kv": L.init_kv_cache(cfg, batch, cache_len, dtype, dev)}
+    if cfg.family == "hybrid":
+        shp = L.ssm_state_shape(cfg, batch)
+        cache["ssm"] = {
             "h": torch.zeros(shp["h"], dtype=torch.float32, device=dev),
             "conv": torch.zeros(shp["conv"], dtype=dtype, device=dev),
-        },
-    }
+        }
+    return cache
 
 
 def _block_decode(cfg: ModelConfig, p, x, layer_cache, pos, flag):
@@ -159,8 +194,11 @@ def _block_decode(cfg: ModelConfig, p, x, layer_cache, pos, flag):
     new_cache = {}
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     a, new_cache["kv"] = L.decode_attention(p["attn"], h, layer_cache["kv"], pos, cfg)
-    s, new_cache["ssm"] = L.ssm_decode(p["ssm"], h, layer_cache["ssm"], cfg)
-    x = x + 0.5 * (a + s)
+    if cfg.family == "hybrid":
+        s, new_cache["ssm"] = L.ssm_decode(p["ssm"], h, layer_cache["ssm"], cfg)
+        x = x + 0.5 * (a + s)
+    else:
+        x = x + a
     h = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
     x = x + L.mlp_apply(p["mlp"], h)
     return x, new_cache
@@ -171,13 +209,14 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
     (logits (B,1,V), cache), the cache updated in place."""
     pos = int(pos)
     x = L.embed_apply(params["embed"], token, cfg.activation_dtype)
-    for i, flag in enumerate(_layer_flags(cfg)):
+    for i, (p, flag) in enumerate(zip(_layers(params), _layer_flags(cfg))):
         layer_cache = pt.tree_map(lambda a: a[i], cache)
-        x, new = _block_decode(cfg, _layer(params, i), x, layer_cache, pos, flag)
-        cache["ssm"]["h"][i].copy_(new["ssm"]["h"])
-        cache["ssm"]["conv"][i].copy_(new["ssm"]["conv"])
+        x, new = _block_decode(cfg, p, x, layer_cache, pos, flag)
+        if "ssm" in new:
+            cache["ssm"]["h"][i].copy_(new["ssm"]["h"])
+            cache["ssm"]["conv"][i].copy_(new["ssm"]["conv"])
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = L.head_apply(params["head"], params["embed"], x, cfg)
+    logits = L.head_apply(params.get("head", {}), params["embed"], x, cfg)
     return logits, cache
 
 
@@ -217,13 +256,13 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
     window = cfg.attention_window
     phys = cache_len if window is None else min(window, cache_len)
     entries = []
-    for i, flag in enumerate(_layer_flags(cfg)):
-        x, _, e = _block_apply(cfg, _layer(params, i), x, positions, flag,
-                               attn_impl, with_cache=True)
+    for p, flag in zip(_layers(params), _layer_flags(cfg)):
+        x, _, e = _block_apply(cfg, p, x, positions, flag, attn_impl,
+                               with_cache=True)
         (kc, vc), sp = _to_cache_layout(list(e["kv"]), positions, phys, Stot)
-        entries.append({"kv": {"k": kc, "v": vc, "slot_pos": sp},
-                        "ssm": e["ssm"]})
+        e["kv"] = {"k": kc, "v": vc, "slot_pos": sp}
+        entries.append(e)
     cache = pt.tree_map(lambda *cs: torch.stack(cs), *entries)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = L.head_apply(params["head"], params["embed"], x[:, -1:, :], cfg)
+    logits = L.head_apply(params.get("head", {}), params["embed"], x[:, -1:, :], cfg)
     return logits, cache

@@ -1,5 +1,6 @@
 """Neural-net layers of the model zoo (counterpart of ``repro.models.layers``),
-as far as the ``hybrid`` family (hymba) and its decode need them: plain
+as far as the ``dense`` (qwen2) and ``hybrid`` (hymba) families, their
+decode and their training need them: plain
 functions over the reference's params dict, with its names, shapes and
 layouts (q/k/v ``(B, S, H, hd)``, caches keyed as in JAX).
 
@@ -18,9 +19,9 @@ Routing to the kernels:
 Weights are float32 and cast to the activation type at each use, as the
 reference does (``.astype(x.dtype)``); the embedding table is gathered
 first and the rows cast, which gives the same values without casting the
-whole table. Not ported yet (ROADMAP Queue A item 14): MoE, MLA, xLSTM,
-cross-attention, the training-time ``flash_mha`` / ``chunked_attend`` and
-``cross_entropy_loss``.
+whole table. Not ported yet: MoE, MLA, xLSTM and cross-attention (ROADMAP
+Queue A item 9 (a)), and the long-sequence ``flash_mha`` / ``chunked_attend``
+(item 9 (b)).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import ArraySpec
 
-_NOT_PORTED = ("ROADMAP Queue A item 14: the training-time attention paths "
+_NOT_PORTED = ("ROADMAP Queue A item 9 (b): the long-sequence attention paths "
                "(flash_mha, chunked_attend) are not ported yet")
 
 # ---------------------------------------------------------------------------
@@ -405,3 +406,16 @@ def head_apply(params, embed_params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, embed_params["embedding"].to(x.dtype))
     return x @ params["w"].to(x.dtype)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """logits: (B,S,V); labels: (B,S) integer; mask optional (B,S). The
+    float32 ``logsumexp`` minus the label's logit, averaged (over the
+    masked positions with ``mask``)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

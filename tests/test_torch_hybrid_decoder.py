@@ -314,14 +314,18 @@ def test_registry_and_families():
     from repro_torch.configs import ARCH_IDS
 
     assert ARCH_IDS == JAX_ARCH_IDS
-    assert dataclasses.asdict(get_config("hymba-1.5b")) == dataclasses.asdict(
-        jax_get_config("hymba-1.5b"))
+    for arch in ("hymba-1.5b", "qwen2-1.5b"):
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            jax_get_config(arch))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen2-1.5b")
-    dense = dataclasses.replace(T_CFG, family="dense")
+        get_config("mistral-large-123b")
+    moe = dataclasses.replace(T_CFG, family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.model_spec(dense)
+        TD.model_spec(moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.init_cache(dense, 1, 4, device="cpu")
+        TD.init_cache(moe, 1, 4, device="cpu")
+    dense = get_config("qwen2-1.5b").reduced()
+    assert sorted(TD.block_spec(dense)) == sorted(JD.block_spec(
+        jax_get_config("qwen2-1.5b").reduced()))

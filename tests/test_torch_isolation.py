@@ -70,7 +70,10 @@ def test_importing_every_module_pulls_in_no_jax():
                  "repro_torch.models.config", "repro_torch.models.layers",
                  "repro_torch.models.decoder", "repro_torch.configs",
                  "repro_torch.configs.hymba_1_5b", "repro_torch.launch.api",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.configs.qwen2_1_5b",
+                 "repro_torch.optim", "repro_torch.optim.adam",
+                 "repro_torch.optim.schedules", "repro_torch.core.psgf_dp",
+                 "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert name in rep["modules"]
     assert rep["bad"] == []
 
@@ -176,6 +179,20 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: decoder.init_params(hymba, R.PRNGKey(0)),
         lambda: decoder.init_cache(hymba, 1, 4),
         lambda: decoder.params_from_numpy({"w": np.ones(2, np.float32)}),
+    ]
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.launch import train as llm_train
+
+    qwen2 = get_config("qwen2-1.5b").reduced()
+    calls += [
+        lambda: llm_train.train("qwen2-1.5b", steps=1),
+        lambda: llm_train.train_psgf("qwen2-1.5b", steps=1),
+        lambda: llm_train.main(["--arch", "qwen2-1.5b", "--steps", "1"]),
+        lambda: llm_train.main(["--arch", "qwen2-1.5b", "--steps", "1",
+                                "--sync", "psgf"]),
+        lambda: llm_train.make_batch(qwen2, 0, 1, 4),
+        lambda: train_steps.build_train_step(qwen2),
+        lambda: decoder.init_params(qwen2, R.PRNGKey(0)),
     ]
     from repro_torch.core.fl.flywheel import RetrainController
     from repro_torch.launch import gateway

@@ -215,6 +215,45 @@ def test_flash_kernel_grads_match_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_tensor_core_training_step_at_hd128_gqa6(cuda):
+    """One train step of a one-layer qwen2-shaped model (d_model 1536, 12
+    query heads over 2 kv heads of 128, bf16 activations) on the card: its
+    attention forward on the tensor-core route (twice, the forward and its
+    recompute under remat), and the loss and updated params against the
+    same step on the CPU within bf16's rounding."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as train_steps
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=1, d_ff=512,
+                              vocab_size=512)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        fn, api, opt = train_steps.build_train_step(cfg, device=dev)
+        params = api.init_params(R.PRNGKey(0))
+        state = opt.init(params)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        ops.reset_launch_counts()
+        params, state, metrics = fn(params, state, batch)
+        out[str(dev)] = (float(metrics["loss"]), params, dict(ops.ROUTE_LAUNCHES))
+    loss_cpu, p_cpu, _ = out["cpu"]
+    loss_gpu, p_gpu, routes = out["cuda"]
+    assert routes == {"scalar": 0, "short": 0, "tensor_core": 2}
+    assert abs(loss_gpu - loss_cpu) <= BF16_TOL * abs(loss_cpu)
+    for (path, a), b in zip(pt.flatten_with_paths(p_gpu), pt.leaves(p_cpu)):
+        # the first Adam step moves each element by ~lr (1.5e-6 at step 1 of
+        # make_optimizer's warm-up) whatever its gradient, so a gradient sign
+        # flipped by bf16 rounding is a 3e-6 difference; init draws agree to
+        # erfinv's ulps
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5, msg=path)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _inputs(3, 1, 8, 8, 2, 2, 24, cuda)
     with pytest.raises(ValueError, match="head dim 24"):
@@ -516,6 +555,38 @@ def test_ssm_scan_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 64, 256, 16, torch.float32, False),
+                                  (2, 64, 256, 16, torch.float32, True),
+                                  (1, 37, 203, 8, torch.bfloat16, False)])
+def test_ssm_scan_kernel_grads_match_plain(cuda, case):
+    """The kernel under autograd (its backward the plain version's, recomputed
+    on the saved inputs) against autograd through the plain version."""
+    B, S, D, N, dtype, with_state = case
+    args = _ssm_inputs(7, B, S, D, N, cuda, dtype)
+    a = [t.clone().requires_grad_() for t in args]
+    b = [t.clone().requires_grad_() for t in args]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = ssm_ops.LAUNCHES
+    y, h = ssm_ops.ssm_scan(*a, return_state=True)
+    assert ssm_ops.LAUNCHES == before + 1 and y.grad_fn is not None
+    wy, wh = ssm_scan_ref(*b, return_state=True)
+    dy = torch.randn(y.shape, generator=gen, device=cuda).to(dtype)
+    dh = torch.randn(h.shape, generator=gen, device=cuda)
+    loss = (y.float() * dy.float()).sum() + ((h * dh).sum() if with_state else 0)
+    want = (wy.float() * dy.float()).sum() + ((wh * dh).sum() if with_state else 0)
+    loss.backward()
+    want.backward()
+    assert ssm_ops.LAUNCHES == before + 1      # the backward launches no kernel
+    for x, w in zip(a, b):
+        scale = max(1.0, float(w.grad.abs().max()))
+        if dtype == torch.float32:
+            torch.testing.assert_close(x.grad, w.grad, rtol=1e-5, atol=1e-5 * scale)
+        else:
+            torch.testing.assert_close(x.grad.float(), w.grad.float(),
+                                       rtol=SSM_BF16_RTOL, atol=SSM_BF16_RTOL * scale)
+
+
+@pytest.mark.cuda
 def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
     x, dt, bm, cm, a = _ssm_inputs(0, 1, 8, 16, 4, cuda)
     with pytest.raises(ValueError, match="state dim"):
@@ -525,8 +596,6 @@ def test_ssm_scan_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ssm_ops.ssm_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
                          bm, cm, a)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ssm_ops.ssm_scan(x.requires_grad_(), dt, bm, cm, a)
     with pytest.raises(ValueError, match="different devices"):
         ssm_ops.ssm_scan(x.detach().cpu(), dt, bm, cm, a)
 

@@ -1,6 +1,6 @@
 """The port's LLM serving launcher (``repro_torch.launch.serve``) on the CPU
 against the same loop composed of the JAX package's ``ModelApi`` calls:
-reduced hymba in float32, weights from ``PRNGKey(0)`` on each side (equal
+reduced hymba and qwen2 in float32, weights from ``PRNGKey(0)`` on each side (equal
 up to ``erfinv``'s last ulps), greedy decode. Plus the CLI."""
 import dataclasses
 from functools import partial
@@ -46,11 +46,12 @@ def _jax_serve_loop(cfg, batch, prompt_len, gen):
     return np.concatenate(out, axis=1)
 
 
-def test_serve_matches_jax_loop(monkeypatch):
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen2-1.5b"])
+def test_serve_matches_jax_loop(monkeypatch, arch):
     _float32_configs(monkeypatch)
-    rep = serve_mod.serve("hymba-1.5b", batch=BATCH, prompt_len=PROMPT,
+    rep = serve_mod.serve(arch, batch=BATCH, prompt_len=PROMPT,
                           gen=GEN, reduced=True, device="cpu")
-    jcfg = dataclasses.replace(jax_get_config("hymba-1.5b"), dtype="float32").reduced()
+    jcfg = dataclasses.replace(jax_get_config(arch), dtype="float32").reduced()
     want = _jax_serve_loop(jcfg, BATCH, PROMPT, GEN)
     assert rep["tokens"].shape == (BATCH, GEN)
     np.testing.assert_array_equal(rep["tokens"], want)
@@ -72,6 +73,8 @@ def test_cli_on_the_cpu(capsys):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.serve("qwen2-1.5b", device="cpu")
+        serve_mod.serve("mistral-large-123b", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve_mod.serve("internvl2-2b", device="cpu")
     with pytest.raises(KeyError):
         serve_mod.serve("no-such-arch", device="cpu")

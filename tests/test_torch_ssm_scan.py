@@ -143,11 +143,60 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="contiguous"):
         ops._launch(x.transpose(1, 2).contiguous().transpose(1, 2), dt, Bm,
                     Cm, A, False)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        ops._launch(x.clone().requires_grad_(), dt, Bm, Cm, A, False)
+    # inputs that require grad differentiate through the plain version here
+    y_grad = ops.ssm_scan(x.clone().requires_grad_(), dt, Bm, Cm, A)
+    assert y_grad.grad_fn is not None
     _, t5 = _inputs(0, 1, 8, 16, 5, "float32")
     with pytest.raises(ValueError, match="state dim 5"):
         ops._launch(*t5, False)
     before = ops.LAUNCHES
     ops.ssm_scan(x, dt, Bm, Cm, A)            # CPU: the plain version
     assert ops.LAUNCHES == before
+
+
+# the backward against autograd of the plain version: the same float32
+# products, summed over n, d or the batch in other orders
+GRAD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("case", SSM_CASES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_plain_backward_matches_autograd(case, with_state):
+    """``ssm_scan_ref_backward`` (the CUDA kernel's backward) against
+    autograd through ``ssm_scan_ref``, for the output's cotangent and, where
+    the final state is an output too, the state's."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref_backward
+
+    _, tx = _inputs(5, *case)
+    ins = [t.clone().requires_grad_() for t in tx]
+    y, h = ssm_scan_ref(*ins, return_state=True)
+    gen = torch.Generator().manual_seed(1)
+    dy = torch.randn(y.shape, generator=gen).to(y.dtype)
+    dh = torch.randn(h.shape, generator=gen) if with_state else None
+    outs, cots = ([y, h], [dy, dh]) if with_state else ([y], [dy])
+    want = torch.autograd.grad(outs, ins, cots)
+    got = ssm_scan_ref_backward(*tx, dy, dh)
+    for name, g, w, t in zip(("x", "dt", "Bm", "Cm", "A"), got, want, tx):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        if t.dtype == torch.bfloat16:
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       rtol=BF16_RTOL, atol=BF16_RTOL, err_msg=name)
+        else:
+            scale = max(1.0, float(w.abs().max()))
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=GRAD_TOL,
+                                       atol=GRAD_TOL * scale, err_msg=name)
+
+
+def test_plain_backward_matches_jax_oracle_grad():
+    """The float32 gradients against ``jax.grad`` of the reference's oracle."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref_backward
+
+    jx, tx = _inputs(6, 2, 64, 128, 16, "float32")
+    dy = np.random.default_rng(2).standard_normal((2, 64, 128)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jax_ssm_scan_ref(*a) * dy),
+                    argnums=(0, 1, 2, 3, 4))(*jx)
+    got = ssm_scan_ref_backward(*tx, torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL * max(1.0, float(np.abs(w).max())))
