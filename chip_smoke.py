@@ -92,13 +92,26 @@ Phases, each of which raises (exit code != 0) on failure:
      card against the CPU, ssm_scan's gradient against autograd through
      its plain version at hymba's training shape (8, 64, 3200, 16), and
      flash at qwen2's two training shapes, each timed.
+ 10. PSGF-Fed across processes: phase 7's nn5 cell (2,048 stations, cohort
+     256, client chunk 64, full width) once more with ``driver="scan"`` in
+     this process, then two fresh interpreters of this script
+     (``--distributed-child``, ``launch.distributed.spawn_processes``) on
+     ``cuda:0`` over gloo, each holding half of the client state: the
+     partitioned ``driver="host"`` run, ``client_mesh`` runs with ``scan``
+     and with ``while`` (its segments captured as CUDA graphs around the
+     host exchanges), and the process-sharded serving of the distributed
+     smoke. Each process's losses, comm, RMSE, ``w_global`` and client
+     block must equal phase 7's host run and this scan run bit for bit;
+     each reports its rounds/s, exchange bytes and seconds per round, peak
+     memory and its own kernel launches (none may be 0).
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
-...}``, one ``{"kernels": [...]}`` line (flash attention with its three
-routes, psgf_mix_batch, psgf_mix, ssm_scan), and last ``{"ok": true,
-"device": {...}}``. It imports ``torch``, ``numpy``, the
-standard library and ``repro_torch`` (from ``src/`` beside this file) only.
+...}``, ``{"distributed": ...}``, one ``{"kernels": [...]}`` line (flash
+attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
+last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
+the standard library and ``repro_torch`` (from ``src/`` beside this file)
+only. With ``--distributed-child DIR`` it is one of phase 10's processes.
 """
 from __future__ import annotations
 
@@ -1106,6 +1119,8 @@ def drive_training(mix_ops, flash_ops) -> dict:
 WHILE_A = dict(max_rounds=10, eval_every=4, patience=100)   # chunks 4, 4, 2
 WHILE_B = dict(max_rounds=48, eval_every=4, patience=1)     # the stop fires
 HOST_K, HOST_S, HOST_CHUNK, HOST_ROUNDS, HOST_EVAL = 2048, 256, 64, 4, 2
+DIST_PROCESSES = 2          # phase 10: processes sharing the card
+
 KERNEL_NAMES = {"flash_short": "flash_short_kernel",
                 "psgf_mix_batch": "psgf_mix_kernel"}
 
@@ -1416,23 +1431,54 @@ def drive_training_drivers(mix_ops, flash_ops) -> dict:
     return out
 
 
-def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
-    """``run_fl(driver="host")`` against ``driver="loop"`` on the same
-    inputs: nn5 at K = 2,048 stations, cohort 256, full-width LoGTST;
-    states, comm and rounds bitwise; host memory, bytes per round and peak
-    device memory of each."""
+def host_cell(E, data: bool = True):
+    """Phase 7's nn5 cell: K = 2,048 stations, cohort 256, client chunk 64,
+    full-width LoGTST with flash and the fused downlink. Returns ``(task,
+    model, train, test, FLConfig, run_fl keywords)``; without ``data`` the
+    series are not made (None)."""
     from repro_torch.core.tasks import get_task, task_forecaster
 
     task = get_task("nn5", quick=False, num_clients=HOST_K)
     model = task_forecaster(task, "logtst", quick=False, use_flash_attn=True)
-    series = task.series()
-    tr, _, te, _ = task.client_data(series, streaming=True)
+    tr = te = None
+    if data:
+        tr, _, te, _ = task.client_data(task.series(), streaming=True)
     fl = E.FLConfig(policy="psgf", num_clients=HOST_K, select_ratio=0.5,
                     share_ratio=0.3, forward_ratio=0.2, local_steps=4,
                     batch_size=TRAIN_BATCH, use_pallas_mix=True,
                     streaming_windows=True, participation=HOST_S,
                     client_chunk=HOST_CHUNK)
     kw = dict(max_rounds=HOST_ROUNDS, eval_every=HOST_EVAL, patience=100)
+    return task, model, tr, te, fl, kw
+
+
+def tensor_sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def run_digest(h, blocks) -> dict:
+    """What a multi-process run must reproduce bit for bit: the history,
+    ``w_global``'s hash and the hash of ``w_clients``'s rows ``[lo, hi)``
+    for each block of ``blocks`` (``h["state"]["w_clients"]`` indexed from
+    0)."""
+    wc = h["state"]["w_clients"]
+    return {"losses": h["train_loss"], "comm": h["comm"],
+            "rmse": [[int(r), float(v)] for r, v in h["rmse"]],
+            "final_rmse": h["final_rmse"], "rounds": h["rounds_run"],
+            "w_global_sha": tensor_sha(h["state"]["w_global"]),
+            "w_clients_sha": [tensor_sha(wc[lo:hi]) for lo, hi in blocks]}
+
+
+def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
+    """``run_fl(driver="host")`` against ``driver="loop"`` on the same
+    inputs: nn5 at K = 2,048 stations, cohort 256, full-width LoGTST;
+    states, comm and rounds bitwise; host memory, bytes per round and peak
+    device memory of each; the host run's digest (:func:`run_digest`, the
+    client rows in phase 10's blocks)."""
+    task, model, tr, te, fl, kw = host_cell(E)
     res = {}
     for driver in ("host", "loop"):
         torch.cuda.synchronize()
@@ -1462,6 +1508,10 @@ def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
         raise RuntimeError(f"host peak device memory {hpeak} >= loop's {lpeak}")
     if hl["psgf_mix_batch"] != HOST_ROUNDS or hl["flash_short"] == 0:
         raise RuntimeError(f"host driver launches {hl}")
+    from repro_torch.launch.distributed import block_range
+
+    digest = run_digest(hh, [block_range(HOST_K, i, DIST_PROCESSES)
+                             for i in range(DIST_PROCESSES)])
     D = hh["meta"].total
     T = tr.shape[1]
     row_bytes = 3 * D * 4 + 4
@@ -1486,6 +1536,7 @@ def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
         "loop": {"run_s": ls, "rounds_per_s": rounds / ls,
                  "peak_device_bytes": lpeak, "launches": ll},
         "final_rmse": {"host": hh["final_rmse"], "loop": lh["final_rmse"]},
+        "host_digest": digest,
     }
 
 
@@ -2613,10 +2664,205 @@ def drive_zoo_training(flash_ops, flash_ref, ssm_ops, ssm_ref) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: PSGF-Fed across two processes on one card (gloo)
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 600        # both children, all three runs and the serving
+DIST_RUNS = ("host", "scan", "while")
+
+
+def distributed_child(workdir: str) -> dict:
+    """One process of phase 10 (``chip_smoke.py --distributed-child DIR``):
+    joins the group on ``cuda:0`` over gloo, runs the nn5 cell three ways
+    (``driver="host"`` partitioned, ``client_mesh`` with ``scan`` and with
+    ``while``), each with the kernel counts set to 0 just before and read
+    just after (the while run's launches are each captured segment's calls
+    times its replays, plus its eager first round), then the smoke's
+    process-sharded serving. Returns its report."""
+    src = os.path.join(ROOT, "src")
+    sys.path.insert(0, src)
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.core.fl.partition import MeshRun
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.psgf_mix import ops as mix_ops
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.mesh import make_client_mesh
+
+    if not D.initialize_distributed(device="cuda:0", backend="gloo"):
+        raise RuntimeError("distributed child: no process group configured")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, model, _, _, fl, kw = host_cell(E, data=False)
+    z = np.load(os.path.join(workdir, "inputs.npz"))
+    tr, te = z["train"], z["test"]
+    mesh = make_client_mesh(multi_host=True)
+    counts = lambda: {"psgf_mix_batch": mix_ops.LAUNCHES,  # noqa: E731
+                      "flash_short": flash_ops.ROUTE_LAUNCHES["short"]}
+    out = {"process": D.process_index(), "backend": D.backend(),
+           "device": str(D.device()), "pid": os.getpid(), "runs": {}}
+    for name in DIST_RUNS:
+        run_kw = (dict(driver="host") if name == "host"
+                  else dict(driver=name, client_mesh=mesh))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        D.sync(name)                            # both start together
+        mix_ops.LAUNCHES = 0
+        flash_ops.reset_launch_counts()
+        with counting_captures(E, counts) as captured:
+            t0 = time.perf_counter()
+            h = E.run_fl(model.cfg, fl, tr, te, R.PRNGKey(SEED),
+                         device="cuda", **kw, **run_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts()
+        if captured:                 # MeshRun captures its segments in order
+            replays = h["mesh_run"]["replays"]
+            per = dict(zip(MeshRun.SEGMENTS, (c for _, c in captured)))
+            launches = {k: v + sum(p[k] * (replays[n] - 1)
+                                   for n, p in per.items())
+                        for k, v in launches.items()}
+        lo, hi = h["owned_rows"]
+        ex = h["exchange"]
+        rounds = h["rounds_run"]
+        rec = {"digest": run_digest(h, [(0, hi - lo)]), "owned_rows": [lo, hi],
+               "run_s": wall, "rounds_per_s": rounds / wall,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches,
+               "exchange": {k: ex[k] for k in ("merge", "gather", "rmse")}}
+        if name == "host":
+            store = h["client_store"]
+            rec["round_s"] = h["round_s"]
+            rec["store_setup_s"] = h["client_store_setup_s"]
+            rec["store_state_bytes"] = store.state_nbytes
+            store.close()
+        else:
+            rec["mesh_run"] = h["mesh_run"]
+        out["runs"][name] = rec
+        del h
+    serve_root = os.path.join(workdir, "serve")
+    os.makedirs(serve_root, exist_ok=True)
+    out["serving"] = D.smoke_serving(serve_root, D.device())
+    D.sync("done")
+    D.shutdown_distributed()
+    return out
+
+
+def drive_distributed(mix_ops, flash_ops, host_digest) -> dict:
+    """Phase 10: the nn5 cell across two processes on this card over gloo,
+    each process holding half of the client state, against one-process
+    runs bit for bit: the partitioned host run against phase 7's host run
+    (``host_digest``), the mesh's scan and while runs against a one-process
+    scan run made here first."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.launch import distributed as D
+
+    task, model, tr, te, fl, kw = host_cell(E)
+    free_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mix_ops.LAUNCHES = 0
+    flash_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    h = E.run_fl(model.cfg, fl, tr, te, R.PRNGKey(SEED), driver="scan",
+                 device="cuda", **kw)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    blocks = [D.block_range(HOST_K, i, DIST_PROCESSES)
+              for i in range(DIST_PROCESSES)]
+    scan = {"digest": run_digest(h, blocks), "run_s": scan_s,
+            "rounds_per_s": h["rounds_run"] / scan_s,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {"psgf_mix_batch": mix_ops.LAUNCHES,
+                         "flash_short": flash_ops.ROUTE_LAUNCHES["short"]}}
+    del h
+    free_device_memory()
+
+    workdir = os.path.join(ROOT, "build", "chip_smoke_distributed")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    np.savez(os.path.join(workdir, "inputs.npz"), train=tr, test=te)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    procs = D.spawn_processes(
+        DIST_PROCESSES,
+        [sys.executable, os.path.abspath(__file__), "--distributed-child",
+         workdir], env=env, timeout=DIST_TIMEOUT_S,
+        coordinator="file://" + os.path.join(workdir, "store"))
+    spawn_s = time.perf_counter() - t0
+    reports = []
+    for i, r in enumerate(procs):
+        if r.returncode != 0:
+            log(f"--- distributed child {i} stderr ---\n{r.stderr[-6000:]}")
+            raise RuntimeError(f"distributed child {i} exited {r.returncode}")
+        reports.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    same = {}
+    for i, rep in enumerate(reports):
+        if (rep["backend"], rep["device"]) != ("gloo", "cuda:0"):
+            raise RuntimeError(f"process {i}: {rep['backend']} on {rep['device']}")
+        for name, run in rep["runs"].items():
+            want = host_digest if name == "host" else scan["digest"]
+            got = run["digest"]
+            if run["owned_rows"] != list(blocks[i]):
+                raise RuntimeError(f"process {i} {name}: rows {run['owned_rows']}")
+            checks = {k: got[k] == want[k] for k in
+                      ("losses", "comm", "rmse", "final_rmse", "rounds",
+                       "w_global_sha")}
+            checks["w_clients_block_sha"] = got["w_clients_sha"][0] == want["w_clients_sha"][i]
+            same[f"process_{i}/{name}"] = checks
+            if not all(checks.values()):
+                raise RuntimeError(f"process {i} {name} != the one-process "
+                                   f"run: {checks}")
+            if not all(run["launches"].values()):
+                raise RuntimeError(f"process {i} {name}: a kernel never "
+                                   f"launched: {run['launches']}")
+    owned = sorted(c for r in reports for c in r["serving"]["owned_clusters"])
+    if owned != [0, 1] or not all(r["serving"]["shard_gauges"] for r in reports):
+        raise RuntimeError(f"process-sharded serving: {[r['serving'] for r in reports]}")
+
+    def per_round(run, kind):
+        ex = run["exchange"][kind]
+        return {"bytes": ex["bytes"], "s": ex["s"]}
+
+    runs = {name: [{"rounds_per_s": r["runs"][name]["rounds_per_s"],
+                    "run_s": r["runs"][name]["run_s"],
+                    "peak_device_bytes": r["runs"][name]["peak_device_bytes"],
+                    "launches": r["runs"][name]["launches"],
+                    "merge": per_round(r["runs"][name], "merge"),
+                    "gather": per_round(r["runs"][name], "gather"),
+                    **{k: r["runs"][name][k] for k in
+                       ("round_s", "store_setup_s", "store_state_bytes",
+                        "mesh_run") if k in r["runs"][name]}}
+                   for r in reports] for name in DIST_RUNS}
+    return {
+        "cell": f"nn5 full, {HOST_K} stations, cohort {HOST_S}, client "
+                f"chunk {HOST_CHUNK}, {HOST_ROUNDS} rounds, eval every "
+                f"{HOST_EVAL}, {DIST_PROCESSES} processes on one card, gloo",
+        "processes": [{"process": r["process"], "backend": r["backend"],
+                       "device": r["device"]} for r in reports],
+        "bitwise": same,
+        "one_process_scan": {k: v for k, v in scan.items() if k != "digest"},
+        "runs": runs, "spawn_s": spawn_s,
+        "serving": [r["serving"] for r in reports],
+        "launches": {name: {k: [r["runs"][name]["launches"][k] for r in reports]
+                            for k in ("psgf_mix_batch", "flash_short")}
+                     for name in DIST_RUNS},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--distributed-child"]:        # phase 10's children
+        print(json.dumps(distributed_child(sys.argv[2])))
+        return 0
     src = os.path.join(ROOT, "src")
     sys.path.insert(0, src)
     import repro_torch
@@ -2703,6 +2949,16 @@ def main() -> int:
     ssm_record["launches_zoo_training"] = zoo["launches"]["ssm_scan"]
     ssm_record["training_grads"] = zoo["ssm_scan_training_grads"]
 
+    # 10. PSGF-Fed across two processes on this card
+    torch.cuda.empty_cache()
+    distributed = drive_distributed(
+        mix_ops, ops, drivers["host_vs_loop"]["host_digest"])
+    log(json.dumps({"distributed": distributed}))
+    record["launches_distributed"] = {
+        run: n["flash_short"] for run, n in distributed["launches"].items()}
+    mix_record["launches_distributed"] = {
+        run: n["psgf_mix_batch"] for run, n in distributed["launches"].items()}
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -2715,6 +2971,7 @@ def main() -> int:
                   "launches_while_run_B": record["launches_while_run_B"],
                   "launches_host": record["launches_host"],
                   "launches_flywheel": record["launches_flywheel"],
+                  "launches_distributed": record["launches_distributed"],
                   "ms": record["ms"],
                   "ms_training_shape": record["training_shape"]["ms"]},
         "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",

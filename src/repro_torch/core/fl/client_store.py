@@ -25,8 +25,14 @@ Same key, same rounds: on one device the states and comm counters equal the
 loop driver's bit for bit. :meth:`ClientStore.evaluate_rmse` streams the
 test series through the forward in client chunks.
 
-The multi-process partition mode of the reference (``partition=``) is not
-ported yet (ROADMAP Queue A 7).
+``partition=(index, count)`` is the multi-process mode (on by itself under
+an initialized ``launch.distributed`` group): the store holds only its
+``block_range`` block of the client rows and series, and each round is the
+partitioned cycle of :mod:`repro_torch.core.fl.partition`
+(``PartitionedRound`` over the store's host rows, the cycle the device mesh
+runs over device rows: the cohort's rows merged from every process, the
+downlink and uplink replicated, LocalUpdate on this process's block of
+cohort positions), bitwise equal to the one-process run.
 """
 from __future__ import annotations
 
@@ -42,33 +48,12 @@ from repro_torch.common import pytree_utils as pt
 from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core import forecast
 from repro_torch.core.fl import engine as E
+from repro_torch.core.fl import partition as P
 from repro_torch.core.fl import policies as pol
+from repro_torch.launch import distributed
 from repro_torch.models.spec import init_params_from_key
 
 _STATE_KEYS = E._CLIENT_AXIS_KEYS
-
-
-def _host_block(specs, pinned: bool):
-    """Uninitialized host tensors of the given ``(shape, dtype)`` specs, carved
-    out of ONE allocation that is page-locked with ``cudaHostRegister`` when
-    ``pinned``: exact size (``pin_memory()``'s caching allocator rounds each
-    allocation up to a power of two, up to 2x for a large store) and one
-    registration. Returns ``(tensors, base pointer to unregister or None)``."""
-    offsets, total = [], 0
-    for shape, dtype in specs:
-        offsets.append(total)
-        total += -(-math.prod(shape) * dtype.itemsize // 64) * 64
-    raw = torch.empty(total, dtype=torch.uint8)
-    base = None
-    if pinned and total:
-        err = int(torch.cuda.cudart().cudaHostRegister(raw.data_ptr(), total, 0))
-        if err != 0:
-            raise RuntimeError(f"cudaHostRegister of {total} bytes failed: "
-                               f"CUDA error {err}")
-        base = raw.data_ptr()
-    tensors = [raw[o:o + math.prod(shape) * dtype.itemsize].view(dtype)
-               .view(shape) for o, (shape, dtype) in zip(offsets, specs)]
-    return tensors, base
 
 
 def _as_host(x) -> torch.Tensor:
@@ -86,14 +71,19 @@ class ClientStore:
     ``(K, T)`` ``train``/``test`` slices are host tensors, pinned when
     ``device`` is CUDA; the global vector ``w_global`` lives on ``device``.
     Requires ``fl_cfg.streaming_windows`` (the store holds raw slices, ~(L+T)x
-    smaller rows than materialized windows)."""
+    smaller rows than materialized windows).
+
+    ``partition=(index, count)`` with ``count > 1`` keeps only the rows
+    ``[lo, hi)`` of process ``index`` (``launch.distributed.block_range``;
+    ``num_clients`` must divide by ``count``), and ``exchange`` (a
+    :class:`repro_torch.core.fl.partition.Exchange` over the default
+    process group) carries its rounds' exchanges. ``rows`` (a
+    ``partition.OwnedRows``) holds the same host tensors with one scratch
+    row each, for the partitioned round's payload and scatter; the
+    attributes above are views of them without it."""
 
     def __init__(self, model_cfg, fl_cfg, train, test, key, init_params=None,
                  partition=None, device=DEFAULT_DEVICE):
-        if partition is not None:
-            raise NotImplementedError(
-                "ClientStore(partition=...), the multi-process store, is not "
-                "ported yet (ROADMAP Queue A 7)")
         self.device = resolve_device(device)
         if not fl_cfg.streaming_windows:
             raise ValueError(
@@ -108,6 +98,20 @@ class ClientStore:
         if train.shape[0] != K:
             raise ValueError(f"train series has {train.shape[0]} clients, "
                              f"FLConfig says num_clients={K}")
+        self.partition, self.exchange = None, None
+        self.lo, self.hi = 0, K
+        if partition is not None and int(partition[1]) > 1:
+            idx, cnt = int(partition[0]), int(partition[1])
+            if not 0 <= idx < cnt:
+                raise ValueError(f"partition index {idx} out of range "
+                                 f"for count {cnt}")
+            if K % cnt:
+                raise ValueError(
+                    f"partition mode needs num_clients divisible by the "
+                    f"process count, got K={K} over {cnt} processes")
+            self.partition = (idx, cnt)
+            self.lo, self.hi = distributed.block_range(K, idx, cnt)
+            self.exchange = P.Exchange(idx, cnt, distributed.backend(), self.device)
         if init_params is None:
             init_params = init_params_from_key(
                 forecast.model_spec(model_cfg), key, self.device)
@@ -117,25 +121,33 @@ class ClientStore:
         self.num_clients = K
         self.pinned = self.device.type == "cuda"
         D, f32 = self.meta.total, torch.float32
-        (self.w_clients, self.adam_m, self.adam_v, self.adam_t, self.train,
-         self.test), self._registered = _host_block(
-            [((K, D), f32), ((K, D), f32), ((K, D), f32),
-             ((K,), torch.int32), (tuple(train.shape), f32),
+        Kp = self.hi - self.lo
+        train, test = train[self.lo:self.hi], test[self.lo:self.hi]
+        (w, m, v, t, train_rows, self.test), self._registered = P._host_block(
+            [((Kp + 1, D), f32)] * 3 + [((Kp + 1,), torch.int32),
+             ((Kp + 1,) + tuple(train.shape[1:]), f32),
              (tuple(test.shape), f32)], self.pinned)
-        self.w_clients.copy_(self.w_global.cpu()[None, :].expand(K, D))
-        self.adam_m.zero_()
-        self.adam_v.zero_()
-        self.adam_t.zero_()
-        self.train.copy_(train)
+        w.copy_(self.w_global.cpu()[None, :].expand(Kp + 1, D))
+        for z in (m, v, t, train_rows[Kp]):
+            z.zero_()
+        train_rows[:Kp].copy_(train)
         self.test.copy_(test)
+        self.rows = P.OwnedRows(dict(zip(_STATE_KEYS, (w, m, v, t))),
+                                train_rows, self.lo, self.hi)
+        for k, rows in self.rows.state().items():
+            setattr(self, k, rows)
+        self.train = train_rows[:Kp]
         self._stage = {}      # (name, rows) -> [pinned staging buffer, event]
 
     def close(self):
-        """Unpin the store (its tensors stay usable as ordinary host
-        memory). Called when the store is collected."""
+        """Unpin the store and its transport buffers (its tensors stay
+        usable as ordinary host memory). Called when the store is
+        collected."""
         if self._registered is not None:
             torch.cuda.cudart().cudaHostUnregister(self._registered)
             self._registered = None
+        if self.exchange is not None:
+            self.exchange.close()
 
     def __del__(self):
         if getattr(self, "_registered", None) is not None:
@@ -210,7 +222,11 @@ class ClientStore:
     def evaluate_rmse(self, w_vec, client_chunk: Optional[int] = None) -> float:
         """RMSE of the global model over all clients' test windows, streamed
         from the store in client chunks (default ``min(K, 1024)``). Equals
-        ``engine.evaluate_rmse`` up to float summation order."""
+        ``engine.evaluate_rmse`` up to float summation order. In partition
+        mode each process streams its own block and the per-chunk float32
+        sums are gathered and added in (process, chunk) order: the
+        one-process order, bit for bit, when ``chunk`` divides ``K /
+        count``."""
         K = self.num_clients
         chunk = client_chunk if client_chunk is not None else min(K, 1024)
         Lb, H = self.model_cfg.look_back, self.model_cfg.horizon
@@ -218,16 +234,21 @@ class ClientStore:
         widx = (torch.arange(n, device=self.device)[:, None]
                 + torch.arange(Lb + H, device=self.device)[None, :])
         params = pt.tree_unflatten_from_vector(w_vec, self.meta)
-        sse = 0.0
+        sums = []
         with torch.no_grad():
-            for lo in range(0, K, chunk):
+            for lo in range(0, self.hi - self.lo, chunk):
                 part = self.test[lo:lo + chunk].to(self.device,
                                                    non_blocking=True)
                 win = part[:, widx]                          # (C, n, L+T)
                 pred = forecast.forward(self.model_cfg, params,
                                         win[:, :, :Lb].reshape(-1, Lb))
                 err = pred - win[:, :, Lb:].reshape(-1, H)
-                sse += float(torch.sum(torch.square(err)))
+                sums.append(float(torch.sum(torch.square(err))))
+        if self.exchange is not None:
+            sums = self.exchange.gather_values(sums)
+        sse = 0.0
+        for v in sums:
+            sse += v
         return math.sqrt(sse / (K * n * H))
 
 
@@ -243,34 +264,44 @@ def run_fl_host(model_cfg, fl_cfg, train_data, test_data, key, *,
     store, ``history["client_store_setup_s"]``, the host seconds that built
     it, and ``history["round_s"]``, each round's host seconds (its cohort's
     copies, its evaluation where due, and the read of its loss, which waits
-    for the round). ``partition=`` (several processes) is not ported yet (ROADMAP
-    Queue A 7) and raises."""
-    if partition is not None:
-        raise NotImplementedError(
-            "run_fl_host(partition=...), the multi-process host driver, is "
-            "not ported yet (ROADMAP Queue A 7)")
+    for the round).
+
+    ``partition=(index, count)`` (by default ``(process_index(),
+    process_count())`` under an initialized process group) runs the
+    partitioned round of :mod:`repro_torch.core.fl.partition`: this process
+    holds rows ``history["owned_rows"]`` of the store and trains its block
+    of each cohort; ``history["exchange"]`` holds the bytes and seconds of
+    each exchange. Needs :func:`partition.validate_partition`'s conditions
+    with ``streamed_eval``; process 0 alone writes the checkpoint."""
     dev = resolve_device(device)
+    if partition is None and distributed.process_count() > 1:
+        partition = (distributed.process_index(), distributed.process_count())
+    if partition is not None and int(partition[1]) <= 1:
+        partition = None
+    K, S = fl_cfg.num_clients, fl_cfg.participation_size()
+    if partition is not None:
+        P.validate_partition(K, S, int(partition[1]), fl_cfg.client_chunk,
+                             streamed_eval=True)
+        if int(partition[0]) != 0:
+            checkpoint_dir = None      # process 0 owns the checkpoint write
     policy = pol.from_config(fl_cfg) if policy is None else policy
     key = E._as_device(key, dev, torch.int64)
     key, init_key = R.split(key).unbind(0)
     t0 = time.perf_counter()
     store = ClientStore(model_cfg, fl_cfg, train_data, test_data, init_key,
-                        init_params=init_params, device=dev)
+                        init_params=init_params, partition=partition,
+                        device=dev)
     W = model_cfg.look_back + model_cfg.horizon
     if min(store.train.shape[1], store.test.shape[1]) < W:
         raise ValueError(
             f"raw series slices too short for look_back+horizon={W}: "
             f"train T={store.train.shape[1]}, test T={store.test.shape[1]}")
 
-    K, S = fl_cfg.num_clients, fl_cfg.participation_size()
     meta = store.meta
-    zero = lambda: torch.zeros((), dtype=E.ACCOUNTING_DTYPE, device=dev)  # noqa: E731
-    server = {"w_global": store.w_global,
-              "round": torch.zeros((), dtype=torch.int32, device=dev),
-              "comm_down": zero(), "comm_up": zero()}
-    if fl_cfg.comm_bits == 8:
-        server["comm_scales"] = zero()
-    full_cohort = torch.arange(K)
+    ex = store.exchange
+    server = E._server_state(store.w_global, fl_cfg)
+    cycle = None if ex is None else P.PartitionedRound(
+        store.rows, ex, server, key.clone(), model_cfg, fl_cfg, meta, policy)
 
     history = {"round": [], "train_loss": [], "comm": [], "rmse": [],
                "client_store_setup_s": time.perf_counter() - t0,
@@ -278,25 +309,22 @@ def run_fl_host(model_cfg, fl_cfg, train_data, test_data, key, *,
     best_loss, stall, comm_total = math.inf, 0, 0.0
     for r in range(max_rounds):
         t0 = time.perf_counter()
-        key, rk = R.split(key).unbind(0)
-        if S < K:
-            # the device drivers' key chain: _round splits (k_cohort,
-            # k_round) off the round key
-            k_cohort, rk = R.split(rk).unbind(0)
-            cohort = E.sample_cohort(k_cohort, K, S).cpu()
+        if cycle is not None:
+            cycle.run()                # the server state updated in place
+            metrics = cycle.metrics
         else:
-            cohort = full_cohort
-        sub = store.gather(cohort)
-        data = store.gather_train(cohort)
-        sub_state = {**server, **sub}
-        down = E._round_down(sub_state, rk, fl_cfg, meta, policy)
-        upd = E._local_update_all(model_cfg, fl_cfg, meta, down["w_mixed"],
-                                  sub["adam_m"], sub["adam_v"], sub["adam_t"],
-                                  data, R.split(down["k_local"], cohort.numel()))
-        sub_new, metrics = E._round_up(sub_state, down, upd, fl_cfg, meta,
-                                       policy)
-        store.scatter(cohort, sub_new)
-        server = {k: sub_new[k] for k in server}
+            key, rk, cohort = P.draw_round(key, K, S)
+            cohort = cohort.cpu()
+            sub = store.gather(cohort)
+            merged = tuple(sub[k] for k in _STATE_KEYS) + (
+                store.gather_train(cohort),)
+            sub_state, down, upd = P.local_stage(server, merged, rk, (0, S),
+                                                 model_cfg, fl_cfg, meta,
+                                                 policy)
+            sub_new, metrics = E._round_up(sub_state, down, tuple(upd),
+                                           fl_cfg, meta, policy)
+            store.scatter(cohort, sub_new)
+            server = {k: sub_new[k] for k in server}
 
         loss = float(metrics["train_loss"])
         comm_total = float(metrics["comm_total"])
@@ -324,5 +352,8 @@ def run_fl_host(model_cfg, fl_cfg, train_data, test_data, key, *,
     state = dict(server)
     state.update({k: getattr(store, k) for k in _STATE_KEYS})
     history["client_store"] = store
+    if ex is not None:
+        history["exchange"] = ex.stats
+        history["owned_rows"] = (store.lo, store.hi)
     return E._finalize_history(history, state, meta, model_cfg, fl_cfg,
                                final_rmse, comm_total, checkpoint_dir)

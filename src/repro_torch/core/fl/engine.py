@@ -47,12 +47,18 @@ Drivers (the same rounds, in the same order, from the same key):
     only each round's cohort on the device
     (:mod:`repro_torch.core.fl.client_store`), with the loop driver's stop.
 
+Across processes (``launch.distributed``): ``run_fl(driver="scan"|"while",
+client_mesh=launch.mesh.make_client_mesh(multi_host=True))`` holds only this
+process's block of the client rows on its device, and ``driver="host"``
+under an initialized group partitions the host store; both run the
+partitioned round of :mod:`repro_torch.core.fl.partition` and equal the
+one-process run bit for bit. ``shard_clients=True`` and a one-process mesh
+on one device are the unsharded run; several GPUs in one process are not
+ported (ROADMAP Queue A 11) and raise.
+
 :func:`sync_round` is the train-free gate/aggregate/distribute cycle over
 client-stacked trees that ``core.psgf_dp`` syncs its pods with, under the
 leaf-granularity ``LeafPSGF`` policy.
-
-Not ported yet: ``shard_clients`` and ``client_mesh`` (ROADMAP A13,
-multi-GPU).
 """
 from __future__ import annotations
 
@@ -328,27 +334,40 @@ def init_fl_state(model_cfg: forecast.ForecastConfig, fl_cfg: FLConfig, key,
     instead, as the reference's flywheel does; Adam moments start at zero
     either way."""
     dev = resolve_device(device)
+    vec, meta = _init_vector(model_cfg, key, init_params, dev)
+    server = _server_state(vec, fl_cfg)
+    state = {"w_global": vec, **_client_rows(vec, fl_cfg.num_clients)}
+    state.update((k, v) for k, v in server.items() if k != "w_global")
+    return state, meta
+
+
+def _init_vector(model_cfg, key, init_params, dev):
+    """The flat float32 params on ``dev`` (drawn from ``key`` unless
+    ``init_params`` is given) and their meta."""
     if init_params is None:
         init_params = S.init_params_from_key(forecast.model_spec(model_cfg),
                                              key, dev)
     vec, meta = pt.tree_flatten_to_vector(init_params)
-    vec = vec.to(device=dev, dtype=torch.float32)
-    K = fl_cfg.num_clients
-    zeros = lambda *shape, dtype=ACCOUNTING_DTYPE: torch.zeros(  # noqa: E731
-        shape, dtype=dtype, device=dev)
-    state = {
-        "w_global": vec,
-        "w_clients": vec[None, :].repeat(K, 1),
-        "adam_m": zeros(K, meta.total, dtype=torch.float32),
-        "adam_v": zeros(K, meta.total, dtype=torch.float32),
-        "adam_t": zeros(K, dtype=torch.int32),
-        "round": zeros(dtype=torch.int32),
-        "comm_down": zeros(),
-        "comm_up": zeros(),
-    }
+    return vec.to(device=dev, dtype=torch.float32), meta
+
+
+def _server_state(vec, fl_cfg):
+    """The server side of a fresh state: the global vector and the counters."""
+    zero = lambda dtype=ACCOUNTING_DTYPE: torch.zeros(  # noqa: E731
+        (), dtype=dtype, device=vec.device)
+    server = {"w_global": vec, "round": zero(torch.int32),
+              "comm_down": zero(), "comm_up": zero()}
     if fl_cfg.comm_bits == 8:
-        state["comm_scales"] = zeros()
-    return state, meta
+        server["comm_scales"] = zero()
+    return server
+
+
+def _client_rows(vec, n: int):
+    """``n`` fresh client rows: copies of ``vec``, zero Adam moments."""
+    D = vec.shape[0]
+    return {"w_clients": vec[None, :].repeat(n, 1),
+            "adam_m": vec.new_zeros((n, D)), "adam_v": vec.new_zeros((n, D)),
+            "adam_t": torch.zeros((n,), dtype=torch.int32, device=vec.device)}
 
 
 def _num_windows(model_cfg, data) -> int:
@@ -666,11 +685,7 @@ def _while_chunk(state, flags, num_rounds: int, train_data, test_data,
                                     model_cfg, fl_cfg, meta, policy, num_rounds)
     best, stall, stop = flags["best"], flags["stall"], flags["stop"]
     for loss in ms["train_loss"].unbind(0):
-        improved = loss < best - 1e-5
-        nstall = torch.where(improved, 0, stall + 1)
-        best = torch.where(stop, best, torch.where(improved, loss, best))
-        stall = torch.where(stop, stall, nstall)
-        stop = stop | (nstall >= patience)
+        best, stall, stop = _patience_step(best, stall, stop, loss, patience)
     # a chunk past the end writes at 0, never past the buffers, and is
     # masked back below
     r0 = torch.where(done, 0, flags["r"])
@@ -687,6 +702,62 @@ def _while_chunk(state, flags, num_rounds: int, train_data, test_data,
     }
     return ({k: torch.where(done, v, new_state[k]) for k, v in state.items()},
             {k: torch.where(done, v, new_flags[k]) for k, v in flags.items()})
+
+
+def _patience_step(best, stall, stop, loss, patience: int):
+    """One round of the scan driver's patience test on the device, in
+    float32: an improvement is ``loss < best - 1e-5``; once ``stop`` is set,
+    ``best`` and ``stall`` freeze. Returns the new ``(best, stall, stop)``."""
+    improved = loss < best - 1e-5
+    nstall = torch.where(improved, 0, stall + 1)
+    return (torch.where(stop, best, torch.where(improved, loss, best)),
+            torch.where(stop, stall, nstall), stop | (nstall >= patience))
+
+
+def _while_flags(key, n_chunks: int, eval_every: int) -> dict:
+    """The while driver's device-side run state: the key chain, the
+    patience state, the round and chunk counters and the history buffers
+    of ``n_chunks`` chunks."""
+    dev = key.device
+    zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,  # noqa: E731
+                                             device=dev)
+    return {
+        "key": key.clone(),
+        "best": torch.full((), math.inf, dtype=torch.float32, device=dev),
+        "stall": zeros((), torch.int32),
+        "stop": zeros((), torch.bool),
+        "r": zeros((), torch.int64),
+        "c": zeros((), torch.int64),
+        "loss_buf": zeros(n_chunks * eval_every, torch.float32),
+        "comm_buf": zeros(n_chunks * eval_every, ACCOUNTING_DTYPE),
+        "rmse_buf": zeros(n_chunks, torch.float32),
+    }
+
+
+def _read_while(flags):
+    """The one blocking read of a while run: ``(rounds_run, chunks_run,
+    losses, comm totals, RMSE per chunk)`` as Python lists."""
+    host = {k: flags[k].cpu()
+            for k in ("r", "c", "loss_buf", "comm_buf", "rmse_buf")}
+    rounds, chunks = int(host["r"]), int(host["c"])
+    return (rounds, chunks, host["loss_buf"][:rounds].tolist(),
+            host["comm_buf"][:rounds].tolist(),
+            host["rmse_buf"][:chunks].tolist())
+
+
+def _chunk_history(rounds_run, losses, comms, rmses, eval_every: int,
+                   max_rounds: int, verbose: bool) -> dict:
+    """``run_fl``'s history of a run read back at its end (an RMSE at each
+    chunk's last round)."""
+    history = {"round": list(range(rounds_run)), "train_loss": losses,
+               "comm": comms, "rmse": []}
+    for i, rmse in enumerate(rmses):
+        r_end = min((i + 1) * eval_every, max_rounds) - 1
+        history["rmse"].append((r_end, rmse))
+        if verbose:
+            print(f"round {r_end:4d}  loss {losses[r_end]:.4f}  "
+                  f"rmse {rmse:.4f}  comm {comms[r_end]:.3e}")
+    return history
 
 
 @contextlib.contextmanager
@@ -738,21 +809,8 @@ class _WhileRun:
         dev = key.device
         full, rem = divmod(max_rounds, eval_every)
         self.lengths = [eval_every] * full + ([rem] if rem else [])
-        n = len(self.lengths)
-        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype,  # noqa: E731
-                                                 device=dev)
         self.state = state
-        self.flags = {
-            "key": key.clone(),
-            "best": torch.full((), math.inf, dtype=torch.float32, device=dev),
-            "stall": zeros((), torch.int32),
-            "stop": zeros((), torch.bool),
-            "r": zeros((), torch.int64),
-            "c": zeros((), torch.int64),
-            "loss_buf": zeros(n * eval_every, torch.float32),
-            "comm_buf": zeros(n * eval_every, ACCOUNTING_DTYPE),
-            "rmse_buf": zeros(n, torch.float32),
-        }
+        self.flags = _while_flags(key, len(self.lengths), eval_every)
         self._chunk = lambda st, fl, rounds: _while_chunk(  # noqa: E731
             st, fl, rounds, train_data, test_data, model_cfg, fl_cfg, meta,
             policy, max_rounds, patience)
@@ -825,14 +883,10 @@ class _WhileRun:
         """The run's one blocking read: ``(rounds_run, chunks_run, losses,
         comm totals, RMSE per chunk)`` as Python lists of the rounds and
         chunks run."""
-        host = {k: self.flags[k].cpu()
-                for k in ("r", "c", "loss_buf", "comm_buf", "rmse_buf")}
+        out = _read_while(self.flags)
         if self._t0 is not None:
             self.replay_s = time.perf_counter() - self._t0
-        rounds, chunks = int(host["r"]), int(host["c"])
-        return (rounds, chunks, host["loss_buf"][:rounds].tolist(),
-                host["comm_buf"][:rounds].tolist(),
-                host["rmse_buf"][:chunks].tolist())
+        return out
 
 
 def run_fl(
@@ -877,19 +931,31 @@ def run_fl(
     * ``"host"`` keeps the client state in host memory and moves each
       round's cohort only (:func:`repro_torch.core.fl.client_store.
       run_fl_host`; needs ``streaming_windows``; the loop driver's stop;
-      ``history["client_store"]``).
+      ``history["client_store"]``); under an initialized process group each
+      process holds one block of the store.
+
+    ``client_mesh`` (``launch.mesh.make_client_mesh``) with ``"scan"`` or
+    ``"while"``: across the processes of a ``multi_host=True`` mesh each
+    holds its block of the client rows on its device
+    (:func:`repro_torch.core.fl.partition.run_fl_mesh`: ``state`` holds
+    those rows, ``history["owned_rows"]`` says which, ``history
+    ["exchange"]`` the bytes and seconds of each exchange); on one process
+    and one device it is the unsharded run, as is ``shard_clients=True``.
+    Several local GPUs in one process raise (ROADMAP Queue A 11).
 
     ``init_params`` warm-starts from a params tree. ``checkpoint_dir`` saves
-    the final global model with ``save_forecaster``.
+    the final global model with ``save_forecaster`` (process 0 alone across
+    processes).
     """
     if eval_every < 1:
         raise ValueError(f"eval_every must be >= 1, got {eval_every}")
     if driver not in ("loop", "scan", "while", "host"):
         raise ValueError(f"unknown driver: {driver!r}")
-    if shard_clients or client_mesh is not None:
-        raise NotImplementedError(
-            "shard_clients / client_mesh (the client axis over several GPUs "
-            "or hosts) are not ported yet (ROADMAP A13)")
+    if client_mesh is not None and driver not in ("while", "scan"):
+        raise ValueError(
+            f"client_mesh applies to driver='while'|'scan' (got {driver!r}); "
+            f"driver='host' spans processes through the ClientStore's own "
+            f"partition mode (automatic under an initialized process group)")
     if driver == "host":
         # before any (K, D) allocation on the device: that is what it avoids
         from repro_torch.core.fl.client_store import run_fl_host
@@ -900,23 +966,33 @@ def run_fl(
                            policy=policy, checkpoint_dir=checkpoint_dir,
                            init_params=init_params, device=device)
     dev = resolve_device(device)
+    _check_layout(model_cfg, fl_cfg, train_data, test_data)
+    if shard_clients or client_mesh is not None:
+        from repro_torch.launch.mesh import make_client_mesh
+
+        mesh = client_mesh if client_mesh is not None else make_client_mesh(
+            device=dev)
+        if len(mesh.devices) > 1:
+            raise NotImplementedError(
+                f"the client axis over {len(mesh.devices)} local GPUs in one "
+                f"process is not ported (ROADMAP Queue A 11); run one "
+                f"process per GPU with launch.distributed and "
+                f"make_client_mesh(multi_host=True)")
+        if mesh.count > 1:
+            if _normalized(dev) != _normalized(mesh.device):
+                raise ValueError(f"run_fl(device={device!r}) but this "
+                                 f"process's mesh device is {mesh.device}")
+            from repro_torch.core.fl.partition import run_fl_mesh
+
+            return run_fl_mesh(model_cfg, fl_cfg, train_data, test_data, key,
+                               mesh, driver=driver, max_rounds=max_rounds,
+                               patience=patience, eval_every=eval_every,
+                               verbose=verbose, policy=policy,
+                               checkpoint_dir=checkpoint_dir,
+                               init_params=init_params)
+        # one process on one device: the unsharded run below, bit for bit
     train_data = _as_device(train_data, dev, torch.float32)
     test_data = _as_device(test_data, dev, torch.float32)
-    want = 2 if fl_cfg.streaming_windows else 3
-    if train_data.dim() != want or test_data.dim() != want:
-        raise ValueError(
-            f"streaming_windows={fl_cfg.streaming_windows} expects "
-            f"{want}-D train/test data "
-            f"({'raw (K, T) series slices' if want == 2 else 'materialized (K, n_win, L+T) windows'}), "
-            f"got ndim {train_data.dim()}/{test_data.dim()} — build the inputs "
-            f"with repro_torch.data.windowing."
-            f"{'client_series_datasets' if want == 2 else 'client_datasets'}")
-    if fl_cfg.streaming_windows:
-        W = model_cfg.look_back + model_cfg.horizon
-        if min(train_data.shape[1], test_data.shape[1]) < W:
-            raise ValueError(
-                f"raw series slices too short for look_back+horizon={W}: "
-                f"train T={train_data.shape[1]}, test T={test_data.shape[1]}")
     policy = pol.from_config(fl_cfg) if policy is None else policy
     key = _as_device(key, dev, torch.int64)
     key, init_key = R.split(key).unbind(0)
@@ -936,15 +1012,9 @@ def run_fl(
         run.launch()
         rounds_run, _, losses, comms, rmses = run.read()
         state = run.state
-        history["round"] = list(range(rounds_run))
-        history["train_loss"], history["comm"] = losses, comms
+        history = _chunk_history(rounds_run, losses, comms, rmses, eval_every,
+                                 max_rounds, verbose)
         comm_total = comms[-1] if comms else 0.0
-        for i, rmse in enumerate(rmses):
-            r_end = min((i + 1) * eval_every, max_rounds) - 1
-            history["rmse"].append((r_end, rmse))
-            if verbose:
-                print(f"round {r_end:4d}  loss {losses[r_end]:.4f}  "
-                      f"rmse {rmse:.4f}  comm {comms[r_end]:.3e}")
         # the run's record, not the run: its graphs and their memory pool
         # go with it, and nothing replays into the returned state again
         history["while_run"] = {
@@ -991,6 +1061,33 @@ def run_fl(
         final_rmse = rmse_now()
     return _finalize_history(history, state, meta, model_cfg, fl_cfg,
                              final_rmse, comm_total, checkpoint_dir)
+
+
+def _check_layout(model_cfg, fl_cfg, train_data, test_data):
+    """Raise unless the data's layout matches ``fl_cfg.streaming_windows``
+    (and raw slices hold at least one window)."""
+    want = 2 if fl_cfg.streaming_windows else 3
+    if train_data.ndim != want or test_data.ndim != want:
+        raise ValueError(
+            f"streaming_windows={fl_cfg.streaming_windows} expects "
+            f"{want}-D train/test data "
+            f"({'raw (K, T) series slices' if want == 2 else 'materialized (K, n_win, L+T) windows'}), "
+            f"got ndim {train_data.ndim}/{test_data.ndim} — build the inputs "
+            f"with repro_torch.data.windowing."
+            f"{'client_series_datasets' if want == 2 else 'client_datasets'}")
+    if fl_cfg.streaming_windows:
+        W = model_cfg.look_back + model_cfg.horizon
+        if min(train_data.shape[1], test_data.shape[1]) < W:
+            raise ValueError(
+                f"raw series slices too short for look_back+horizon={W}: "
+                f"train T={train_data.shape[1]}, test T={test_data.shape[1]}")
+
+
+def _normalized(dev: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:{current device}``; other devices as they are."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _finalize_history(history, state, meta, model_cfg, fl_cfg, final_rmse,

@@ -1,0 +1,547 @@
+"""The partitioned FL round: several processes, each holding one block of the
+client axis, train as one (the multi-process paths of the reference's
+``core/fl/client_store.py`` partition mode and ``core/fl/engine.py``
+client mesh).
+
+Every process replays the same key chain, so it draws the same cohorts,
+selections and gates, and holds only its ``launch.distributed.block_range``
+rows of the client state (params, Adam moments, step counts) and of the
+train series (:class:`OwnedRows`). A round is five stages, one cycle
+(:class:`PartitionedRound`) for the host store (rows in host memory,
+``client_store.run_fl_host``) and the device mesh (rows on the device,
+:class:`MeshRun`):
+
+  1. ``OwnedRows.cohort_payload``: the full-shape ``(S, ...)`` cohort rows,
+     zeros outside the rows this process owns;
+  2. :meth:`Exchange.merge` (the int32 bit sum of
+     ``distributed.merge_disjoint``): every process now holds the whole
+     cohort bit for bit, and runs the downlink (``engine._round_down``)
+     replicated;
+  3. LocalUpdate (``engine._local_update_all``) on this process's
+     contiguous block of ``S / count`` cohort positions (:func:`local_stage`);
+  4. :meth:`Exchange.gather` of the blocks (``all_gather``, pure movement),
+     then the uplink and aggregation (``engine._round_up``) replicated;
+  5. ``OwnedRows.scatter_owned``: each process writes back the cohort rows
+     it owns.
+
+Every arithmetic stage either runs replicated on identical inputs or runs
+exactly the rows and ``client_chunk`` chunks the one-process run runs, and
+every exchange is bit transport, so under :func:`validate_partition` states,
+comm counters and losses equal the one-process run's bit for bit, and so
+does the RMSE: the mesh evaluates the replicated test series, the host
+store streams each process's rows in ``client_chunk`` chunks, which
+``validate_partition(streamed_eval=True)`` aligns with the one-process
+run's.
+
+The exchange volume is the reference's: the merge moves the full-shape
+payload from every process (three ``(S, D)`` float32 leaves, the step counts
+and the ``(S, ...)`` train rows), the gather a block of ``S / count`` rows of
+each. Under gloo the transport buffers are host memory (one block pinned
+with ``cudaHostRegister`` when the device is CUDA), under NCCL device memory.
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Optional
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch import random as R
+from repro_torch.common import pytree_utils as pt
+from repro_torch.core.fl import engine as E
+from repro_torch.launch import distributed as D
+
+_ROWS = E._CLIENT_AXIS_KEYS
+_F32, _I32 = torch.float32, torch.int32
+
+
+def validate_partition(K: int, S: int, count: int,
+                       client_chunk: Optional[int], *,
+                       streamed_eval: bool = False) -> None:
+    """The conditions under which a ``count``-process run equals the
+    one-process run bit for bit (``docs/distributed.md``, "Bitwise
+    alignment conditions"); raises ``ValueError`` otherwise.
+
+    The port also requires ``client_chunk`` (the reference only documents
+    it): a client's gradients depend on how many clients share its vmap (on
+    the CPU, at d_model 128, a vmap of 2 and one of 4 differ in the last
+    bits; cuBLAS picks its kernels by batch too), so every process must run
+    exactly the chunks the one-process run runs. ``streamed_eval`` (the
+    host store, whose RMSE streams each process's ``K / count`` rows in
+    ``client_chunk`` chunks) also needs ``client_chunk`` to divide
+    ``K / count``, so that the chunks' sums are the one-process run's."""
+    if K % count:
+        raise ValueError(
+            f"partition mode needs num_clients divisible by the process "
+            f"count, got K={K} over {count} processes")
+    if S % count or S // count < 2:
+        raise ValueError(
+            f"partition mode needs the cohort size divisible by the process "
+            f"count with >= 2 rows per process (vmapped LocalUpdate rows are "
+            f"batch-invariant only for batches >= 2), got participation={S} "
+            f"over {count} processes")
+    block = S // count
+    if client_chunk is None or block % client_chunk:
+        raise ValueError(
+            f"partition mode needs FLConfig.client_chunk to divide the "
+            f"{block} cohort rows of each process (participation={S} over "
+            f"{count} processes), got client_chunk={client_chunk}: a client's "
+            f"gradients depend on how many clients share its vmap, so each "
+            f"process must run the one-process run's own chunks")
+    if streamed_eval and (K // count) % client_chunk:
+        raise ValueError(
+            f"the host store's partition mode needs FLConfig.client_chunk to "
+            f"divide the {K // count} store rows of each process too "
+            f"(num_clients={K} over {count} processes), got client_chunk="
+            f"{client_chunk}: each process streams its RMSE in chunks of its "
+            f"own rows, whose sums are the one-process run's only at the "
+            f"same chunk boundaries")
+
+
+def _host_block(specs, pinned: bool):
+    """Uninitialized host tensors of the given ``(shape, dtype)`` specs, carved
+    out of ONE allocation that is page-locked with ``cudaHostRegister`` when
+    ``pinned``: exact size (``pin_memory()``'s caching allocator rounds each
+    allocation up to a power of two, up to 2x for a large store), one
+    registration, and copies that a CUDA graph may hold (the caching host
+    allocator records events on its blocks). Returns ``(tensors, base
+    pointer to unregister or None)``."""
+    offsets, total = [], 0
+    for shape, dtype in specs:
+        offsets.append(total)
+        total += -(-math.prod(shape) * dtype.itemsize // 64) * 64
+    raw = torch.empty(total, dtype=torch.uint8)
+    base = None
+    if pinned and total:
+        err = int(torch.cuda.cudart().cudaHostRegister(raw.data_ptr(), total, 0))
+        if err != 0:
+            raise RuntimeError(f"cudaHostRegister of {total} bytes failed: "
+                               f"CUDA error {err}")
+        base = raw.data_ptr()
+    tensors = [raw[o:o + math.prod(shape) * dtype.itemsize].view(dtype)
+               .view(shape) for o, (shape, dtype) in zip(offsets, specs)]
+    return tensors, base
+
+
+def merge_specs(S: int, D_: int, row_shape) -> list:
+    """The merge's ``(shape, dtype)``: w, m, v ``(S, D)``, t ``(S,)``, the
+    train rows ``(S, *row_shape)``."""
+    return [((S, D_), _F32)] * 3 + [((S,), _I32), ((S,) + tuple(row_shape), _F32)]
+
+
+def update_specs(rows: int, D_: int) -> list:
+    """A LocalUpdate result of ``rows`` clients: w, m, v, t and the loss."""
+    return [((rows, D_), _F32)] * 3 + [((rows,), _I32), ((rows,), _F32)]
+
+
+class Exchange:
+    """The exchanges of a partitioned run over the default process group,
+    with their cost: ``stats[kind]["bytes"]`` (what this process hands to
+    the collective) and ``["s"]`` (host seconds inside the call, the wait
+    for the slower process included; under NCCL the call only enqueues) for
+    each call, so one entry per round for ``"merge"`` and ``"gather"`` and
+    one per evaluation for ``"rmse"``.
+
+    :meth:`buffers` holds the transport tensors by name, allocated once:
+    host memory under gloo (pinned when ``device`` is CUDA), device memory
+    under NCCL."""
+
+    def __init__(self, index: int, count: int, backend: Optional[str],
+                 device: torch.device):
+        self.index, self.count = index, count
+        self.backend = backend or "gloo"
+        self.device = device
+        self.on_host = self.backend != "nccl"
+        self.pinned = self.on_host and device.type == "cuda"
+        self._slots = {}         # name -> [tensors, registered base or None]
+        self.stats = {"backend": self.backend, "processes": count,
+                      **{k: {"bytes": [], "s": []}
+                         for k in ("merge", "gather", "rmse")}}
+
+    def buffers(self, name: str, specs) -> list:
+        """The transport tensors of ``name``, allocated at the first call."""
+        slot = self._slots.get(name)
+        if slot is None:
+            if self.on_host:
+                tensors, base = _host_block(specs, self.pinned)
+            else:
+                tensors, base = [torch.empty(s, dtype=d, device=self.device)
+                                 for s, d in specs], None
+            slot = self._slots[name] = [tensors, base]
+        return slot[0]
+
+    def _timed(self, kind: str, nbytes: int, fn) -> None:
+        t0 = time.perf_counter()
+        fn()
+        self.stats[kind]["s"].append(time.perf_counter() - t0)
+        self.stats[kind]["bytes"].append(int(nbytes))
+
+    def merge(self, bufs) -> None:
+        """Stage 2's exchange, in place on transport tensors: every
+        process's disjoint rows summed as int32 words."""
+        def run():
+            for b in bufs:
+                D.all_reduce_bits_(b)
+        self._timed("merge", sum(b.nbytes for b in bufs), run)
+
+    def gather(self, blocks, outs) -> None:
+        """Stage 4's exchange: ``outs[i]`` <- every process's ``blocks[i]``
+        in process order."""
+        def run():
+            for b, o in zip(blocks, outs):
+                D.all_gather_rows_(b, o)
+        self._timed("gather", sum(b.nbytes for b in blocks), run)
+
+    def gather_values(self, values) -> list:
+        """Every process's list of float32 ``values`` (equal lengths) in
+        process order (the RMSE's per-chunk sums)."""
+        dev = "cpu" if self.on_host else self.device
+        mine = torch.tensor(values, dtype=_F32, device=dev)
+        full = torch.empty(self.count * len(values), dtype=_F32, device=dev)
+        self._timed("rmse", mine.nbytes,
+                    lambda: D.all_gather_rows_(mine, full))
+        return full.tolist()
+
+    def close(self) -> None:
+        """Unpin the host transport buffers."""
+        for slot in self._slots.values():
+            if slot[1] is not None:
+                torch.cuda.cudart().cudaHostUnregister(slot[1])
+                slot[1] = None
+
+
+def draw_round(key, K: int, S: int):
+    """One round of every driver's key chain: ``(next chain key, round key,
+    cohort)``, the cohort of ``S < K`` clients drawn from the round key as
+    ``engine._round`` draws it (all ``K`` clients otherwise)."""
+    key, rk = R.split(key).unbind(0)
+    if S < K:
+        k_cohort, rk = R.split(rk).unbind(0)
+        return key, rk, E.sample_cohort(k_cohort, K, S)
+    return key, rk, torch.arange(K, device=rk.device)
+
+
+def local_stage(server, merged, rk, block, model_cfg, fl_cfg, meta, policy):
+    """Stages 2-3 on the merged cohort rows ``(w, m, v, t, train)``: the
+    downlink on the whole cohort, LocalUpdate on the cohort positions
+    ``block = (lo, hi)``. Returns ``(cohort state, downlink, LocalUpdate
+    result of the block)``."""
+    w_c, a_m, a_v, a_t, data = merged
+    sub_state = {**server, "w_clients": w_c, "adam_m": a_m, "adam_v": a_v,
+                 "adam_t": a_t}
+    down = E._round_down(sub_state, rk, fl_cfg, meta, policy)
+    lo, hi = block
+    keys = R.split(down["k_local"], w_c.shape[0])
+    with record_function("fl.local_update"):
+        upd = E._local_update_all(model_cfg, fl_cfg, meta,
+                                  down["w_mixed"][lo:hi], a_m[lo:hi],
+                                  a_v[lo:hi], a_t[lo:hi], data[lo:hi],
+                                  keys[lo:hi])
+    return sub_state, down, upd
+
+
+class OwnedRows:
+    """This process's block ``[lo, hi)`` of the client-axis state and of the
+    train rows, in host memory (the host store) or on the device (the
+    mesh), each with one scratch row at the end (index ``hi - lo``): a
+    cohort position that another process owns reads and writes the scratch
+    row, so no stage depends on how many positions this process owns (a
+    shape that would need a host read, which no CUDA graph can hold)."""
+
+    def __init__(self, rows: dict, train: torch.Tensor, lo: int, hi: int):
+        self.rows, self.train = rows, train
+        self.lo, self.n = lo, hi - lo
+        self.device = train.device
+
+    def _locate(self, cohort):
+        cohort = cohort.to(self.device)
+        own = (cohort >= self.lo) & (cohort < self.lo + self.n)
+        return own, torch.where(own, cohort - self.lo, self.n)
+
+    def cohort_payload(self, cohort, out) -> None:
+        """Stage 1 into the transport tensors ``out`` (:func:`merge_specs`):
+        the full-shape cohort rows of w, m, v, t and the train series, the
+        owned positions from the block, exact zeros elsewhere."""
+        own, loc = self._locate(cohort)
+        srcs = [self.rows[k] for k in _ROWS] + [self.train]
+        for src, dst in zip(srcs, out):
+            got = src.index_select(0, loc)
+            got.masked_fill_(~own.reshape((-1,) + (1,) * (got.dim() - 1)), 0)
+            dst.copy_(got, non_blocking=True)
+
+    def scatter_owned(self, cohort, sub: dict) -> None:
+        """Stage 5: the owned cohort rows of ``sub`` into the block (the
+        others into the scratch row)."""
+        _, loc = self._locate(cohort)
+        for k in _ROWS:
+            self.rows[k].index_copy_(0, loc, sub[k].to(self.device))
+
+    def state(self) -> dict:
+        return {k: v[:self.n] for k, v in self.rows.items()}
+
+
+class PartitionedRound:
+    """One round of the partitioned cycle (the module docstring's stages
+    1-5), the same for the host store and the device mesh: they differ only
+    in where ``rows`` (:class:`OwnedRows`) live. Every stage reads and
+    writes static tensors (the chain ``key`` and ``server``, updated in
+    place, the transport buffers of ``ex`` and device buffers allocated
+    here), so :class:`MeshRun` can capture each stage as a CUDA graph and
+    replay it; :meth:`run` puts the host exchanges between them."""
+
+    def __init__(self, rows: OwnedRows, ex: Exchange, server: dict, key,
+                 model_cfg, fl_cfg, meta, policy):
+        dev = key.device
+        self.rows, self.ex, self.server, self.key = rows, ex, server, key
+        self.model_cfg, self.fl_cfg, self.meta, self.policy = (
+            model_cfg, fl_cfg, meta, policy)
+        self.K, self.S = fl_cfg.num_clients, fl_cfg.participation_size()
+        self.block = D.block_range(self.S, ex.index, ex.count)
+        m_specs = merge_specs(self.S, meta.total, rows.train.shape[1:])
+        u_specs = update_specs(self.S, meta.total)
+        self.tb = ex.buffers("merge", m_specs)
+        self.gb = ex.buffers("block", update_specs(self.S // ex.count,
+                                                   meta.total))
+        self.go = ex.buffers("gathered", u_specs)
+        self.merged = [torch.empty(s, dtype=d, device=dev) for s, d in m_specs]
+        self.gathered = [torch.empty(s, dtype=d, device=dev)
+                         for s, d in u_specs]
+        self.rk = key.clone()
+        self.cohort = torch.zeros(self.S, dtype=torch.int64, device=dev)
+        self.down = None                   # static copy of the downlink
+        self.metrics = None
+        self.cuda = dev.type == "cuda"
+
+    def payload(self):
+        """Stage 1: the round's keys and cohort, and the cohort's rows into
+        the merge's transport tensors."""
+        key, rk, cohort = draw_round(self.key, self.K, self.S)
+        self.key.copy_(key)
+        self.rk.copy_(rk)
+        self.cohort.copy_(cohort)
+        self.rows.cohort_payload(self.cohort, self.tb)
+
+    def local(self):
+        """Stages 2-3 after the merge: the downlink, then LocalUpdate of
+        this process's block into the gather's transport tensors."""
+        for d, b in zip(self.merged, self.tb):
+            d.copy_(b, non_blocking=True)
+        _, down, upd = local_stage(self.server, self.merged, self.rk,
+                                   self.block, self.model_cfg, self.fl_cfg,
+                                   self.meta, self.policy)
+        if self.down is None:              # the first round, never captured
+            self.down = pt.tree_map(torch.empty_like, down)
+        for d, s in zip(pt.leaves(self.down), pt.leaves(down)):
+            d.copy_(s)
+        for d, u in zip(self.gb, upd):
+            d.copy_(u, non_blocking=True)
+
+    def up(self) -> dict:
+        """Stages 4-5 after the gather: the uplink and aggregation into the
+        server state, the owned rows scattered back. Returns the round's
+        metrics (device tensors)."""
+        for d, g in zip(self.gathered, self.go):
+            d.copy_(g, non_blocking=True)
+        w, m, v, t, _ = self.merged
+        sub = {**self.server, "w_clients": w, "adam_m": m, "adam_v": v,
+               "adam_t": t}
+        new, self.metrics = E._round_up(sub, self.down, tuple(self.gathered),
+                                        self.fl_cfg, self.meta, self.policy)
+        for k, v in self.server.items():
+            v.copy_(new[k])
+        self.rows.scatter_owned(self.cohort, new)
+        return self.metrics
+
+    def _landed(self):
+        """Wait (host) for the work enqueued so far on this stream."""
+        if self.cuda:
+            torch.cuda.current_stream(self.key.device).synchronize()
+
+    def run(self, step=None):
+        """One round: ``step(name)`` runs each stage (default: the stage
+        itself; :class:`MeshRun` replays its graphs), each exchange once the
+        stage that fills its buffers has landed."""
+        step = step or (lambda name: getattr(self, name)())
+        step("payload")
+        self._landed()
+        self.ex.merge(self.tb)
+        step("local")
+        self._landed()
+        self.ex.gather(self.gb, self.go)
+        step("up")
+
+
+class MeshRun:
+    """``run_fl(client_mesh=...)`` across processes: the rows of this
+    process's block on its device, the test series, the server state and
+    the key chain replicated, the patience state, counters and history
+    buffers on the device as in ``engine._WhileRun``. Each round runs the
+    segments ``payload``, ``local`` and ``up`` (the stages of
+    :class:`PartitionedRound`; ``up`` also runs the patience test and
+    writes the loss and comm at the round counter), each chunk of
+    ``eval_every`` rounds ends with ``end_chunk`` (the RMSE written at the
+    chunk counter), and the host reads the stop flag after it, as the scan
+    driver stops.
+
+    ``driver="scan"`` (and every driver on the CPU) runs the segments
+    eagerly. ``driver="while"`` on the card runs the first round eagerly on
+    a side stream (it builds the kernels and allocates psgf_mix's ticket
+    counter, which no capture may do), then captures each segment as a CUDA
+    graph
+    (``engine._capture_graph``: its own stream, ``thread_local`` mode, one
+    memory pool; the segments read and write only static tensors and
+    transport buffers, so they may replay in any order) and replays them
+    around the host exchanges, each of which waits until the segment that
+    fills its buffers has landed. A failed capture raises."""
+
+    SEGMENTS = ("payload", "local", "up", "end_chunk")
+
+    def __init__(self, mesh, model_cfg, fl_cfg, train_data, test_data, key,
+                 policy, max_rounds: int, eval_every: int, patience: int,
+                 init_params=None, graphs: bool = False):
+        dev = mesh.device
+        K, S = fl_cfg.num_clients, fl_cfg.participation_size()
+        validate_partition(K, S, mesh.count, fl_cfg.client_chunk)
+        self.mesh, self.model_cfg, self.fl_cfg = mesh, model_cfg, fl_cfg
+        self.patience = patience
+        self.lo, self.hi = mesh.rows(K)
+        key = E._as_device(key, dev, torch.int64)
+        key, init_key = R.split(key).unbind(0)
+        vec, self.meta = E._init_vector(model_cfg, init_key, init_params, dev)
+        self.server = E._server_state(vec, fl_cfg)
+        train = E._as_device(train_data[self.lo:self.hi], dev, _F32)
+        train = torch.cat([train, train.new_zeros((1,) + tuple(train.shape[1:]))])
+        self.rows = OwnedRows(E._client_rows(vec, self.hi - self.lo + 1),
+                              train, self.lo, self.hi)
+        self.test = E._as_device(test_data, dev, _F32)
+        full, rem = divmod(max_rounds, eval_every)
+        self.lengths = [eval_every] * full + ([rem] if rem else [])
+        self.flags = E._while_flags(key, len(self.lengths), eval_every)
+        self.ex = Exchange(mesh.index, mesh.count, mesh.backend, dev)
+        self.cycle = PartitionedRound(self.rows, self.ex, self.server,
+                                      self.flags["key"], model_cfg, fl_cfg,
+                                      self.meta, policy)
+        self.cuda = dev.type == "cuda"
+        self.want_graphs = graphs and self.cuda
+        self.graphs = {}
+        self.replays = {name: 0 for name in self.SEGMENTS}
+        self.capture_s = self.run_s = 0.0
+
+    # --- the segments: static tensors in, static tensors out -------------
+    def _seg_payload(self):
+        self.cycle.payload()
+
+    def _seg_local(self):
+        self.cycle.local()
+
+    def _seg_up(self):
+        metrics = self.cycle.up()
+        f, loss = self.flags, metrics["train_loss"]
+        r = f["r"].reshape(1)
+        f["loss_buf"].index_copy_(0, r, loss.reshape(1))
+        f["comm_buf"].index_copy_(0, r, metrics["comm_total"].reshape(1))
+        patience = E._patience_step(f["best"], f["stall"], f["stop"], loss,
+                                    self.patience)
+        for k, v in zip(("best", "stall", "stop"), patience):
+            f[k].copy_(v)
+        f["r"].add_(1)
+
+    def _rmse(self):
+        return E._rmse_device(self.model_cfg, self.server["w_global"],
+                              self.meta, self.test, self.fl_cfg.client_chunk)
+
+    def _seg_end_chunk(self):
+        f = self.flags
+        f["rmse_buf"].index_copy_(0, f["c"].reshape(1), self._rmse().reshape(1))
+        f["c"].add_(1)
+
+    # --- driving them ------------------------------------------------------
+    def _step(self, name: str):
+        graph = self.graphs.get(name)
+        if graph is None:
+            getattr(self, "_seg_" + name)()
+        else:
+            graph.replay()
+            self.replays[name] += 1
+
+    def _round(self):
+        self.cycle.run(self._step)
+
+    def _warm_round_and_capture(self):
+        """Round 1 eagerly on a side stream (with ``end_chunk``'s RMSE
+        forward, its result dropped), then the capture: no kernel is built
+        and no counter allocated under capture."""
+        dev = self.mesh.device
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._round()
+            self._rmse()
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(side)
+        pool = None
+        for name in self.SEGMENTS:
+            graph = torch.cuda.CUDAGraph()
+            with E._capture_graph(graph, pool, stream):
+                getattr(self, "_seg_" + name)()
+            pool = graph.pool()
+            self.graphs[name] = graph
+        current.wait_stream(stream)
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self):
+        """Every chunk until ``max_rounds`` or the stop flag."""
+        t0 = time.perf_counter()
+        for length in self.lengths:
+            for _ in range(length):
+                if self.want_graphs and not self.graphs:
+                    self._warm_round_and_capture()
+                else:
+                    self._round()
+            self._step("end_chunk")
+            if bool(self.flags["stop"]):
+                break
+        self.run_s = time.perf_counter() - t0
+
+
+def run_fl_mesh(model_cfg, fl_cfg, train_data, test_data, key, mesh, *,
+                driver: str, max_rounds: int, patience: int, eval_every: int,
+                verbose: bool = False, policy=None,
+                checkpoint_dir: Optional[str] = None, init_params=None) -> dict:
+    """``run_fl(driver="scan"|"while", client_mesh=mesh)`` over the
+    processes of ``mesh`` (see :class:`MeshRun`). Returns ``run_fl``'s
+    history, whose ``state`` holds this process's rows of the client axis
+    (``history["owned_rows"]``), plus ``history["exchange"]``
+    (:attr:`Exchange.stats`) and ``history["mesh_run"]`` (processes, backend,
+    graphs, their replays, capture and run seconds). Process 0 alone writes
+    the checkpoint."""
+    from repro_torch.core.fl import policies as pol
+
+    policy = pol.from_config(fl_cfg) if policy is None else policy
+    run = MeshRun(mesh, model_cfg, fl_cfg, train_data, test_data, key, policy,
+                  max_rounds, eval_every, patience, init_params=init_params,
+                  graphs=driver == "while")
+    try:
+        run.run()
+        rounds, _, losses, comms, rmses = E._read_while(run.flags)
+    finally:
+        run.ex.close()
+    history = E._chunk_history(rounds, losses, comms, rmses, eval_every,
+                               max_rounds, verbose)
+    history["exchange"] = run.ex.stats
+    history["owned_rows"] = (run.lo, run.hi)
+    history["mesh_run"] = {
+        "processes": mesh.count, "index": mesh.index, "backend": run.ex.backend,
+        "device": str(mesh.device), "graphs": list(run.graphs),
+        "replays": dict(run.replays), "capture_s": run.capture_s,
+        "run_s": run.run_s}
+    state = {**run.server, **run.rows.state()}
+    if mesh.index != 0:
+        checkpoint_dir = None          # process 0 owns the checkpoint write
+    return E._finalize_history(history, state, run.meta, model_cfg, fl_cfg,
+                               rmses[-1], comms[-1] if comms else 0.0,
+                               checkpoint_dir)

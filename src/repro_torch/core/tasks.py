@@ -151,8 +151,9 @@ class ExperimentSpec:
     field, e.g. ``use_pallas_mix``). ``driver`` is any of ``run_fl``'s:
     ``"scan"`` (default), ``"loop"``, ``"while"`` (CUDA-graph chunks with
     the stop on the device) or ``"host"`` (the client state in pinned host
-    memory; needs ``streaming_windows``); ``shard_clients`` is not ported
-    yet (ROADMAP A13) and raises in ``run_fl``."""
+    memory; needs ``streaming_windows``). ``shard_clients`` passes through
+    to ``run_fl``: on one device it is the unsharded run, several local GPUs
+    in one process raise (ROADMAP Queue A 11)."""
 
     task: ForecastTask
     model: Forecaster

@@ -1,0 +1,83 @@
+"""Meshes of the port (counterpart of ``repro.launch.mesh``).
+
+A mesh here is a small plain object, :class:`Mesh`: the processes along one
+axis (this process's index and their count, and the backend of the
+default process group of ``launch.distributed``) and this process's devices
+on it. Row
+ownership along the axis is ``launch.distributed.block_range``.
+
+  * :func:`make_client_mesh` — the FL client axis: this process's local
+    devices, or with ``multi_host=True`` every process of the initialized
+    group, so that ``run_fl(client_mesh=...)`` holds only this process's
+    block of the client rows;
+  * :func:`make_batch_mesh` — serving's batch axis over the local devices.
+
+On one local device either is the unsharded path, as in the reference.
+Several GPUs in one process are not ported (ROADMAP Queue A 11: ``run_fl``
+and ``ForecastServer(shard_batch=True)`` raise). The reference's
+``make_production_mesh`` and ``make_host_mesh`` are the TPU layouts of its
+dry run and trainer and go with ROADMAP Queue A 9 (c).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch import distributed as D
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One axis across processes: this process is ``index`` of ``count``
+    and computes on ``devices`` (its own devices on the axis); collectives
+    run in the default process group over ``backend`` (None in one
+    process)."""
+
+    axis: str
+    devices: Tuple[torch.device, ...]
+    index: int = 0
+    count: int = 1
+    backend: Optional[str] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def rows(self, total: int) -> Tuple[int, int]:
+        """The ``[lo, hi)`` block of ``total`` rows this process owns."""
+        return D.block_range(total, self.index, self.count)
+
+
+def _local_devices(device) -> Tuple[torch.device, ...]:
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (dev,)
+
+
+def make_client_mesh(axis: str = "clients", *, multi_host: bool = False,
+                     device=None) -> Mesh:
+    """The FL client mesh. Default: this process alone over its local
+    devices (``device``, default ``"cuda"``: every local GPU; raises without
+    one). ``multi_host=True`` under an initialized group
+    (``launch.distributed.initialize_distributed``): every process in rank
+    order, each on its group device, so ``run_fl(driver="scan"|"while",
+    client_mesh=...)`` spans the processes."""
+    if multi_host and D.is_initialized():
+        dev = D.device()
+        if device is not None and D.process_device(device, D.process_index()) != dev:
+            raise ValueError(f"make_client_mesh(device={device!r}): this "
+                             f"process's group device is {dev}")
+        return Mesh(axis, (dev,), D.process_index(), D.process_count(),
+                    D.backend())
+    return Mesh(axis, _local_devices(DEFAULT_DEVICE if device is None else device))
+
+
+def make_batch_mesh(axis: str = "batch", device=DEFAULT_DEVICE) -> Mesh:
+    """Serving's batch mesh over this process's local devices (every local
+    GPU for ``"cuda"``)."""
+    return Mesh(axis, _local_devices(device))

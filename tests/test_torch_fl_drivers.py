@@ -164,20 +164,22 @@ def test_host_driver_matches_reference(data):
 
 
 def test_host_driver_refusals_and_residency(data):
-    """It needs ``streaming_windows``, refuses the multi-process partition
-    mode, and keeps its client-axis state on the host."""
+    """It needs ``streaming_windows``, holds the multi-process partition
+    mode to its alignment conditions, and keeps its client-axis state on the
+    host."""
     tr, te = data[True]
     _, tfl = configs(tr.shape[0])
     with pytest.raises(ValueError, match="streaming_windows"):
         TE.run_fl(TCFG, tfl, tr, te, R.PRNGKey(0), device="cpu",
                   driver="host")
     _, sfl = configs(tr.shape[0], streaming_windows=True, participation=3)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    with pytest.raises(ValueError, match="participation=3"):
         TCS.run_fl_host(TCFG, sfl, tr, te, R.PRNGKey(0), device="cpu",
                         partition=(0, 2))
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        TCS.ClientStore(TCFG, sfl, tr, te, R.PRNGKey(0), device="cpu",
-                        partition=(0, 2))
+    half = TCS.ClientStore(TCFG, sfl, tr, te, R.PRNGKey(0), device="cpu",
+                           partition=(1, 2))
+    assert (half.lo, half.hi) == (3, 6) and half.w_clients.shape[0] == 3
+    assert torch.equal(half.train, torch.from_numpy(tr[3:]))
     with pytest.raises(ValueError, match="clients"):
         TCS.ClientStore(TCFG, sfl, tr[:3], te, R.PRNGKey(0), device="cpu")
     h = TE.run_fl(TCFG, sfl, tr, te, R.PRNGKey(0), device="cpu",

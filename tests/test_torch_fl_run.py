@@ -59,10 +59,14 @@ def test_run_fl_matches_reference(driver, data, tmp_path):
 
 
 def test_run_fl_refuses_what_is_not_ported(data):
+    from repro_torch.launch.mesh import Mesh
+
     tr, te = data[False]
     _, tfl = configs(tr.shape[0])
-    for kw, match in ((dict(shard_clients=True), "A13"),
-                      (dict(driver="while", client_mesh=object()), "A13"),
+    two_gpus = Mesh("clients", (torch.device("cpu"), torch.device("cpu")))
+    for kw, match in ((dict(shard_clients=True, client_mesh=two_gpus),
+                       "Queue A 11"),
+                      (dict(driver="loop", client_mesh=two_gpus), "client_mesh"),
                       (dict(driver="bogus"), "unknown driver")):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             TE.run_fl(TCFG, tfl, tr, te, R.PRNGKey(0), device="cpu", **kw)

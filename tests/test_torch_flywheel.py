@@ -260,9 +260,6 @@ def test_retrain_validates_inputs(roots):
         TW.RetrainController(make_specs()[1], str(roots["port"]) + "_none",
                              series=roots["series"], labels=roots["labels"],
                              device="cpu")
-    sharded = _port_ctl(roots, make_specs(shard_clients=True)[1])
-    with pytest.raises(NotImplementedError, match="A13"):
-        sharded.retrain([0])
     assert TT.read_routing_manifest(roots["port"])[0] == 0  # nothing published
 
 

@@ -212,6 +212,15 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: gateway.main(["--manifest", str(tmp_path)]),
         lambda: gateway.main(["--manifest", str(tmp_path), "--port", "0"]),
     ]
+    from repro_torch.launch import distributed as dist_launch
+    from repro_torch.launch import mesh
+
+    calls += [
+        lambda: dist_launch.initialize_distributed("127.0.0.1:1", 2, 0),
+        lambda: dist_launch.main(["--smoke"]),
+        lambda: mesh.make_client_mesh(),
+        lambda: mesh.make_batch_mesh(),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()

@@ -984,3 +984,150 @@ def test_captured_calls_are_counted_per_thread(cuda):
     assert ops.LAUNCHES - before[0] == 3 + seen["served"]
     graph.replay()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# several processes on the card (gloo, staged through pinned host memory)
+# ---------------------------------------------------------------------------
+
+_CARD_CHILD = r"""
+import hashlib, json, sys
+import numpy as np, torch
+from repro_torch import random as R
+from repro_torch.core import forecast as F
+from repro_torch.core.fl.engine import FLConfig, run_fl
+from repro_torch.launch import distributed as D
+from repro_torch.launch.mesh import make_client_mesh
+
+out_dir, run, fl_kw, cfg_kw = sys.argv[1], *map(json.loads, sys.argv[2:5])
+assert D.initialize_distributed(device="cuda:0")
+torch.backends.cuda.matmul.allow_tf32 = False
+idx = D.process_index()
+z = np.load(out_dir + "/inputs.npz")
+out = {"backend": D.backend(), "device": str(D.device())}
+# the exchange primitives on card tensors: bit transport, results on the card
+full = torch.from_numpy(np.random.default_rng(7).standard_normal((8, 3))
+                        .astype(np.float32)).cuda()
+full[0, 0] = -0.0
+lo, hi = D.block_range(8)
+mine = torch.zeros_like(full)
+mine[lo:hi] = full[lo:hi]
+merged = D.merge_disjoint(mine)
+gathered = D.allgather_blocks(full[lo:hi], 8)
+out["exchange"] = {
+    "on_card": merged.is_cuda and gathered.is_cuda,
+    "merge_exact": torch.equal(merged.view(torch.int32), full.view(torch.int32)),
+    "gather_exact": torch.equal(gathered.view(torch.int32), full.view(torch.int32))}
+mesh = make_client_mesh(multi_host=True)
+cfg = F.logtst_config(**cfg_kw)
+for name, kw in (("host", dict(driver="host")),
+                 ("scan", dict(driver="scan", client_mesh=mesh)),
+                 ("while", dict(driver="while", client_mesh=mesh))):
+    h = run_fl(cfg, FLConfig(**fl_kw), z["train"], z["test"], R.PRNGKey(2),
+               device="cuda", **run, **kw)
+    np.savez(f"{out_dir}/{name}_{idx}.npz",
+             **{k: v.cpu().numpy() for k, v in h["state"].items()})
+    out[name] = {"losses": h["train_loss"], "comm": h["comm"],
+                 "rmse": [[int(r), float(v)] for r, v in h["rmse"]],
+                 "rows": h["owned_rows"], "mesh_run": h.get("mesh_run")}
+D.sync("done")
+D.shutdown_distributed()
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_on_one_card_equal_one_process(cuda, tmp_path):
+    """Two processes on ``cuda:0`` over gloo (the exchanges staged through
+    pinned host memory): the exchange primitives move card tensors bit for
+    bit; the partitioned ``host`` run equals the 1-process ``host`` run on
+    the card, and the mesh's ``scan`` and ``while`` the 1-process ``scan``
+    run, bitwise (losses, comm, RMSE, every state leaf, each process's
+    client rows). The mesh's ``while`` replays its four captured segments
+    around the host exchanges; each segment captures the kernels its eager
+    run launches at the same shapes, as ``chip_smoke.py`` phase 10 also
+    holds at full width."""
+    import json
+    import os
+    import sys
+
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.data.synthetic import nn5_synthetic
+    from repro_torch.data.windowing import client_series_datasets
+    from repro_torch.launch import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_kw = dict(look_back=16, horizon=2, d_model=16, num_heads=2, d_ff=32,
+                  patch_len=8, stride=4, use_flash_attn=True)
+    fl_kw = dict(policy="psgf", num_clients=12, local_steps=2, batch_size=8,
+                 streaming_windows=True, participation=8, client_chunk=2,
+                 use_pallas_mix=True)
+    run = dict(max_rounds=4, patience=99, eval_every=2)
+    tr, _, te, _ = client_series_datasets(
+        nn5_synthetic(seed=0, num_clients=12, num_days=120), 16, 2)
+    np.savez(tmp_path / "inputs.npz", train=tr, test=te)
+    cfg, fl = F.logtst_config(**cfg_kw), E.FLConfig(**fl_kw)
+    want = {d: E.run_fl(cfg, fl, tr, te, R.PRNGKey(2), driver=d,
+                        device="cuda", **run) for d in ("host", "scan")}
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    procs = D.spawn_processes(
+        2, [sys.executable, "-c", _CARD_CHILD, str(tmp_path), json.dumps(run),
+            json.dumps(fl_kw), json.dumps(cfg_kw)], env=env, timeout=600,
+        coordinator=f"file://{tmp_path / 'store'}")
+    for i, r in enumerate(procs):
+        assert r.returncode == 0, f"child {i}:\n{r.stderr[-4000:]}"
+    reps = [json.loads(r.stdout.strip().splitlines()[-1]) for r in procs]
+    for i, rep in enumerate(reps):
+        assert (rep["backend"], rep["device"]) == ("gloo", "cuda:0")
+        assert all(rep["exchange"].values()), rep["exchange"]
+        for name in ("host", "scan", "while"):
+            h = want["host" if name == "host" else "scan"]
+            got, (lo, hi) = rep[name], rep[name]["rows"]
+            state = np.load(tmp_path / f"{name}_{i}.npz")
+            assert got["comm"] == h["comm"], name
+            assert [r for r, _ in got["rmse"]] == [r for r, _ in h["rmse"]]
+            for k, v in h["state"].items():
+                v = v.cpu().numpy()
+                v = v[lo:hi] if k in E._CLIENT_AXIS_KEYS else v
+                np.testing.assert_array_equal(state[k], v, err_msg=f"{name}/{k}")
+            assert got["losses"] == h["train_loss"], name
+            assert got["rmse"] == [[r, v] for r, v in h["rmse"]], name
+        run_ = rep["while"]["mesh_run"]
+        assert run_["graphs"] == ["payload", "local", "up", "end_chunk"]
+        assert run_["replays"] == {"payload": 3, "local": 3, "up": 3,
+                                   "end_chunk": 2}
+
+
+@pytest.mark.cuda
+def test_client_grads_depend_on_the_vmap_width_on_the_card(cuda):
+    """Why a process must run the one-process run's own ``client_chunk``
+    chunks on the card too (``partition.validate_partition``): at the nn5
+    cell's full width, LocalUpdate's gradients of 128 clients in one vmap
+    differ from the same clients' in two vmaps of 64, and the chunked call
+    equals the two halves bit for bit."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.core.tasks import get_task, task_forecaster
+    from repro_torch.models.spec import init_params_from_key
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = task_forecaster(get_task("nn5", quick=False), "logtst", quick=False,
+                          use_flash_attn=True).cfg
+    params = init_params_from_key(F.model_spec(cfg), R.PRNGKey(0), cuda)
+    vec, meta = pt.tree_flatten_to_vector(params)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, b = 128, 32                     # the cell's cohort block and batch
+    w = vec[None].repeat(n, 1) + 0.01 * torch.randn(n, vec.numel(),
+                                                    generator=gen, device=cuda)
+    x = torch.randn(n, b, cfg.look_back, generator=gen, device=cuda)
+    y = torch.randn(n, b, cfg.horizon, generator=gen, device=cuda)
+    with torch.no_grad():
+        whole, _ = E._client_grads(cfg, meta, w, x, y, None)
+        halves = torch.cat([E._client_grads(cfg, meta, w[i:i + 64],
+                                            x[i:i + 64], y[i:i + 64], None)[0]
+                            for i in (0, 64)])
+        chunked, _ = E._client_grads(cfg, meta, w, x, y, 64)
+    assert not torch.equal(whole, halves)
+    assert torch.equal(chunked, halves)

@@ -254,5 +254,5 @@ def test_cli_and_unported_options(routed, capsys):
              "8", "--channels", "1", "--max-batch", "4"])
     out = capsys.readouterr().out
     assert "restored 2 cluster models" in out and "8 requests" in out
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="Queue A 11"):
         _port(routed["root"], shard_batch=True)
