@@ -104,10 +104,27 @@ Phases, each of which raises (exit code != 0) on failure:
      block must equal phase 7's host run and this scan run bit for bit;
      each reports its rounds/s, exchange bytes and seconds per round, peak
      memory and its own kernel launches (none may be 0).
+ 11. the zoo's vlm and moe families: flash attention at phi3.5-moe's (4,
+     2048, 32/8, 128) and internvl2's (4, 2048, 16/8, 128) bf16 causal
+     prefill on the tensor-core route against its plain version, timed
+     beside ``scaled_dot_product_attention``; then
+     ``launch.serve.serve(..., reduced=False)`` at every published width:
+     internvl2-2b whole (1,889,146,880 params; batch 4, 256 patches + 1,792
+     tokens), phi3.5-moe-42b-a6.6b at 8 of its 32 layers (4 x 2,048) and
+     deepseek-v2-236b at 2 of its 60 layers (2 x 2,048 with dense MLA, then
+     1 x 4,096 through ``flash_mha``), 32 tokens each, the depth cut by
+     ``dataclasses.replace(cfg, num_layers=...)``; flash launches per
+     prefill 24, 8 and 0 (MLA never reaches the kernel), all tensor-core,
+     and 2 ``flash_mha`` calls in the 4,096-token prefill; init s, prefill
+     ms, decode ms per token and peak memory per model beside the card's
+     name and power limit; full-width block 0 and the reduced models
+     (float32, 8 greedy tokens) on the card against the CPU, every MoE
+     call's top-k experts equal.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
-...}``, ``{"distributed": ...}``, one ``{"kernels": [...]}`` line (flash
+...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``, one
+``{"kernels": [...]}`` line (flash
 attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
 the standard library and ``repro_torch`` (from ``src/`` beside this file)
@@ -2856,6 +2873,312 @@ def drive_distributed(mix_ops, flash_ops, host_digest) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the zoo's vlm and moe families served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept (None: all), batch, prompt tokens, tokens generated):
+# every width as published, depth cut to fit one 80 GB card (fp32 weights:
+# phi3.5-moe 5.2 GB a layer, deepseek-v2 15.9 GB a layer); internvl2's 256
+# patches + 1,792 tokens make a 2,048-position prefill; deepseek-v2 also
+# serves one 4,096-token prompt, past the 2,048 threshold, through flash_mha
+ZOO_SERVE = (
+    ("internvl2-2b", None, 4, 1792, 32),
+    ("phi3.5-moe-42b-a6.6b", 8, 4, 2048, 32),
+    ("deepseek-v2-236b", 2, 2, 2048, 32),
+    ("deepseek-v2-236b", 2, 1, 4096, 32),
+)
+# flash attention at the prefills above: (B, S, H, KV, hd), bf16, causal
+ZOO_ATTN = {"phi3.5-moe": (4, 2048, 32, 8, 128), "internvl2": (4, 2048, 16, 8, 128)}
+# full-width block 0, card against CPU in float32: B x S tokens
+ZOO_BLOCK0 = (1, 64)
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def counting_flash_mha(layers, counts):
+    """``layers.flash_mha`` wrapped to count its calls in ``counts``."""
+    real = layers.flash_mha
+
+    def flash_mha(*args, **kw):
+        counts["flash_mha"] += 1
+        return real(*args, **kw)
+    return patched(layers, "flash_mha", flash_mha)
+
+
+def recording_routes(layers, log):
+    """``layers.moe_route`` wrapped to append each call's top-k experts (on
+    the host) to ``log``."""
+    real = layers.moe_route
+
+    def moe_route(*args, **kw):
+        route = real(*args, **kw)
+        log.append(route["gate_idx"].cpu())
+        return route
+    return patched(layers, "moe_route", moe_route)
+
+
+def decode_cast_bytes(cfg) -> int:
+    """Bytes one decode step moves to cast the float32 weights it uses to
+    bf16 at each use, as the reference does: every block leaf and the
+    head read in float32, written and read again in bf16 (8 bytes a
+    parameter); the embedding is gathered per token."""
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.models import decoder
+    from repro_torch.models import spec as S
+
+    spec = decoder.model_spec(cfg)
+    n = sum(math.prod(s.shape) for path, s in
+            pt.flatten_with_paths(spec, is_leaf=S.is_spec)
+            if not path.startswith("embed/"))
+    return 8 * n
+
+
+def zoo_reduced_card_vs_cpu(arch) -> dict:
+    """Reduced ``arch`` in float32 on the same numpy-made params: prefill of
+    48 tokens (after 256 patches for vlm) and 8 greedy decode steps on the
+    card and on the CPU; tokens equal, logits within HYBRID_CPU_TOL, and
+    every MoE call's top-k experts equal at every token."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch.api import ModelApi
+    from repro_torch.models import decoder
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    host = numpy_params(decoder.model_spec(cfg), SEED)
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 48))
+    start = 48 + (cfg.vlm.num_patches if cfg.family == "vlm" else 0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        api = ModelApi(cfg, dev)
+        params = decoder.params_from_numpy(host, dev)
+        inputs = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family == "vlm":
+            inputs["img_embeds"] = decoder.image_embeds(cfg, 2, R.PRNGKey(0, device=dev))
+        routes = []
+        with torch.inference_mode(), recording_routes(layers, routes):
+            logits, cache = api.prefill(params, inputs, cache_len=start + 8)
+            out, steps = [], [logits[:, -1].float().cpu()]
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            for i in range(8):
+                out.append(tok.cpu())
+                logits, cache = api.decode_step(params, cache, tok, start + i)
+                steps.append(logits[:, -1].float().cpu())
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        runs[dev] = (torch.cat(out, dim=1), torch.stack(steps), routes)
+    (tg, lg, rg), (tc, lc, rc) = runs["cuda"], runs["cpu"]
+    err = float((lg - lc).abs().max())
+    routes_equal = len(rg) == len(rc) and all(torch.equal(a, b) for a, b in zip(rg, rc))
+    if cfg.family == "moe" and not (rg and routes_equal):
+        raise RuntimeError(f"reduced {arch}: MoE top-k experts differ between the "
+                           f"card and the CPU ({len(rg)} / {len(rc)} calls)")
+    if not (torch.equal(tg, tc) and torch.allclose(lg, lc, atol=HYBRID_CPU_TOL,
+                                                   rtol=HYBRID_CPU_TOL)):
+        raise RuntimeError(f"reduced {arch} card vs CPU: tokens equal "
+                           f"{torch.equal(tg, tc)}, logits max |err| {err}")
+    return {"tokens_equal": True, "logits_max_abs_err": err,
+            "moe_calls_routed_equal": len(rg) if cfg.family == "moe" else None,
+            "tokens": tg[0].tolist()}
+
+
+def zoo_block0_card_vs_cpu(cfg) -> dict:
+    """Block 0 at full width, float32, B x S = ZOO_BLOCK0: its weights drawn
+    on the card from a key, the block on the card against the CPU from the
+    same weights (and, for MoE, the same top-k experts at every token)."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.models import decoder
+    from repro_torch.models import layers
+    from repro_torch.models import spec as S
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    p0 = S.init_params_from_key(decoder.block_spec(cfg), R.PRNGKey(SEED + 11),
+                                "cuda")
+    B, T = ZOO_BLOCK0
+    x = (torch.randn(B, T, cfg.d_model, generator=torch.Generator().manual_seed(SEED))
+         ).cuda()
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")
+    outs, routes = {}, {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            p = p0 if dev == "cuda" else pt.tree_map(lambda a: a.cpu(), p0)
+            routes[dev] = []
+            with recording_routes(layers, routes[dev]):
+                y, _ = decoder._block_apply(cfg, p, x.to(dev), pos.to(dev), 0.0, "auto")
+            outs[dev] = y.cpu()
+            del p
+    del p0
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    same_routes = all(torch.equal(a, b) for a, b in zip(routes["cuda"], routes["cpu"]))
+    if not (torch.isfinite(outs["cuda"]).all() and same_routes
+            and torch.allclose(outs["cuda"], outs["cpu"], atol=HYBRID_CPU_TOL,
+                               rtol=HYBRID_CPU_TOL)):
+        raise RuntimeError(f"{cfg.name} block 0 card vs CPU: max |err| {err}, "
+                           f"routes equal {same_routes}")
+    return {"shape": [B, T, cfg.d_model], "max_abs_err": err,
+            "max_abs_out": float(outs["cpu"].abs().max()),
+            "moe_routes_equal": same_routes if routes["cpu"] else None}
+
+
+def check_flash_zoo(ops, ref) -> dict:
+    """Flash attention at phi3.5-moe's and internvl2's prefill (bf16,
+    causal, hd 128, GQA 4:1 and 2:1) against its plain version on the
+    tensor-core route, timed beside the plain version and
+    ``scaled_dot_product_attention``."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    out = {}
+    for name, (B, S, H, KV, hd) in ZOO_ATTN.items():
+        q, k, v = attention_inputs(gen, B, S, S, H, KV, hd, torch.bfloat16)
+        if route_of(ops, q, k) != "tensor_core":
+            raise RuntimeError(f"flash at {name}'s shape is not routed to the "
+                               "tensor cores")
+        _, err, ratio = flash_case(ops, ref, f"flash at {name}'s prefill",
+                                   q, k, v, True, None, None, BF16_TOL)
+        out[name] = {"shape": [B, S, H, KV, hd], "max_abs_err": err,
+                     "bound_ratio": ratio,
+                     **tensor_core_times(ops, ref, q, k, v, None)}
+        del q, k, v
+    return out
+
+
+def warm_profile(cfg, batch, prompt) -> dict:
+    """The served model again from the same key, outside ``serve``: a warm
+    prefill (host ms of two calls), a profiled prefill, warm decode steps
+    and three profiled ones; ``serve``'s own prefill is the process's first
+    at these shapes and carries one-time costs."""
+    from repro_torch import random as R
+    from repro_torch.launch.api import ModelApi
+    from repro_torch.models import decoder
+
+    api = ModelApi(cfg, "cuda")
+    params = api.init_params(R.PRNGKey(0))
+    inputs = {"tokens": torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, prompt))).cuda()}
+    start = prompt
+    if cfg.family == "vlm":
+        inputs["img_embeds"] = decoder.image_embeds(
+            cfg, batch, R.PRNGKey(0, device="cuda"))
+        start += cfg.vlm.num_patches
+    steps = 8
+    with torch.inference_mode():
+        def prefill():
+            return api.prefill(params, inputs, cache_len=start + steps + 4)
+
+        prefill_ms = [host_ms(prefill) for _ in range(2)]
+        prof = profile_device(prefill, 1, "prefill")
+        logits, cache = prefill()
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        api.decode_step(params, cache, tok, start)
+        decode_ms = host_ms(lambda: [api.decode_step(params, cache, tok, start + 1 + i)
+                                     for i in range(steps)]) / steps
+        dprof = profile_device(lambda: api.decode_step(params, cache, tok,
+                                                       start + steps + 1),
+                               3, "decode_step")
+    del params, cache, logits
+    return {"prefill_ms_warm": prefill_ms, "decode_ms_per_token_warm": decode_ms,
+            "profile_prefill": prof, "profile_decode_step": dprof}
+
+
+def serve_one(flash_ops, layers, arch, depth, batch, prompt, gen) -> dict:
+    """One ``serve`` call at full width (depth cut to ``depth`` layers), the
+    kernel counts set to 0 just before and read just after."""
+    import dataclasses
+
+    from repro_torch.launch import serve as serve_mod
+
+    real = serve_mod.get_config
+    cut = (real if depth is None else
+           lambda a: dataclasses.replace(real(a), num_layers=depth))
+    free_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = {"flash_mha": 0}
+    flash_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(serve_mod, "get_config", cut), counting_flash_mha(layers, counts):
+        rep = serve_mod.serve(arch, batch=batch, prompt_len=prompt, gen=gen,
+                              reduced=False, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    flash = dict(flash_ops.ROUTE_LAUNCHES)
+    cfg = cut(arch)
+    toks = rep["tokens"]
+    if toks.shape != (batch, gen) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise RuntimeError(f"{arch}: generated tokens {toks.shape} out of range")
+    return {"cfg": cfg, "params": rep["params"], "batch": batch,
+            "prompt_len": prompt, "gen": gen, "init_s": rep["init_s"],
+            "prefill_ms": rep["prefill_ms"],
+            "decode_ms_per_token": rep["decode_ms_per_token"],
+            "serve_wall_s": wall_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flash_route_launches_prefill": flash,
+            "flash_mha_calls": counts["flash_mha"],
+            "first_tokens": toks[:, :8].tolist()}
+
+
+def drive_zoo_families(flash_ops, flash_ref) -> dict:
+    """Phase 11: ``serve`` for internvl2-2b (whole), phi3.5-moe-42b-a6.6b (8
+    of 32 layers) and deepseek-v2-236b (2 of 60 layers) at their published
+    widths; flash at their prefill shapes; full-width block 0 and the
+    reduced configs on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    card = card_info()
+    kernels = check_flash_zoo(flash_ops, flash_ref)
+    models = []
+    for arch, depth, batch, prompt, gen in ZOO_SERVE:
+        rep = serve_one(flash_ops, layers, arch, depth, batch, prompt, gen)
+        cfg = rep.pop("cfg")
+        flash, mha = rep["flash_route_launches_prefill"], rep["flash_mha_calls"]
+        if cfg.mla is not None:
+            # MLA never reaches the kernel; past 2,048 positions flash_mha
+            want_flash = {"scalar": 0, "tensor_core": 0, "short": 0}
+            want_mha = cfg.num_layers if prompt > 2048 else 0
+        else:
+            want_flash = {"scalar": 0, "tensor_core": cfg.num_layers, "short": 0}
+            want_mha = 0
+        if flash != want_flash or mha != want_mha:
+            raise RuntimeError(f"{arch} ({batch} x {prompt}): flash launches "
+                               f"{flash}, flash_mha calls {mha} for one prefill "
+                               f"of {cfg.num_layers} layers")
+        if prompt <= 2048:            # the 4,096-token run follows a warm one
+            free_device_memory()
+            rep.update(warm_profile(cfg, batch, prompt))
+        cast = decode_cast_bytes(cfg)
+        rep.update(model=arch, layers=cfg.num_layers,
+                   layers_published=get_config(arch).num_layers,
+                   decode_cast_bytes_per_token=cast,
+                   decode_cast_bound_ms=cast / HBM_BYTES_PER_S * 1e3,
+                   card=card)
+        log(json.dumps({"zoo_model": rep}))
+        models.append(rep)
+    block0, reduced = {}, {}
+    for arch in ("internvl2-2b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"):
+        free_device_memory()
+        block0[arch] = zoo_block0_card_vs_cpu(get_config(arch))
+        reduced[arch] = zoo_reduced_card_vs_cpu(arch)
+    return {"card": card, "activations": "bfloat16",
+            "weights": "float32 from PRNGKey(0)", "models": models,
+            "flash_tensor_core": kernels, "block0_card_vs_cpu": block0,
+            "reduced_card_vs_cpu": reduced,
+            "flash_launches_prefill": sum(
+                m["flash_route_launches_prefill"]["tensor_core"] for m in models)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2959,6 +3282,12 @@ def main() -> int:
     mix_record["launches_distributed"] = {
         run: n["psgf_mix_batch"] for run, n in distributed["launches"].items()}
 
+    # 11. the zoo's vlm and moe families at full width
+    free_device_memory()
+    zoo_families = drive_zoo_families(ops, ref)
+    log(json.dumps({"zoo_families": zoo_families}))
+    record["launches_zoo_families"] = zoo_families["flash_launches_prefill"]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -2990,7 +3319,9 @@ def main() -> int:
                         "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
                         "bound_by": tc["bound_by"],
                         "library_ms": tc["library_ms"],
-                        "qwen2_training": zoo["flash_qwen2"]},
+                        "qwen2_training": zoo["flash_qwen2"],
+                        "launches_zoo_families": record["launches_zoo_families"],
+                        "zoo_families": zoo_families["flash_tensor_core"]},
     }
     k1_record = mix_record.pop("k1_psgf_mix")
     log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))

@@ -1,11 +1,12 @@
 """ModelApi: one facade over the model zoo's implementations (counterpart of
 ``repro.launch.api``), for the decoder families the port has
-(``repro_torch.models.decoder``: ``dense`` and ``hybrid``), on one
-``device``.
+(``repro_torch.models.decoder``: ``dense``, ``vlm``, ``moe`` and
+``hybrid``), on one ``device``.
 
 The reference's ``input_specs`` / ``shard_structs`` (abstract, sharded
 inputs for its dry-run) wait for the launch modules (ROADMAP Queue A item
-9 (c)), the audio ``encdec`` branch for its family (item 9 (a)).
+9 (c)), the audio ``encdec`` branch for its family (item 9 (a)); the
+``ssm`` family raises in the decoder (item 9 (a)).
 """
 from __future__ import annotations
 

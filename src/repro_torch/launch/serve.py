@@ -1,7 +1,9 @@
 """Serving launcher: batched prefill + autoregressive decode on one device
 (counterpart of ``repro.launch.serve``).
 
-Usage:
+Usage (any ported arch: qwen2-1.5b, qwen2-72b, mistral-large-123b,
+command-r-plus-104b, hymba-1.5b, internvl2-2b, phi3.5-moe-42b-a6.6b,
+deepseek-v2-236b):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --device cpu --batch 2 --prompt-len 48 --gen 8        # reduced config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
@@ -11,7 +13,9 @@ The reference builds jitted, sharded prefill and decode steps
 (``launch/steps.py``, ``launch/mesh.py``); one card needs neither, so this
 calls :class:`~repro_torch.launch.api.ModelApi` directly. Weights are float32
 from ``PRNGKey(0)`` (as the reference's ``serve``), activations in the
-config's type; the prompt is ``synthetic_tokens(0, ...)``.
+config's type; the prompt is ``synthetic_tokens(0, ...)``. A ``vlm`` model
+gets ``0.1 * normal(PRNGKey(0))`` patch embeddings (B, num_patches, d) in
+front of the prompt, and decodes from position ``prompt_len + num_patches``.
 """
 from __future__ import annotations
 
@@ -47,9 +51,6 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    if cfg.family == "vlm":
-        raise NotImplementedError("the vlm family is not ported yet "
-                                  "(ROADMAP Queue A item 9 (a))")
     api = ModelApi(cfg, dev)
 
     t0 = time.perf_counter()
@@ -58,6 +59,13 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     init_s = time.perf_counter() - t0
     toks = torch.from_numpy(synthetic_tokens(0, batch, prompt_len,
                                              cfg.vocab_size)).to(dev)
+    inputs = {"tokens": toks}
+    npatch = 0
+    if cfg.family == "vlm":
+        npatch = cfg.vlm.num_patches
+        inputs["img_embeds"] = decoder.image_embeds(
+            cfg, batch, R.PRNGKey(0, device=dev))
+    start = prompt_len + npatch
     sampler = None if greedy else torch.Generator(dev).manual_seed(0)
 
     def pick(logits):
@@ -68,8 +76,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = api.prefill(params, {"tokens": toks},
-                                    cache_len=prompt_len + gen)
+        logits, cache = api.prefill(params, inputs, cache_len=start + gen)
         _sync(dev)
         t_pref = time.perf_counter() - t0
         out_tokens = []
@@ -77,7 +84,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         t0 = time.perf_counter()
         for i in range(gen):
             out_tokens.append(tok)
-            logits, cache = api.decode_step(params, cache, tok, prompt_len + i)
+            logits, cache = api.decode_step(params, cache, tok, start + i)
             tok = pick(logits)
         _sync(dev)
         t_dec = time.perf_counter() - t0

@@ -34,6 +34,7 @@ from repro_torch.core import psgf_dp as P
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.launch.api import ModelApi
 from repro_torch.launch.steps import build_train_step
+from repro_torch.models import decoder
 from repro_torch.optim import Adam, one_cycle
 
 
@@ -49,14 +50,20 @@ def _sync(device: torch.device):
 
 def make_batch(cfg, step: int, batch: int, seq: int, device=DEFAULT_DEVICE):
     """``{"tokens", "labels"}`` (batch, seq) int32: ``synthetic_tokens(step,
-    batch, seq + 1, vocab)`` shifted by one."""
-    if cfg.family in ("vlm", "audio"):
+    batch, seq + 1, vocab)`` shifted by one; a ``vlm`` batch also has
+    ``img_embeds`` from ``PRNGKey(step)`` (``decoder.image_embeds``)."""
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"the {cfg.family} family's inputs are not ported yet (ROADMAP "
+            "the audio (encdec) family's inputs are not ported yet (ROADMAP "
             "Queue A item 9 (a))")
+    dev = resolve_device(device)
     toks = torch.from_numpy(synthetic_tokens(step, batch, seq + 1,
-                                             cfg.vocab_size)).to(resolve_device(device))
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+                                             cfg.vocab_size)).to(dev)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        out["img_embeds"] = decoder.image_embeds(
+            cfg, batch, R.PRNGKey(step, device=dev))
+    return out
 
 
 def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 64,

@@ -88,9 +88,10 @@ class ModelConfig:
     encdec: Optional[EncDecConfig] = None
     vlm: Optional[VLMConfig] = None
     dtype: str = "bfloat16"
-    # training-time knobs of the reference (remat, chunked/custom-VJP
-    # attention, scan vs unrolled layers), kept so configs carry over; the
-    # port's serving path reads none of them
+    # the reference's training knobs: per-layer remat (torch.utils.checkpoint
+    # here), the long-sequence attention's kv-step remat and custom VJP
+    # (flash_mha vs chunked_attend); remat_group and unroll_layers are kept
+    # so configs carry over and are read by nothing in the port
     remat: bool = True
     attn_remat_inner: bool = True
     attn_custom_vjp: bool = True

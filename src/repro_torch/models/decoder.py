@@ -1,8 +1,16 @@
 """Decoder-only LM of the model zoo (counterpart of ``repro.models.decoder``),
-ported for the ``dense`` family (qwen2: attention, then a gated MLP) and the
-``hybrid`` family (hymba: attention and a Mamba branch in parallel, then a
-gated MLP). The moe, vlm and ssm families raise ``NotImplementedError``
-(ROADMAP Queue A item 9 (a)).
+ported for the families:
+
+  * ``dense`` (qwen2, mistral, command-r): attention, then a gated MLP;
+  * ``vlm`` (internvl2): the dense block over patch embeddings prepended to
+    the tokens (the vision frontend is stubbed, as in the reference);
+  * ``moe`` (phi3.5-moe: attention; deepseek-v2: MLA), then a routed MoE
+    whose load-balance loss is summed over the layers;
+  * ``hybrid`` (hymba): attention and a Mamba branch in parallel, then a
+    gated MLP.
+
+The ``ssm`` family (xLSTM) and the encoder-decoder (``audio``) raise
+``NotImplementedError`` (ROADMAP Queue A item 9 (a)).
 
 Public API, as the reference's:
   model_spec / init_params(cfg, key)              -- params from a key
@@ -10,7 +18,8 @@ Public API, as the reference's:
   loss_fn(cfg, params, batch)                     -- training loss
   prefill(cfg, params, tokens, cache_len=...)     -- prompt -> (logits, cache)
   decode_step(cfg, params, cache, token, pos)     -- one token
-  init_cache(cfg, batch, cache_len)               -- KV ring buffer (+ SSM state)
+  init_cache(cfg, batch, cache_len)               -- KV / MLA ring buffer (+ SSM state)
+  image_embeds(cfg, batch, key)                   -- a vlm batch's patch stub
 
 The reference scans over the stacked layer axis; the port loops over it,
 unbinding each stacked leaf once so that the backward stacks the layers'
@@ -18,8 +27,9 @@ gradients in one allocation. With ``cfg.remat`` and gradients enabled each
 layer runs under ``torch.utils.checkpoint`` (the reference's per-layer
 ``jax.checkpoint``): its activations are recomputed in the backward, which
 launches its kernels a second time; the results are unchanged.
-The reference's prefill derives each layer's final SSM state by a second
-scan (``_ssm_final_state``); here the ssm_scan kernel returns it with ``y``.
+The reference's prefill recomputes each layer's cache entries (K/V, MLA's
+latent, the final SSM state by a second scan); here the forward returns
+them (the ssm_scan kernel returns the state with ``y``).
 ``decode_step`` updates the cache in place (see ``layers.decode_attention``).
 :func:`params_from_numpy` / :func:`params_to_numpy` carry weights across
 packages: the JAX tree's paths and shapes, unchanged.
@@ -32,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import random as R
 from repro_torch.common import pytree_utils as pt
 from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.forecaster import params_from_numpy, params_to_numpy  # noqa: F401
@@ -39,14 +50,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import spec as S
 from repro_torch.models.config import ModelConfig
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "hybrid")
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"decoder family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP Queue A item 9 (a): moe, vlm, ssm); ported: {FAMILIES}")
+            f"(ROADMAP Queue A item 9 (a): ssm, audio); ported: {FAMILIES}")
+
+
+def _uses_mla(cfg: ModelConfig) -> bool:
+    return cfg.family == "moe" and cfg.mla is not None
 
 
 # ---------------------------------------------------------------------------
@@ -59,10 +74,13 @@ def block_spec(cfg: ModelConfig):
     d = cfg.d_model
     spec = {
         "ln1": L.norm_spec(d),
-        "attn": L.attention_spec(cfg),
+        "attn": L.mla_spec(cfg) if _uses_mla(cfg) else L.attention_spec(cfg),
         "ln2": L.norm_spec(d),
-        "mlp": L.mlp_spec(d, cfg.d_ff),
     }
+    if cfg.family == "moe":
+        spec["moe"] = L.moe_spec(cfg)
+    else:
+        spec["mlp"] = L.mlp_spec(d, cfg.d_ff)
     if cfg.family == "hybrid":
         spec["ssm"] = L.ssm_spec(cfg)
     return spec
@@ -103,20 +121,34 @@ def _layers(params):
 # ---------------------------------------------------------------------------
 
 
+def _attention(cfg: ModelConfig, p, h, positions, attn_impl, with_cache):
+    """The block's attention. Returns (a, cache entries): ``{"kv": (k, v)}``
+    or, for MLA, ``{"mla": (c_kv, roped k_rope)}`` with ``with_cache``, else
+    ``{}``."""
+    if _uses_mla(cfg):
+        a = L.mla_attention(p, h, positions, cfg, window=cfg.attention_window,
+                            return_latent=with_cache)
+        if not with_cache:
+            return a, {}
+        a, c_kv, k_rope = a
+        return a, {"mla": (c_kv, k_rope[:, :, 0, :])}
+    a = L.self_attention(p, h, positions, cfg, window=cfg.attention_window,
+                         attn_impl=attn_impl, return_kv=with_cache)
+    if not with_cache:
+        return a, {}
+    a, k, v = a
+    return a, {"kv": (k, v)}
+
+
 def _block_apply(cfg: ModelConfig, p, x, positions, flag, attn_impl,
                  with_cache=False):
     """One block over the full sequence. Returns (x, aux), and with
-    ``with_cache`` (x, aux, cache entries {"kv": (k, v)[, "ssm": state]})."""
+    ``with_cache`` (x, aux, cache entries {"kv": (k, v)} or {"mla": (c_kv,
+    k_rope)} [, "ssm": state])."""
     _check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    entries = {}
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-    a = L.self_attention(p["attn"], h, positions, cfg,
-                         window=cfg.attention_window, attn_impl=attn_impl,
-                         return_kv=with_cache)
-    if with_cache:
-        a, k, v = a
-        entries["kv"] = (k, v)
+    a, entries = _attention(cfg, p["attn"], h, positions, attn_impl, with_cache)
     if cfg.family == "hybrid":
         s = L.ssm_apply(p["ssm"], h, cfg, return_state=with_cache)
         if with_cache:
@@ -125,7 +157,11 @@ def _block_apply(cfg: ModelConfig, p, x, positions, flag, attn_impl,
     else:
         x = x + a
     h = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-    x = x + L.mlp_apply(p["mlp"], h)
+    if cfg.family == "moe":
+        y, aux = L.moe_apply(p["moe"], h, cfg)
+        x = x + y
+    else:
+        x = x + L.mlp_apply(p["mlp"], h)
     return (x, aux, entries) if with_cache else (x, aux)
 
 
@@ -145,10 +181,28 @@ def forward_hidden(cfg: ModelConfig, params, x, positions, attn_impl="auto"):
     return x, aux_total
 
 
+def image_embeds(cfg: ModelConfig, batch: int, key):
+    """The stubbed vision frontend's patch embeddings for a ``vlm`` config:
+    ``0.1 * normal(key, (batch, num_patches, d_model))`` drawn and scaled in
+    the activation type, bit for bit the reference launchers' draw (float32
+    up to ``erfinv``'s last ulps; see ``random.normal``)."""
+    dtype = cfg.activation_dtype
+    shape = (batch, cfg.vlm.num_patches, cfg.d_model)
+    return R.normal(key, shape, dtype=dtype) * torch.tensor(
+        0.1, dtype=dtype, device=key.device)
+
+
 def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
-    """Token embedding (the ``vlm`` patch prefix waits with its family)."""
+    """Token embedding; for ``vlm``, the patch embeddings ``img_embeds``
+    (B, num_patches, d) prepended (the stubbed vision frontend's output)."""
     _check_family(cfg)
-    return L.embed_apply(params["embed"], tokens, cfg.activation_dtype)
+    dtype = cfg.activation_dtype
+    x = L.embed_apply(params["embed"], tokens, dtype)
+    if cfg.family == "vlm":
+        if img_embeds is None:
+            raise ValueError("the vlm family requires img_embeds")
+        x = torch.cat([img_embeds.to(dtype), x], dim=1)
+    return x
 
 
 def forward(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto"):
@@ -160,10 +214,14 @@ def forward(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto")
 
 
 def loss_fn(cfg: ModelConfig, params, batch, attn_impl="auto"):
-    """batch: dict(tokens (B,S), labels (B,S) [, loss_mask (B,S)]).
-    Returns ``(ce + aux, {"ce": ce, "aux": aux})``."""
+    """batch: dict(tokens (B,S), labels (B,S) [, img_embeds (B,P,d)]
+    [, loss_mask (B,S)]). For ``vlm`` the image-prefix positions carry no
+    loss (labels align to the text). Returns ``(ce + aux, {"ce": ce,
+    "aux": aux})``, ``aux`` the MoE load-balance loss summed over layers."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           batch.get("img_embeds"), attn_impl)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.vlm.num_patches:, :]
     ce = L.cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -179,7 +237,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    cache = {"kv": L.init_kv_cache(cfg, batch, cache_len, dtype, dev)}
+    if _uses_mla(cfg):
+        cache = {"mla": L.init_mla_cache(cfg, batch, cache_len, dtype, dev)}
+    else:
+        cache = {"kv": L.init_kv_cache(cfg, batch, cache_len, dtype, dev)}
     if cfg.family == "hybrid":
         shp = L.ssm_state_shape(cfg, batch)
         cache["ssm"] = {
@@ -193,14 +254,25 @@ def _block_decode(cfg: ModelConfig, p, x, layer_cache, pos, flag):
     _check_family(cfg)
     new_cache = {}
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-    a, new_cache["kv"] = L.decode_attention(p["attn"], h, layer_cache["kv"], pos, cfg)
+    if _uses_mla(cfg):
+        a, new_cache["mla"] = L.mla_decode_attention(p["attn"], h,
+                                                     layer_cache["mla"], pos, cfg)
+    else:
+        a, new_cache["kv"] = L.decode_attention(p["attn"], h, layer_cache["kv"],
+                                                pos, cfg)
     if cfg.family == "hybrid":
         s, new_cache["ssm"] = L.ssm_decode(p["ssm"], h, layer_cache["ssm"], cfg)
         x = x + 0.5 * (a + s)
     else:
         x = x + a
     h = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-    x = x + L.mlp_apply(p["mlp"], h)
+    if cfg.family == "moe":
+        # the decode batch is one dispatch group of B tokens, so its
+        # capacity (and which tokens drop) is not the prefill's
+        y, _ = L.moe_apply(p["moe"], h, cfg)
+        x = x + y
+    else:
+        x = x + L.mlp_apply(p["mlp"], h)
     return x, new_cache
 
 
@@ -239,14 +311,18 @@ def _to_cache_layout(seq_arrays, slot_pos, phys_target: int, Stot: int):
     return out, sp
 
 
+_CACHE_KEYS = {"kv": ("k", "v"), "mla": ("c_kv", "k_rope")}
+
+
 def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
             cache_len: Optional[int] = None):
     """Process a prompt, returning (last_logits (B,1,V), cache).
 
     ``cache_len`` is the logical cache capacity the following decode will
     use (>= prompt length); the physical cache is min(window, cache_len).
-    Each layer's K/V come from its attention, its SSM state from the scan
-    kernel's final state and its conv state from the last K-1 inputs."""
+    Each layer's K/V (MLA: ``c_kv`` and the roped ``k_rope``) come from its
+    attention, its SSM state from the scan kernel's final state and its
+    conv state from the last K-1 inputs."""
     x = embed_inputs(cfg, params, tokens, img_embeds)
     Stot = x.shape[1]
     cache_len = cache_len or Stot
@@ -259,8 +335,10 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
     for p, flag in zip(_layers(params), _layer_flags(cfg)):
         x, _, e = _block_apply(cfg, p, x, positions, flag, attn_impl,
                                with_cache=True)
-        (kc, vc), sp = _to_cache_layout(list(e["kv"]), positions, phys, Stot)
-        e["kv"] = {"k": kc, "v": vc, "slot_pos": sp}
+        for name, keys in _CACHE_KEYS.items():
+            if name in e:
+                arrays, sp = _to_cache_layout(list(e[name]), positions, phys, Stot)
+                e[name] = {**dict(zip(keys, arrays)), "slot_pos": sp}
         entries.append(e)
     cache = pt.tree_map(lambda *cs: torch.stack(cs), *entries)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)

@@ -1,27 +1,35 @@
-"""Neural-net layers of the model zoo (counterpart of ``repro.models.layers``),
-as far as the ``dense`` (qwen2) and ``hybrid`` (hymba) families, their
-decode and their training need them: plain
-functions over the reference's params dict, with its names, shapes and
-layouts (q/k/v ``(B, S, H, hd)``, caches keyed as in JAX).
+"""Neural-net layers of the model zoo (counterpart of ``repro.models.layers``)
+for the ``dense`` (qwen2, mistral, command-r), ``vlm`` (internvl2),
+``moe`` (phi3.5-moe, deepseek-v2 with MLA) and ``hybrid`` (hymba) families,
+their decode and their training: plain functions over the reference's
+params dict, with its names, shapes and layouts (q/k/v ``(B, S, H, hd)``,
+caches keyed as in JAX).
 
 Routing to the kernels:
 
   * :func:`self_attention` — ``attn_impl`` ``"auto"`` and ``"pallas"`` run
     the CUDA flash-attention kernel for CUDA tensors
-    (``kernels.flash_attention.ops``); on the CPU ``"auto"`` and ``"full"``
-    run :func:`gqa_attend` (``"pallas"`` the kernel wrapper's plain
-    version); ``"full"`` is dense on any device;
+    (``kernels.flash_attention.ops``), at every length; on the CPU ``"auto"``
+    runs :func:`gqa_attend` up to :data:`CHUNKED_ATTN_THRESHOLD` tokens and
+    the long-sequence path above it (``"pallas"`` the kernel wrapper's plain
+    version); ``"full"`` is dense on any device; ``"chunked"`` is the
+    long-sequence path on any device: :func:`flash_mha` with
+    ``cfg.attn_custom_vjp``, else :func:`chunked_attend`;
+  * :func:`mla_attention` — dense up to :data:`CHUNKED_ATTN_THRESHOLD`
+    tokens, the long-sequence path above it, on any device (its q/k head
+    dim, nope + rope = 192, is none of the kernel's);
   * :func:`ssm_apply` — ``impl`` ``"auto"`` and ``"pallas"`` run
     ``kernels.ssm_scan.ops.ssm_scan`` (the CUDA kernel on the card, its plain
     version on the CPU); ``"xla"`` is the reference's own ``lax.scan`` step
     order, ``dt*x`` formed in the input type (``layers.py:723`` there).
 
-Weights are float32 and cast to the activation type at each use, as the
-reference does (``.astype(x.dtype)``); the embedding table is gathered
-first and the rows cast, which gives the same values without casting the
-whole table. Not ported yet: MoE, MLA, xLSTM and cross-attention (ROADMAP
-Queue A item 9 (a)), and the long-sequence ``flash_mha`` / ``chunked_attend``
-(item 9 (b)).
+:func:`flash_mha` and :func:`chunked_attend` are the reference's jnp
+double scans (no Pallas kernel) as two Python loops over blocks; the MoE
+expert products are einsums, as there. Weights are float32 and cast to the
+activation type at each use, as the reference does (``.astype(x.dtype)``);
+the embedding table is gathered first and the rows cast, which gives the
+same values without casting the whole table. Not ported yet: the xLSTM
+cells (mLSTM / sLSTM) and cross-attention (ROADMAP Queue A item 9 (a)).
 """
 from __future__ import annotations
 
@@ -30,12 +38,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import ArraySpec
-
-_NOT_PORTED = ("ROADMAP Queue A item 9 (b): the long-sequence attention paths "
-               "(flash_mha, chunked_attend) are not ported yet")
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -143,6 +149,181 @@ def gqa_attend(q, k, v, bias):
     return out.reshape(B, Sq, H, hd_v)
 
 
+def _pad_blocks(q, k, v, q_pos, k_pos, block_q, block_k):
+    """Pad q to whole query blocks (``q_pos`` -1) and k / v to whole key
+    blocks (``k_pos`` int32 max, always masked), then split into blocks:
+    q (B, nq, bq, KV, G, hd), k (B, nk, bk, KV, hd), v (B, nk, bk, KV,
+    hd_v), positions (nq, bq) and (nk, bk)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    hd_v = v.shape[3]
+    G = H // KV
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    pad_q, pad_k = (-Sq) % bq, (-Sk) % bk
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = F.pad(q_pos, (0, pad_q), value=-1)
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_pos = F.pad(k_pos, (0, pad_k), value=INT32_MAX)
+    nq, nk = q.shape[1] // bq, k.shape[1] // bk
+    return (q.reshape(B, nq, bq, KV, G, hd), k.reshape(B, nk, bk, KV, hd),
+            v.reshape(B, nk, bk, KV, hd_v), q_pos.reshape(nq, bq),
+            k_pos.reshape(nk, bk))
+
+
+def _online_step(qblk, kblk, vblk, qp, kp, m, l, acc, scale, causal, window):
+    """One key block of the online softmax: the running max ``m``, row sum
+    ``l`` and accumulator ``acc`` (float32) after keys ``kblk``."""
+    s = torch.einsum("bskgd,btkd->bkgst", qblk, kblk).to(torch.float32) * scale
+    s = s + _mask_bias(qp, kp, causal, window)[None, None, None]
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bkgst,btkd->bkgsd", p.to(qblk.dtype), vblk).to(torch.float32)
+    return m_new, l_new, acc_new
+
+
+def _query_block(qblk, kb, vb, qp, kpb, scale, causal, window, remat=False):
+    """Online softmax of one query block over every key block. Returns
+    (out (B, KV, G, bq, hd_v) in q's type, lse (B, KV, G, bq) float32)."""
+    B, bq, KV, G, _ = qblk.shape
+    f32 = torch.float32
+    m = torch.full((B, KV, G, bq), NEG_INF, dtype=f32, device=qblk.device)
+    l = torch.zeros((B, KV, G, bq), dtype=f32, device=qblk.device)
+    acc = torch.zeros((B, KV, G, bq, vb.shape[-1]), dtype=f32, device=qblk.device)
+    for j in range(kb.shape[1]):
+        args = (qblk, kb[:, j], vb[:, j], qp, kpb[j], m, l, acc, scale,
+                causal, window)
+        if remat:
+            m, l, acc = checkpoint(_online_step, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            m, l, acc = _online_step(*args)
+    out = (acc / torch.clamp(l[..., None], min=1e-30)).to(qblk.dtype)
+    return out, m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def _join_query_blocks(outs, B, Sq, H):
+    """[(B, KV, G, bq, f)] per query block -> (B, Sq, H, f)."""
+    out = torch.stack(outs, dim=1)               # (B, nq, KV, G, bq, f)
+    nq, bq, f = out.shape[1], out.shape[4], out.shape[5]
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, nq * bq, H, f)
+    return out[:, :Sq]
+
+
+def chunked_attend(q, k, v, q_pos, k_pos, causal=True, window=None,
+                   block_q: int = 512, block_k: int = 512,
+                   remat_inner: bool = True):
+    """Flash-style online-softmax attention in torch ops, the reference's
+    double ``lax.scan`` as two loops over blocks: memory O(block_q *
+    block_k) per step instead of O(Sq * Sk). q: (B,Sq,H,hd), k: (B,Sk,KV,hd),
+    v: (B,Sk,KV,hd_v); q_pos: (Sq,), k_pos: (Sk,) absolute positions.
+
+    ``remat_inner`` runs each key-block step under ``torch.utils.checkpoint``
+    when gradients are on (the reference's ``jax.checkpoint``), so the
+    backward keeps no (bq x bk) tiles; it changes no value."""
+    B, Sq, H, hd = q.shape
+    qb, kb, vb, qpb, kpb = _pad_blocks(q, k, v, q_pos, k_pos, block_q, block_k)
+    scale = 1.0 / math.sqrt(hd)
+    remat = remat_inner and torch.is_grad_enabled()
+    outs = [_query_block(qb[:, i], kb, vb, qpb[i], kpb, scale, causal, window,
+                         remat)[0] for i in range(qb.shape[1])]
+    return _join_query_blocks(outs, B, Sq, H)
+
+
+class _FlashMHA(torch.autograd.Function):
+    """The reference's custom-VJP ``flash_mha``: the forward is the online
+    softmax and saves ``(q, k, v, out, lse)`` only; the backward recomputes
+    each (query block, key block) probability tile from the saved ``lse``
+    (the flash backward, Dao et al.), so no O(Sq * Sk) tensor is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, block_q, block_k):
+        B, Sq, H, hd = q.shape
+        qb, kb, vb, qpb, kpb = _pad_blocks(q, k, v, q_pos, k_pos, block_q,
+                                           block_k)
+        scale = 1.0 / math.sqrt(hd)
+        outs, lses = zip(*[_query_block(qb[:, i], kb, vb, qpb[i], kpb, scale,
+                                        causal, window)
+                           for i in range(qb.shape[1])])
+        out = _join_query_blocks(list(outs), B, Sq, H)
+        lse = _join_query_blocks([x[..., None] for x in lses], B, Sq, H)[..., 0]
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.mask = (causal, window, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        causal, window, block_q, block_k = ctx.mask
+        f32 = torch.float32
+        B, Sq, H, hd = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
+        hd_v, G = v.shape[3], H // KV
+        qb, kb, vb, qpb, kpb = _pad_blocks(q, k, v, q_pos, k_pos, block_q,
+                                           block_k)
+        nq, bq, nk, bk = qb.shape[1], qb.shape[2], kb.shape[1], kb.shape[2]
+        scale = 1.0 / math.sqrt(hd)
+        pad_q = nq * bq - Sq
+
+        def qblocks(a):          # (B, Sq, H, f) -> (B, nq, bq, KV, G, f)
+            a = F.pad(a, (0, 0, 0, 0, 0, pad_q)) if pad_q else a
+            return a.reshape(B, nq, bq, KV, G, a.shape[-1])
+
+        dob, ob = qblocks(dout), qblocks(out)
+        # lse and D_i = rowsum(dout * out), each (B, nq, KV, G, bq)
+        lseb = qblocks(lse[..., None])[..., 0].permute(0, 1, 3, 4, 2)
+        Db = torch.sum(dob.to(f32) * ob.to(f32), dim=-1).permute(0, 1, 3, 4, 2)
+        dk = torch.zeros((B, nk, bk, KV, hd), dtype=f32, device=q.device)
+        dv = torch.zeros((B, nk, bk, KV, hd_v), dtype=f32, device=q.device)
+        dqs = []
+        for i in range(nq):
+            qblk, doblk = qb[:, i], dob[:, i]
+            lse_q, D_q = lseb[:, i], Db[:, i]
+            dq_blk = torch.zeros((B, bq, KV, G, hd), dtype=f32, device=q.device)
+            for j in range(nk):
+                kblk, vblk = kb[:, j], vb[:, j]
+                s = torch.einsum("bskgd,btkd->bkgst", qblk, kblk).to(f32) * scale
+                s = s + _mask_bias(qpb[i], kpb[j], causal, window)[None, None, None]
+                p = torch.exp(s - lse_q[..., None])
+                dp = torch.einsum("bskgd,btkd->bkgst", doblk, vblk).to(f32)
+                ds = p * (dp - D_q[..., None]) * scale
+                dq_blk = dq_blk + torch.einsum("bkgst,btkd->bskgd",
+                                               ds.to(kblk.dtype), kblk)
+                dk[:, j] += torch.einsum("bkgst,bskgd->btkd",
+                                         ds.to(qblk.dtype), qblk)
+                dv[:, j] += torch.einsum("bkgst,bskgd->btkd",
+                                         p.to(doblk.dtype), doblk)
+            dqs.append(dq_blk)
+        dq = torch.stack(dqs, dim=1).reshape(B, nq * bq, H, hd)[:, :Sq]
+        dk = dk.reshape(B, nk * bk, KV, hd)[:, :Sk]
+        dv = dv.reshape(B, nk * bk, KV, hd_v)[:, :Sk]
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def flash_mha(q, k, v, q_pos, k_pos, causal=True, window=None,
+              block_q: int = 512, block_k: int = 512):
+    """Long-sequence attention with the flash backward (the reference's
+    ``flash_mha``, ``jax.custom_vjp``). q: (B,Sq,H,hd), k: (B,Sk,KV,hd),
+    v: (B,Sk,KV,hd_v) with ``hd_v`` free (MLA: 192 / 128); q_pos (Sq,),
+    k_pos (Sk,). Returns (B, Sq, H, hd_v) in q's type."""
+    return _FlashMHA.apply(q, k, v, q_pos, k_pos, causal, window, block_q,
+                           block_k)
+
+
+def _long_attention(q, k, v, pos1d, cfg: ModelConfig, causal, window):
+    """The reference's path above :data:`CHUNKED_ATTN_THRESHOLD`."""
+    if cfg.attn_custom_vjp:
+        return flash_mha(q, k, v, pos1d, pos1d, causal, window)
+    return chunked_attend(q, k, v, pos1d, pos1d, causal=causal, window=window,
+                          remat_inner=cfg.attn_remat_inner)
+
+
 def self_attention(params, x, positions, cfg: ModelConfig, *, causal=True,
                    window=None, attn_impl: str = "auto", return_kv=False):
     """Full-sequence self-attention (prefill). x: (B,S,d); positions (S,).
@@ -153,20 +334,19 @@ def self_attention(params, x, positions, cfg: ModelConfig, *, causal=True,
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     S = x.shape[1]
     on_card = x.device.type == "cuda"
-    if attn_impl == "chunked" or (attn_impl == "auto" and not on_card
-                                  and S > CHUNKED_ATTN_THRESHOLD):
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} at S={S} on {x.device.type}: {_NOT_PORTED}")
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    pos1d = positions[0] if positions.dim() == 2 else positions
     if attn_impl == "pallas" or (attn_impl == "auto" and on_card):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         out = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=causal,
                                      window=window)
+    elif attn_impl == "chunked" or (attn_impl == "auto"
+                                    and S > CHUNKED_ATTN_THRESHOLD):
+        out = _long_attention(q, k, v, pos1d, cfg, causal, window)
     else:
-        pos1d = positions[0] if positions.dim() == 2 else positions
         bias = _mask_bias(pos1d, pos1d, causal, window)[None, None]
         out = gqa_attend(q, k, v, bias)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
@@ -231,8 +411,9 @@ def decode_attention(params, x, layer_cache, pos: int, cfg: ModelConfig):
 
 
 def mlp_spec(d: int, f: int):
-    """The gated (SwiGLU) MLP; the reference's ungated GELU variant serves
-    the encdec family, not ported yet."""
+    """The gated (SwiGLU) MLP (also the MoE's shared experts); the
+    reference's ungated GELU variant serves the encdec family, not ported
+    yet."""
     return {
         "w_gate": ArraySpec((d, f), ("embed", "mlp"), init="scaled"),
         "w_up": ArraySpec((d, f), ("embed", "mlp"), init="scaled"),
@@ -244,6 +425,236 @@ def mlp_apply(params, x):
     g = F.silu(x @ params["w_gate"].to(x.dtype))
     u = x @ params["w_up"].to(x.dtype)
     return (g * u) @ params["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (group-limited one-hot dispatch, GShard/Switch style)
+# ---------------------------------------------------------------------------
+
+MOE_GROUP_SIZE = 256  # tokens per dispatch group; bounds one-hot memory
+
+
+def moe_spec(cfg: ModelConfig):
+    m = cfg.moe
+    d, fe = cfg.d_model, m.d_ff_expert
+    spec = {
+        "router": ArraySpec((d, m.num_experts), ("embed", "experts"), init="scaled"),
+        "w_gate": ArraySpec((m.num_experts, d, fe), ("experts", "embed", "mlp"), init="scaled"),
+        "w_up": ArraySpec((m.num_experts, d, fe), ("experts", "embed", "mlp"), init="scaled"),
+        "w_down": ArraySpec((m.num_experts, fe, d), ("experts", "mlp", "embed"), init="scaled"),
+    }
+    if m.num_shared:
+        spec["shared"] = mlp_spec(d, m.num_shared * fe)
+    return spec
+
+
+def moe_capacity(cfg: ModelConfig, group_size: int) -> int:
+    """Slots per expert in a dispatch group of ``group_size`` tokens."""
+    m = cfg.moe
+    return max(1, int(math.ceil(group_size * m.top_k / m.num_experts
+                                * m.capacity_factor)))
+
+
+def moe_route(probs, top_k: int, cap: int, dtype):
+    """The reference's routing of router probabilities ``probs`` (G, gs, E)
+    float32, written out so it can be inspected. Returns a dict:
+
+      * ``gate_idx`` (G, gs, K): top-k experts, descending, ties to the lower
+        index as ``jax.lax.top_k`` (a stable descending sort);
+      * ``gate_vals`` (G, gs, K): their probabilities renormalised to sum 1;
+      * ``positions`` / ``keep`` (G, gs, K): each slot's place in its expert's
+        queue, from a cumsum over the group's tokens, choice k after every
+        kept choice before k; a slot at or past ``cap`` is dropped;
+      * ``counts`` (G, E) int32: kept slots per expert;
+      * ``dispatch`` (G, gs, E, cap) in ``dtype`` and ``combine`` float32:
+        the one-hot dispatch and its gate-weighted combine."""
+    G, gs, E = probs.shape
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    i32 = torch.int32
+    counts = torch.zeros((G, E), dtype=i32, device=probs.device)
+    dispatch = torch.zeros((G, gs, E, cap), dtype=dtype, device=probs.device)
+    combine = torch.zeros((G, gs, E, cap), dtype=torch.float32, device=probs.device)
+    positions, keeps = [], []
+    for kk in range(top_k):
+        idx = gate_idx[..., kk]                                  # (G, gs)
+        oh = F.one_hot(idx, E).to(i32)                           # (G, gs, E)
+        pos_in_e = torch.cumsum(oh, dim=1, dtype=i32) - oh + counts[:, None, :]
+        mypos = torch.gather(pos_in_e, -1, idx[..., None])[..., 0]
+        keep = mypos < cap
+        pos_oh = F.one_hot(torch.where(keep, mypos, cap).long(),
+                           cap + 1).to(dtype)[..., :cap]
+        d_k = oh.to(dtype)[..., None] * pos_oh[:, :, None, :]   # (G, gs, E, cap)
+        dispatch = dispatch + d_k
+        combine = combine + d_k.to(torch.float32) * gate_vals[..., kk][..., None, None]
+        counts = counts + torch.sum(oh * keep[..., None].to(i32), dim=1, dtype=i32)
+        positions.append(mypos)
+        keeps.append(keep)
+    return {"gate_idx": gate_idx, "gate_vals": gate_vals,
+            "positions": torch.stack(positions, dim=-1),
+            "keep": torch.stack(keeps, dim=-1), "counts": counts,
+            "dispatch": dispatch, "combine": combine}
+
+
+def moe_apply(params, x, cfg: ModelConfig):
+    """x: (B,S,d) -> (y (B,S,d), aux_loss scalar float32).
+
+    The tokens are cut into groups of ``min(256, T)``, the last padded with
+    zero tokens (routed like any other, and counted in the aux loss's
+    means, as in the reference); each expert takes at most
+    :func:`moe_capacity` tokens of a group."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E = m.num_experts
+    T = B * S
+    gs = min(MOE_GROUP_SIZE, T)
+    xt = x.reshape(T, d)
+    pad = (-T) % gs
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+    xg = xt.reshape(-1, gs, d)
+    logits = torch.einsum("gsd,de->gse", xg,
+                          params["router"].to(x.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    route = moe_route(probs, m.top_k, moe_capacity(cfg, gs), x.dtype)
+
+    xe = torch.einsum("gsd,gsec->gecd", xg, route["dispatch"])  # (G,E,cap,d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, params["w_gate"].to(x.dtype)))
+    u = torch.einsum("gecd,edf->gecf", xe, params["w_up"].to(x.dtype))
+    ye = torch.einsum("gecf,efd->gecd", h * u, params["w_down"].to(x.dtype))
+    y = torch.einsum("gsec,gecd->gsd", route["combine"].to(x.dtype), ye)
+    y = y.reshape(-1, d)[:T].reshape(B, S, d)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    me = torch.mean(probs, dim=(0, 1))
+    top1 = F.one_hot(route["gate_idx"][..., 0], E).to(torch.float32)
+    fe_frac = torch.mean(top1, dim=(0, 1))
+    aux = E * torch.sum(fe_frac * me) * m.router_aux_weight
+
+    if m.num_shared:
+        y = y + mlp_apply(params["shared"], x)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_spec(cfg: ModelConfig):
+    a = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = a.nope_head_dim
+    return {
+        "wq_a": ArraySpec((d, a.q_lora_rank), ("embed", "lora"), init="scaled"),
+        "q_norm": norm_spec(a.q_lora_rank),
+        "wq_b": ArraySpec((a.q_lora_rank, H, qk + a.rope_head_dim),
+                          ("lora", "heads", "head_dim"), init="scaled"),
+        "wkv_a": ArraySpec((d, a.kv_lora_rank + a.rope_head_dim), ("embed", "lora"), init="scaled"),
+        "kv_norm": norm_spec(a.kv_lora_rank),
+        "wk_b": ArraySpec((a.kv_lora_rank, H, qk), ("lora", "heads", "head_dim"), init="scaled"),
+        "wv_b": ArraySpec((a.kv_lora_rank, H, a.v_head_dim),
+                          ("lora", "heads", "head_dim"), init="scaled"),
+        "wo": ArraySpec((H, a.v_head_dim, d), ("heads", "head_dim", "embed"), init="scaled"),
+    }
+
+
+def _mla_qkv_latent(params, x, cfg: ModelConfig):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kv_lora),
+    k_rope (B,S,1,rope)), before rope."""
+    a = cfg.mla
+    cq = rms_norm(x @ params["wq_a"].to(x.dtype), params["q_norm"]["scale"],
+                  cfg.norm_eps)
+    q = torch.einsum("bsl,lhk->bshk", cq, params["wq_b"].to(x.dtype))
+    q_nope, q_rope = q[..., :a.nope_head_dim], q[..., a.nope_head_dim:]
+    ckv_full = x @ params["wkv_a"].to(x.dtype)
+    c_kv = rms_norm(ckv_full[..., :a.kv_lora_rank], params["kv_norm"]["scale"],
+                    cfg.norm_eps)
+    k_rope = ckv_full[..., a.kv_lora_rank:][:, :, None, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attention(params, x, positions, cfg: ModelConfig, *, window=None,
+                  return_latent=False):
+    """MLA over the full sequence (train / prefill), K and V materialised
+    per head: dense up to :data:`CHUNKED_ATTN_THRESHOLD` tokens (KV = H),
+    the long-sequence path above it. With ``return_latent`` also returns
+    ``c_kv`` (B,S,kv_lora) and the roped ``k_rope`` (B,S,1,rope), the
+    absorbed decode's cache entries."""
+    a = cfg.mla
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(params, x, cfg)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    k_nope = torch.einsum("bsl,lhk->bshk", c_kv, params["wk_b"].to(x.dtype))
+    v = torch.einsum("bsl,lhk->bshk", c_kv, params["wv_b"].to(x.dtype))
+    H = cfg.num_heads
+    k_rope_h = k_rope.expand(*k_rope.shape[:2], H, a.rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    pos1d = positions[0] if positions.dim() == 2 else positions
+    if x.shape[1] > CHUNKED_ATTN_THRESHOLD:
+        out = _long_attention(q, k, v, pos1d, cfg, True, window)
+    else:
+        bias = _mask_bias(pos1d, pos1d, True, window)[None, None]
+        out = gqa_attend(q, k, v, bias)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return (out, c_kv, k_rope) if return_latent else out
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, cache_len: int):
+    a = cfg.mla
+    phys = cache_len if cfg.attention_window is None else min(cfg.attention_window, cache_len)
+    return {
+        "c_kv": (cfg.num_layers, batch, phys, a.kv_lora_rank),
+        "k_rope": (cfg.num_layers, batch, phys, a.rope_head_dim),
+        "slot_pos": (cfg.num_layers, phys),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
+    shp = mla_cache_shape(cfg, batch, cache_len)
+    return {
+        "c_kv": torch.zeros(shp["c_kv"], dtype=dtype, device=device),
+        "k_rope": torch.zeros(shp["k_rope"], dtype=dtype, device=device),
+        "slot_pos": torch.full(shp["slot_pos"], -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def mla_decode_attention(params, x, layer_cache, pos: int, cfg: ModelConfig):
+    """Absorbed-matrix MLA decode: W_UK is folded into the query and W_UV
+    applied after the probabilities, so attention runs in the kv_lora-wide
+    latent and the cache holds only (kv_lora + rope) per token. x: (B,1,d);
+    layer_cache: dict(c_kv (B,P,kv_lora), k_rope (B,P,rope), slot_pos (P,)).
+
+    Returns (out (B,1,d), layer_cache), the cache updated IN PLACE (slot
+    ``pos % P``), as :func:`decode_attention`."""
+    a = cfg.mla
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv_latent(params, x, cfg)
+    posb = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
+    k_rope_new = apply_rope(k_rope_new, posb, cfg.rope_theta)
+    ckv, krope, spos = (layer_cache["c_kv"], layer_cache["k_rope"],
+                        layer_cache["slot_pos"])
+    slot = pos % ckv.shape[1]
+    ckv[:, slot] = c_kv_new[:, 0]
+    krope[:, slot] = k_rope_new[:, 0, 0]
+    spos[slot] = pos
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, params["wk_b"].to(x.dtype))
+    s_nope = torch.einsum("bshl,btl->bhst", q_lat, ckv)
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope, krope)
+    scale = 1.0 / math.sqrt(a.nope_head_dim + a.rope_head_dim)
+    scores = (s_nope + s_rope).to(torch.float32) * scale
+    valid = spos >= 0
+    if cfg.attention_window is not None:
+        valid = valid & (spos > pos - cfg.attention_window)
+    scores = scores + torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhst,btl->bshl", probs, ckv)            # (B,1,H,kv_lora)
+    out = torch.einsum("bshl,lhk->bshk", o_lat, params["wv_b"].to(x.dtype))
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return out, layer_cache
 
 
 # ---------------------------------------------------------------------------

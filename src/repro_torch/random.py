@@ -18,7 +18,8 @@ in int64 and are masked to 32 bits after every add and shift.
 Functions: :func:`PRNGKey`, :func:`split`, :func:`fold_in`, :func:`bits`
 (raw 32-bit draws), :func:`uniform`, :func:`randint`, :func:`permutation`,
 all bitwise; and :func:`normal`, whose uniform draws are bitwise but whose
-``erfinv`` is torch's (within ~1e-5 relative of XLA's in the tails).
+``erfinv`` is torch's (within ~1e-5 relative of XLA's in the tails; bitwise
+once rounded to bfloat16).
 """
 from __future__ import annotations
 
@@ -112,25 +113,42 @@ def bits(key, shape: Shape, start: int = 0) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key, shape: Shape = (), start: int = 0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
-    23 bits as the mantissa of a float in ``[1, 2)``, minus 1 (``start`` as
-    in :func:`bits`)."""
+# mantissa bits of the float types jax.random draws in 16 bits
+_NMANT16 = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def uniform(key, shape: Shape = (), start: int = 0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` on ``[0, 1)``, bitwise:
+    the draw's top mantissa bits under the exponent of 1.0, minus 1
+    (``start`` as in :func:`bits`). float32 takes the top 23 bits; a 16-bit
+    type (bfloat16, float16) takes the low 16 bits of the draw, or the low
+    8 where it has fewer than 8 mantissa bits (bfloat16), as jax does."""
     b = bits(key, shape, start)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    if dtype == torch.float32:
+        f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+        return f - 1.0
+    nmant = _NMANT16[dtype]
+    rng_bits = 8 if nmant < 8 else 16
+    one = torch.ones((), dtype=dtype).view(torch.int16).item()
+    fb = ((b & ((1 << rng_bits) - 1)) >> (rng_bits - nmant)) | one
+    return fb.to(torch.int16).view(dtype) - torch.ones((), dtype=dtype,
+                                                       device=key.device)
 
 
-def normal(key, shape: Shape = (), start: int = 0) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in float32: ``sqrt(2) *
-    erfinv(u)`` with ``u`` uniform on ``(-1, 1)`` drawn as jax draws it
-    (bitwise); torch's ``erfinv`` differs from XLA's by a few ulps
-    (``start`` as in :func:`bits`)."""
-    lo = torch.tensor(-0.99999994, dtype=torch.float32, device=key.device)
-    hi = torch.ones((), dtype=torch.float32, device=key.device)
-    u = torch.maximum(lo, uniform(key, shape, start) * (hi - lo) + lo)
-    return torch.erfinv(u) * torch.tensor(1.4142135, dtype=torch.float32,
-                                          device=key.device)
+def normal(key, shape: Shape = (), start: int = 0,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``: ``sqrt(2) * erfinv(u)``
+    with ``u`` uniform on ``(-1, 1)`` drawn as jax draws it (bitwise), each
+    op rounded to ``dtype``; torch's ``erfinv`` differs from XLA's by a few
+    float32 ulps, which bfloat16's rounding hides (``start`` as in
+    :func:`bits`)."""
+    def scalar(v):
+        return torch.tensor(v, dtype=dtype, device=key.device)
+    lo = scalar(-1.0 + torch.finfo(dtype).eps / 2)     # nextafter(-1, 0)
+    hi = scalar(1.0)
+    u = torch.maximum(lo, uniform(key, shape, start, dtype) * (hi - lo) + lo)
+    return torch.erfinv(u) * scalar(1.4142135)
 
 
 def randint(key, shape: Shape, minval: int, maxval: int) -> torch.Tensor:

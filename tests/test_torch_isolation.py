@@ -73,7 +73,13 @@ def test_importing_every_module_pulls_in_no_jax():
                  "repro_torch.launch.serve", "repro_torch.configs.qwen2_1_5b",
                  "repro_torch.optim", "repro_torch.optim.adam",
                  "repro_torch.optim.schedules", "repro_torch.core.psgf_dp",
-                 "repro_torch.launch.steps", "repro_torch.launch.train"):
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.configs.phi3_5_moe_42b",
+                 "repro_torch.configs.deepseek_v2_236b",
+                 "repro_torch.configs.internvl2_2b",
+                 "repro_torch.configs.mistral_large_123b",
+                 "repro_torch.configs.command_r_plus_104b",
+                 "repro_torch.configs.qwen2_72b"):
         assert name in rep["modules"]
     assert rep["bad"] == []
 
@@ -174,6 +180,10 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
     hymba = get_config("hymba-1.5b").reduced()
     calls += [
         lambda: llm_serve.serve("hymba-1.5b"),
+        lambda: llm_serve.serve("internvl2-2b"),
+        lambda: llm_serve.serve("phi3.5-moe-42b-a6.6b"),
+        lambda: llm_serve.serve("deepseek-v2-236b"),
+        lambda: decoder.init_cache(get_config("deepseek-v2-236b").reduced(), 1, 4),
         lambda: llm_serve.main(["--arch", "hymba-1.5b"]),
         lambda: ModelApi(hymba),
         lambda: decoder.init_params(hymba, R.PRNGKey(0)),
@@ -191,6 +201,7 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: llm_train.main(["--arch", "qwen2-1.5b", "--steps", "1",
                                 "--sync", "psgf"]),
         lambda: llm_train.make_batch(qwen2, 0, 1, 4),
+        lambda: llm_train.make_batch(get_config("internvl2-2b").reduced(), 0, 1, 4),
         lambda: train_steps.build_train_step(qwen2),
         lambda: decoder.init_params(qwen2, R.PRNGKey(0)),
     ]

@@ -635,6 +635,110 @@ def test_hybrid_prefill_and_decode_on_the_card_match_cpu(cuda):
         tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 32, 8), (4, 2048, 16, 8)],
+                         ids=["phi3.5-moe", "internvl2"])
+def test_flash_tensor_core_at_the_zoo_families_prefill(cuda, shape):
+    """The tensor-core route at phi3.5-moe's (GQA 4:1) and internvl2's
+    (GQA 2:1) prefill, bf16, hd 128, causal."""
+    B, S, H, KV = shape
+    q, k, v = _inputs(11, B, S, S, H, KV, 128, cuda, torch.bfloat16)
+    _check_tensor_core_call(q, k, v, True, None, None)
+
+
+# reduced configs in float32 on the card against the CPU: cuBLAS and the CPU
+# sum matmuls in other orders, the flash kernel's online softmax and the
+# dense one round differently; 1e-4 abs/rel is ~100x the float32 ulps of
+# O(1) logits (as the hybrid test above)
+ZOO_CPU_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
+                                  "internvl2-2b"])
+def test_zoo_family_prefill_and_decode_on_the_card_match_cpu(cuda, monkeypatch,
+                                                             arch):
+    """Reduced MoE (GQA attention through the flash kernel), MLA (dense at
+    48 tokens, no kernel) and vlm (patch prefix, flash kernel) in float32:
+    prefill and 4 decode steps, the same params on both devices; the MoE
+    routing of the prefill equal on both."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder as TD
+    from repro_torch.models import layers as TL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = TD.init_params(cfg, R.PRNGKey(0), device="cpu")
+    tp = pt.tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)))
+    img = (TD.image_embeds(cfg, 2, R.PRNGKey(1)) if cfg.family == "vlm" else None)
+    start = 48 + (cfg.vlm.num_patches if img is not None else 0)
+    before = ops.LAUNCHES
+    got_l, got_c = TD.prefill(cfg, tp, toks.to(cuda),
+                              None if img is None else img.to(cuda),
+                              cache_len=start + 4)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + (0 if cfg.mla is not None else cfg.num_layers)
+    want_l, want_c = TD.prefill(cfg, params, toks, img, cache_len=start + 4)
+    torch.testing.assert_close(got_l.cpu(), want_l, atol=ZOO_CPU_TOL, rtol=ZOO_CPU_TOL)
+    for (path, g), (_, w) in zip(pt.flatten_with_paths(got_c),
+                                 pt.flatten_with_paths(want_c)):
+        torch.testing.assert_close(g.cpu(), w, atol=ZOO_CPU_TOL, rtol=ZOO_CPU_TOL,
+                                   msg=path)
+    if cfg.moe is not None:
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (2, 48, cfg.d_model)).astype(np.float32))
+        p0 = pt.tree_map(lambda a: a[0], params["blocks"])["moe"]
+        p0c = pt.tree_map(lambda t: t.to(cuda), p0)
+        routes = []
+        real = TL.moe_route
+
+        def moe_route(*args, **kw):
+            routes.append(real(*args, **kw))
+            return routes[-1]
+        monkeypatch.setattr(TL, "moe_route", moe_route)
+        TL.moe_apply(p0c, x.to(cuda), cfg)
+        TL.moe_apply(p0, x, cfg)
+        monkeypatch.undo()
+        rc, rh = routes
+        for key in ("gate_idx", "positions", "keep", "counts", "dispatch"):
+            assert torch.equal(rc[key].cpu(), rh[key]), key
+    tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
+    for i in range(4):
+        got_l, got_c = TD.decode_step(cfg, tp, got_c, tok.to(cuda), start + i)
+        want_l, want_c = TD.decode_step(cfg, params, want_c, tok, start + i)
+        torch.testing.assert_close(got_l.cpu(), want_l, atol=ZOO_CPU_TOL,
+                                   rtol=ZOO_CPU_TOL)
+        tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
+
+
+@pytest.mark.cuda
+def test_flash_mha_on_the_card_matches_cpu(cuda):
+    """The long-sequence path on the card (torch ops, no kernel) at MLA's
+    head dims 192 / 128 and 2,049 tokens: forward and gradients against the
+    CPU in float32 (the same blocks, other summation orders)."""
+    from repro_torch.models import layers as TL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    S = TL.CHUNKED_ATTN_THRESHOLD + 1
+    host = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((1, S, 2, 192), (1, S, 2, 192), (1, S, 2, 128), (1, S, 2, 128))]
+    pos = torch.arange(S, dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (t.detach().to(dev).requires_grad_() for t in host[:3])
+        o = TL.flash_mha(q, k, v, pos.to(dev), pos.to(dev), True, None)
+        o.backward(host[3].to(dev))
+        outs[str(dev)] = [t.detach().cpu() for t in (o, q.grad, k.grad, v.grad)]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(g, w, atol=ZOO_CPU_TOL, rtol=ZOO_CPU_TOL, msg=name)
+
+
 # ---------------------------------------------------------------------------
 # the while and host FL drivers on the card
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """The port's LLM serving launcher (``repro_torch.launch.serve``) on the CPU
 against the same loop composed of the JAX package's ``ModelApi`` calls:
-reduced hymba and qwen2 in float32, weights from ``PRNGKey(0)`` on each side (equal
-up to ``erfinv``'s last ulps), greedy decode. Plus the CLI."""
+every family at its reduced config in float32 (hymba, qwen2, internvl2 with
+its patch prefix, phi3.5-moe and deepseek-v2 with MLA), weights from
+``PRNGKey(0)`` on each side (equal up to ``erfinv``'s last ulps), greedy
+decode. Plus the CLI."""
 import dataclasses
 from functools import partial
 
@@ -34,19 +36,26 @@ def _jax_serve_loop(cfg, batch, prompt_len, gen):
     api = JaxModelApi(cfg)
     params = jax.jit(api.init_params)(jax.random.PRNGKey(0))
     toks = jnp.asarray(synthetic_tokens(0, batch, prompt_len, cfg.vocab_size))
-    logits, cache = jax.jit(partial(api.prefill, cache_len=prompt_len + gen))(
-        params, {"tokens": toks})
+    inputs, npatch = {"tokens": toks}, 0
+    if cfg.family == "vlm":
+        npatch = cfg.vlm.num_patches
+        inputs["img_embeds"] = 0.1 * jax.random.normal(
+            jax.random.PRNGKey(0), (batch, npatch, cfg.d_model), cfg.activation_dtype)
+    start = prompt_len + npatch
+    logits, cache = jax.jit(partial(api.prefill, cache_len=start + gen))(
+        params, inputs)
     step = jax.jit(api.decode_step)
     out = []
     tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
     for i in range(gen):
         out.append(np.asarray(tok))
-        logits, cache = step(params, cache, tok, jnp.int32(prompt_len + i))
+        logits, cache = step(params, cache, tok, jnp.int32(start + i))
         tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
     return np.concatenate(out, axis=1)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen2-1.5b", "internvl2-2b",
+                                  "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
 def test_serve_matches_jax_loop(monkeypatch, arch):
     _float32_configs(monkeypatch)
     rep = serve_mod.serve(arch, batch=BATCH, prompt_len=PROMPT,
@@ -73,8 +82,8 @@ def test_cli_on_the_cpu(capsys):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.serve("mistral-large-123b", device="cpu")
+        serve_mod.serve("xlstm-125m", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.serve("internvl2-2b", device="cpu")
+        serve_mod.serve("seamless-m4t-large-v2", device="cpu")
     with pytest.raises(KeyError):
         serve_mod.serve("no-such-arch", device="cpu")

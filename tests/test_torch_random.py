@@ -115,6 +115,27 @@ def test_normal_and_spec_init_match_reference():
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("start", [0, 5])
+def test_narrow_uniform_and_normal(seed, start):
+    """16-bit draws: uniform bitwise in bf16 (8 random bits a value) and
+    float16 (16); normal bitwise in bf16, where erfinv's float32 ulps vanish
+    in the rounding, and in float16 within 2**-8 (a float16 ulp at the
+    largest draws, |x| in [4, 8))."""
+    key, n = jax.random.PRNGKey(seed), 70_001
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16), (jnp.float16, torch.float16)):
+        ju = np.asarray(jax.random.uniform(key, (start + n,), jdt), np.float32)
+        tu = R.uniform(R.PRNGKey(seed), (n,), start, dtype=tdt)
+        assert tu.dtype == tdt
+        np.testing.assert_array_equal(tu.float().numpy(), ju[start:])
+        jn = np.asarray(jax.random.normal(key, (start + n,), jdt), np.float32)
+        tn = R.normal(R.PRNGKey(seed), (n,), start, dtype=tdt).float().numpy()
+        if tdt == torch.bfloat16:
+            np.testing.assert_array_equal(tn, jn[start:])
+        else:
+            np.testing.assert_allclose(tn, jn[start:], rtol=0, atol=2.0 ** -8)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_stochastic_int8_quantize_tree_bitwise(seed):
     rng = np.random.default_rng(seed)
