@@ -120,11 +120,27 @@ Phases, each of which raises (exit code != 0) on failure:
      name and power limit; full-width block 0 and the reduced models
      (float32, 8 greedy tokens) on the card against the CPU, every MoE
      call's top-k experts equal.
+ 12. the zoo's last two families: flash attention at seamless-m4t's (4,
+     2048, 16/16, 64) bf16 prefill and (4, 512, 16/16, 64) training step,
+     the encoder's non-causal and the decoder's causal call at each, on the
+     tensor-core route against its plain
+     version, timed beside ``scaled_dot_product_attention``; ``serve`` at
+     the published widths, whole: xlstm-125m (4 x 512: its recurrences are
+     eager loops over positions) and seamless-m4t-large-v2 (4 x 2,048
+     source frames and 2,048 target tokens; 48 flash launches a prefill,
+     all tensor-core), 32 tokens each, with a profiled warm prefill and
+     decode step; ``train_psgf`` of xlstm (2 pods x 8 x 16, a sync every 4
+     steps, 8 steps), ``train`` of xlstm (4 x 64, 4 steps) and of seamless
+     (4 x 512, 8 steps, one pod), their wire bytes and flash launches; the
+     cuts and their reasons are beside ``LAST_SERVE``; full-width block 0 and
+     the reduced models (float32; xlstm at 4 layers, so both cells run) on
+     the card against the CPU: logits, greedy tokens, the prefill's final
+     mLSTM / sLSTM states and cross K/V, two training steps' losses.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
-...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``, one
-``{"kernels": [...]}`` line (flash
+...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``,
+``{"zoo_last_families": ...}``, one ``{"kernels": [...]}`` line (flash
 attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
 the standard library and ``repro_torch`` (from ``src/`` beside this file)
@@ -154,6 +170,11 @@ SEED = 0
 # outside the tensor cores (the kernel does fp32 FMAs on CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# and dense bf16 on the tensor cores (NVIDIA data sheet), and the
+# special-function units' ex2, 16 per clock per SM (CUDA C Programming
+# Guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
+BF16_FLOP_PER_S = 989e12
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 # served outputs (GPU) against the CPU forward of the same params: both fp32
 # with no TF32, but cuBLAS and the CPU sum each matmul (K up to 1920 in the
@@ -223,17 +244,19 @@ def route_of(ops, q, k) -> str:
 def flash_bound_ms(ref, q, k, v, causal=False, window=None):
     """Least time of one call: each input read once and the output written
     once at the HBM rate; QK^T and PV over the (query, key) pairs the mask
-    keeps, 2 flops per MAC, at the fp32 rate. Returns (ms, by, bytes,
-    flops)."""
+    keeps, 2 flops per MAC, at the fp32 rate, or for bf16 at the tensor
+    cores' rate, with the pairs' exponentials on the SFUs. Returns (ms, by,
+    bytes, flops, pairs)."""
     B, Sq, H, hd = q.shape
     pairs = int(ref.attention_mask(Sq, k.shape[1], causal=causal, window=window,
                                    kv_len=None).sum())
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
     flops = 4 * B * H * hd * pairs
-    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": flops / FP32_FLOP_PER_S * 1e3}
+    ops_s = (flops / FP32_FLOP_PER_S if q.dtype == torch.float32 else
+             max(flops / BF16_FLOP_PER_S, B * H * pairs / SFU_OPS_PER_S))
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops_s * 1e3}
     by = max(times, key=times.get)
-    return times[by], by, nbytes, flops
+    return times[by], by, nbytes, flops, pairs
 
 
 def flash_case(ops, ref, name, q, k, v, causal, window, kv_len, tol):
@@ -412,7 +435,7 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
             qt, kt, vt))
         runs["scalar"].append(timed_ms(scalar))
         runs["short"].append(timed_ms(short))
-        bound, by, nbytes, flops = flash_bound_ms(ref, q, k, v)
+        bound, by, nbytes, flops, _ = flash_bound_ms(ref, q, k, v)
         times[key] = {"shape": list(q.shape), "ms": statistics.median(runs["short"]),
                       "ms_runs": runs["short"],
                       "scalar_ms": statistics.median(runs["scalar"]),
@@ -1561,12 +1584,6 @@ def drive_host_vs_loop(E, R, mix_ops, flash_ops) -> dict:
 # Phase 6: hymba-1.5b hybrid decoder serving (the model zoo's hybrid family)
 # ---------------------------------------------------------------------------
 
-# published H100 SXM rates beside HBM and fp32 above: dense bf16 on the
-# tensor cores (NVIDIA data sheet), and the special-function units' ex2, 16
-# per clock per SM (CUDA C Programming Guide, compute capability 9.0) x 132
-# SMs x 1.98 GHz boost clock
-BF16_FLOP_PER_S = 989e12
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 # ssm_scan against its plain version: float32 within the reference's own
 # kernel tolerance (tests/test_kernels.py:270); bf16 within one bf16
@@ -1717,33 +1734,25 @@ def check_flash_hymba(ops, ref) -> dict:
             "max_abs_err_float32": errs["float32"], **record}
 
 
-def tensor_core_times(ops, ref, q, k, v, window) -> dict:
-    """The tensor-core route's causal call on bf16 ``q, k, v`` timed beside
-    its plain version and ``scaled_dot_product_attention`` under the same
-    mask, with the bound: each input read once and the output written once
-    at the HBM rate, or the kept (query, key) pairs' QK^T and PV at the bf16
-    tensor-core rate and their exponentials on the SFUs."""
+def tensor_core_times(ops, ref, q, k, v, window, causal=True) -> dict:
+    """The tensor-core route's call on bf16 ``q, k, v`` timed beside its
+    plain version and ``scaled_dot_product_attention`` under the same mask,
+    with the bound (``flash_bound_ms``)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    mask = ref.attention_mask(S, S, causal=True, window=window, kv_len=None,
+    mask = ref.attention_mask(S, S, causal=causal, window=window, kv_len=None,
                               device="cuda")
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
               for t in (k, v))
-    kernel_ms = timed_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+    kernel_ms = timed_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                      window=window), calls=5)
     plain_ms = timed_ms(lambda: ref.flash_attention_ref(
-        q, k, v, causal=True, window=window), calls=2, reps=3)
+        q, k, v, causal=causal, window=window), calls=2, reps=3)
     library_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask), calls=5)
-    pairs = int(mask.sum())
-    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
-    flops = 4 * B * H * hd * pairs
-    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": max(flops / BF16_FLOP_PER_S,
-                               B * H * pairs / SFU_OPS_PER_S) * 1e3}
-    by = max(times, key=times.get)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": times[by],
+    bound, by, nbytes, flops, pairs = flash_bound_ms(ref, q, k, v, causal, window)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": library_ms,
             "library_call": "scaled_dot_product_attention(attn_mask=the same mask)",
             "bytes": nbytes, "flops": flops, "pairs": pairs}
@@ -2928,17 +2937,19 @@ def recording_routes(layers, log):
 
 def decode_cast_bytes(cfg) -> int:
     """Bytes one decode step moves to cast the float32 weights it uses to
-    bf16 at each use, as the reference does: every block leaf and the
-    head read in float32, written and read again in bf16 (8 bytes a
-    parameter); the embedding is gathered per token."""
+    bf16 at each use, as the reference does: every decoder block leaf and
+    the head read in float32, written and read again in bf16 (8 bytes a
+    parameter); the embedding is gathered per token, unless the head is
+    tied to it (then the whole table is cast); an encoder is not run."""
     from repro_torch.common import pytree_utils as pt
-    from repro_torch.models import decoder
+    from repro_torch.launch.api import model_module
     from repro_torch.models import spec as S
 
-    spec = decoder.model_spec(cfg)
+    spec = model_module(cfg).model_spec(cfg)
+    skip = ("enc_blocks/", "enc_norm/") + (() if cfg.tie_embeddings else ("embed/",))
     n = sum(math.prod(s.shape) for path, s in
             pt.flatten_with_paths(spec, is_leaf=S.is_spec)
-            if not path.startswith("embed/"))
+            if not path.startswith(skip))
     return 8 * n
 
 
@@ -3054,14 +3065,16 @@ def check_flash_zoo(ops, ref) -> dict:
     return out
 
 
-def warm_profile(cfg, batch, prompt) -> dict:
+def warm_profile(cfg, batch, prompt, profiled=None) -> dict:
     """The served model again from the same key, outside ``serve``: a warm
-    prefill (host ms of two calls), a profiled prefill, warm decode steps
-    and three profiled ones; ``serve``'s own prefill is the process's first
-    at these shapes and carries one-time costs."""
+    prefill (host ms of two calls), a profiled prefill (of the first
+    ``profiled`` prompt tokens, if given: the profiler takes ~0.7 ms a
+    kernel to trace and sum), warm decode steps and three profiled ones;
+    ``serve``'s own prefill is the process's first at these shapes and
+    carries one-time costs."""
     from repro_torch import random as R
     from repro_torch.launch.api import ModelApi
-    from repro_torch.models import decoder
+    from repro_torch.models import decoder, encdec
 
     api = ModelApi(cfg, "cuda")
     params = api.init_params(R.PRNGKey(0))
@@ -3072,13 +3085,21 @@ def warm_profile(cfg, batch, prompt) -> dict:
         inputs["img_embeds"] = decoder.image_embeds(
             cfg, batch, R.PRNGKey(0, device="cuda"))
         start += cfg.vlm.num_patches
+    if cfg.family == "audio":
+        inputs["src_embeds"] = encdec.source_embeds(
+            cfg, batch, prompt, R.PRNGKey(0, device="cuda"))
     steps = 8
     with torch.inference_mode():
         def prefill():
             return api.prefill(params, inputs, cache_len=start + steps + 4)
 
         prefill_ms = [host_ms(prefill) for _ in range(2)]
-        prof = profile_device(prefill, 1, "prefill")
+        if profiled is not None and profiled != prompt:
+            cut = {k: v[:, :profiled] for k, v in inputs.items()}
+            prof = profile_device(lambda: api.prefill(params, cut), 1, "prefill")
+            prof["prompt_len"] = profiled
+        else:
+            prof = profile_device(prefill, 1, "prefill")
         logits, cache = prefill()
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         api.decode_step(params, cache, tok, start)
@@ -3177,6 +3198,297 @@ def drive_zoo_families(flash_ops, flash_ref) -> dict:
             "reduced_card_vs_cpu": reduced,
             "flash_launches_prefill": sum(
                 m["flash_route_launches_prefill"]["tensor_core"] for m in models)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the zoo's last two families, xlstm-125m and seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+XLSTM, SEAMLESS = "xlstm-125m", "seamless-m4t-large-v2"
+# Both run whole at their published widths; the cuts are in sequence length
+# and steps only. xlstm's recurrences are eager loops over positions, ~41
+# device kernels a position and layer, host-bound (on the H100: a 4 x 512
+# prefill ~3.3 s, a training step ~5 ms a position and layer with remat), so
+# its prompt is 512 tokens, its profiled prefill 32, and its training
+# sequences 16 (PSGF) and 64 (train), not 64 and 512. Seamless encodes 2,048
+# source frames and prefills 2,048 target tokens.
+# serving: (arch, batch, prompt tokens, tokens generated, profiled prompt)
+LAST_SERVE = ((XLSTM, 4, 512, 32, 32), (SEAMLESS, 4, 2048, 32, 2048))
+XLSTM_PSGF = dict(pods=2, sync_interval=4, batch=8, seq=16, steps=8)
+XLSTM_TRAIN = dict(batch=4, seq=64, steps=4)
+# one pod: at ~23 bytes a parameter and pod (phase 9's qwen2-1.5b), two
+# pods of seamless's 1.63e9 would need ~75 GB. 8 steps, not 4: over 4
+# steps of the trainer's 1cycle the loss rises (12.95 -> 16.34 on the H100)
+# and fails ``check_losses``; at reduced width the reference's trainer
+# rises at the last of 4 steps too, and the port's follows it loss for loss
+# (tests/test_torch_train.py); over 8 steps it falls below its start
+SEAMLESS_TRAIN = dict(batch=4, seq=512, steps=8)
+# flash attention at seamless's serving prefill and at its training step
+# (SEAMLESS_TRAIN): (B, S, H, KV, hd), bf16, the encoder non-causal and the
+# decoder causal
+SEAMLESS_ATTN = {"prefill": (4, 2048, 16, 16, 64),
+                 "training": (SEAMLESS_TRAIN["batch"], SEAMLESS_TRAIN["seq"],
+                              16, 16, 64)}
+# the reduced models on the card against the CPU: xlstm at 4 layers, so
+# that layer 3 runs the sLSTM (reduced() keeps 2, both mLSTM)
+LAST_REDUCED = {XLSTM: dict(num_layers=4), SEAMLESS: {}}
+
+
+def flash_layers(cfg) -> int:
+    """Self-attention layers of one forward, each one flash launch on the
+    card: none for xlstm, the encoder's and the decoder's for seamless."""
+    return 0 if cfg.family == "ssm" else cfg.encdec.enc_layers + cfg.encdec.dec_layers
+
+
+def check_flash_seamless(ops, ref) -> dict:
+    """Flash attention at seamless's prefill and training shapes
+    (SEAMLESS_ATTN), the encoder's non-causal and the decoder's causal call,
+    against its plain version on the tensor-core route, timed beside the
+    plain version and ``scaled_dot_product_attention``. Keys ``encoder`` and
+    ``decoder`` are the prefill's, ``*_training`` the training step's."""
+    gen = torch.Generator().manual_seed(SEED + 13)
+    out = {}
+    for where, (B, S, H, KV, hd) in SEAMLESS_ATTN.items():
+        q, k, v = attention_inputs(gen, B, S, S, H, KV, hd, torch.bfloat16)
+        if route_of(ops, q, k) != "tensor_core":
+            raise RuntimeError(f"flash at seamless's {where} shape is not routed "
+                               "to the tensor cores")
+        for name, causal in (("encoder", False), ("decoder", True)):
+            key = name if where == "prefill" else f"{name}_{where}"
+            _, err, ratio = flash_case(ops, ref, f"flash at seamless's {name} "
+                                       f"({where})", q, k, v, causal, None, None,
+                                       BF16_TOL)
+            out[key] = {"shape": [B, S, H, KV, hd], "causal": causal,
+                        "max_abs_err": err, "bound_ratio": ratio,
+                        **tensor_core_times(ops, ref, q, k, v, None, causal)}
+        del q, k, v
+    return out
+
+
+def last_block0_card_vs_cpu(arch) -> dict:
+    """Block 0 at full width in float32, B x S = ZOO_BLOCK0, its weights
+    drawn on the card from a key, on the card against the CPU: xlstm's
+    block with the flag off and on (mLSTM, sLSTM), seamless's encoder and
+    decoder blocks (the decoder over a random encoder output)."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder, encdec
+    from repro_torch.models import spec as S
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    B, T = ZOO_BLOCK0
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(B, T, cfg.d_model, generator=gen)
+    enc_out = torch.randn(B, T, cfg.d_model, generator=gen)
+    if cfg.family == "ssm":
+        specs = {"block": decoder.block_spec(cfg)}
+        runs = {f"flag_{f:g}": ("block", lambda p, x_, pos, f=f: decoder._block_apply(
+            cfg, p, x_, pos, f, "auto")[0]) for f in (0.0, 1.0)}
+    else:
+        specs = {"enc": encdec.enc_block_spec(cfg), "dec": encdec.dec_block_spec(cfg)}
+        runs = {"encoder": ("enc", lambda p, x_, pos: encdec._enc_block(
+                    cfg, p, x_, pos, "auto")),
+                "decoder": ("dec", lambda p, x_, pos: encdec._dec_block(
+                    cfg, p, x_, pos, enc_out.to(x_.device),
+                    torch.ones(B, T, dtype=torch.bool, device=x_.device), "auto"))}
+    params = {name: S.init_params_from_key(spec, R.PRNGKey(SEED + 14), "cuda")
+              for name, spec in specs.items()}
+    out = {}
+    with torch.inference_mode():
+        for run, (name, fn) in runs.items():
+            ys = {}
+            for dev in ("cuda", "cpu"):
+                p = pt.tree_map(lambda a: a.to(dev), params[name])
+                pos = torch.arange(T, dtype=torch.int32, device=dev)
+                ys[dev] = fn(p, x.to(dev), pos).cpu()
+            err = float((ys["cuda"] - ys["cpu"]).abs().max())
+            if not (torch.isfinite(ys["cuda"]).all()
+                    and torch.allclose(ys["cuda"], ys["cpu"], atol=HYBRID_CPU_TOL,
+                                       rtol=HYBRID_CPU_TOL)):
+                raise RuntimeError(f"{arch} {run} block 0 card vs CPU: max |err| {err}")
+            out[run] = {"max_abs_err": err,
+                        "max_abs_out": float(ys["cpu"].abs().max())}
+    del params
+    return {"shape": [B, T, cfg.d_model], **out}
+
+
+def last_reduced_card_vs_cpu(arch) -> dict:
+    """The reduced model in float32 (LAST_REDUCED) on the same numpy-made
+    params on the card and on the CPU: a 48-token prefill (seamless: 48
+    source frames and 48 target tokens) and 8 greedy decode steps, the
+    logits within HYBRID_CPU_TOL and the tokens equal; the prefill's cache
+    (xlstm: every layer's final mLSTM and sLSTM state; seamless: the self
+    and cross K/V) within HYBRID_CPU_TOL."""
+    import dataclasses
+
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.configs import get_config
+    from repro_torch.launch.api import ModelApi, model_module
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **LAST_REDUCED[arch])
+    host = numpy_params(model_module(cfg).model_spec(cfg), SEED)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, (2, 48))
+    src = (0.1 * rng.standard_normal((2, 48, cfg.d_model))).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        api = ModelApi(cfg, dev)
+        params = decoder.params_from_numpy(host, dev)
+        inputs = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family == "audio":
+            inputs["src_embeds"] = torch.from_numpy(src).to(dev)
+        with torch.inference_mode():
+            logits, cache = api.prefill(params, inputs, cache_len=56)
+            first_cache = pt.tree_map(lambda a: a.float().cpu().clone(), cache)
+            out, steps = [], [logits[:, -1].float().cpu()]
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            for i in range(8):
+                out.append(tok.cpu())
+                logits, cache = api.decode_step(params, cache, tok, 48 + i)
+                steps.append(logits[:, -1].float().cpu())
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        runs[dev] = (torch.cat(out, dim=1), torch.stack(steps), first_cache)
+    (tg, lg, cg), (tc, lc, cc) = runs["cuda"], runs["cpu"]
+    err = float((lg - lc).abs().max())
+    cache_err = {}
+    for (path, a), (_, b) in zip(pt.flatten_with_paths(cg), pt.flatten_with_paths(cc)):
+        cache_err[path] = float((a - b).abs().max())
+        if not torch.allclose(a, b, atol=HYBRID_CPU_TOL, rtol=HYBRID_CPU_TOL):
+            raise RuntimeError(f"reduced {arch} prefill cache {path} card vs CPU: "
+                               f"max |err| {cache_err[path]}")
+    if not (torch.equal(tg, tc) and torch.allclose(lg, lc, atol=HYBRID_CPU_TOL,
+                                                   rtol=HYBRID_CPU_TOL)):
+        raise RuntimeError(f"reduced {arch} card vs CPU: tokens equal "
+                           f"{torch.equal(tg, tc)}, logits max |err| {err}")
+    return {"layers": cfg.num_layers, "tokens_equal": True,
+            "logits_max_abs_err": err, "cache_max_abs_err": cache_err,
+            "tokens": tg[0].tolist()}
+
+
+def last_training_card_vs_cpu(TR, arch) -> dict:
+    """Two ``train`` steps of the reduced model (LAST_REDUCED) in float32 on
+    the card and on the CPU from the same key: losses within
+    TRAIN_CPU_TOL."""
+    import dataclasses
+
+    real = TR._config
+
+    def config(a, reduced):
+        return dataclasses.replace(real(a, reduced), dtype="float32",
+                                   **LAST_REDUCED[a])
+
+    losses = {}
+    with patched(TR, "_config", config):
+        for dev in ("cuda", "cpu"):
+            losses[dev] = TR.train(arch, steps=2, batch=2, seq=64, log_every=100,
+                                   device=dev)
+    check_losses(f"reduced {arch} on the card", losses["cuda"])
+    diff = [abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    if not all(d <= TRAIN_CPU_TOL * (1 + abs(b)) for d, b in zip(diff, losses["cpu"])):
+        raise RuntimeError(f"reduced {arch} losses card {losses['cuda']} vs CPU "
+                           f"{losses['cpu']}")
+    return {"losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+            "losses_max_abs_err": max(diff)}
+
+
+def drive_last_families(flash_ops, flash_ref, ssm_ops) -> dict:
+    """Phase 12: ``serve`` for xlstm-125m (4 x 512) and seamless-m4t-large-v2
+    (4 x 2,048 frames and tokens), whole at their published widths;
+    ``train_psgf`` and ``train`` of xlstm, ``train`` of seamless; flash at
+    seamless's prefill and training shapes; full-width block 0 and the reduced models
+    (serving and two training steps) on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TR
+    from repro_torch.models import layers
+
+    card = card_info()
+    kernels = check_flash_seamless(flash_ops, flash_ref)
+    models = []
+    for arch, batch, prompt, gen, profiled in LAST_SERVE:
+        rep = serve_one(flash_ops, layers, arch, None, batch, prompt, gen)
+        cfg = rep.pop("cfg")
+        want = {"scalar": 0, "tensor_core": flash_layers(cfg), "short": 0}
+        if rep["flash_route_launches_prefill"] != want or rep["flash_mha_calls"]:
+            raise RuntimeError(f"{arch} ({batch} x {prompt}): flash launches "
+                               f"{rep['flash_route_launches_prefill']} (want "
+                               f"{want}), flash_mha calls {rep['flash_mha_calls']}")
+        free_device_memory()
+        rep.update(warm_profile(cfg, batch, prompt, profiled))
+        prof = rep["profile_prefill"]
+        if cfg.family == "ssm" and prof.get("device_ops_per_prefill"):
+            # the eager recurrence: device kernels per position and layer of
+            # the profiled prefill, host ms per position of the warm one
+            rep["prefill_ops_per_position_layer"] = (prof["device_ops_per_prefill"]
+                                                     / (profiled * cfg.num_layers))
+            rep["prefill_ms_per_position"] = statistics.median(
+                rep["prefill_ms_warm"]) / prompt
+        cast = decode_cast_bytes(cfg)
+        rep.update(model=arch, layers=cfg.num_layers,
+                   decode_cast_bytes_per_token=cast,
+                   decode_cast_bound_ms=cast / HBM_BYTES_PER_S * 1e3, card=card)
+        log(json.dumps({"zoo_model": rep}))
+        models.append(rep)
+
+    training = {}
+    n_xlstm = models[0]["params"]
+    psgf = train_run("xlstm train_psgf", lambda **k: TR.train_psgf(XLSTM, **k),
+                     flash_ops, ssm_ops, reduced=False, log_every=4, **XLSTM_PSGF)
+    hist = psgf["history"]
+    pods, steps = XLSTM_PSGF["pods"], XLSTM_PSGF["steps"]
+    want_bytes = gate_bytes_from_keys(get_config(XLSTM), hist["sync_keys"], pods,
+                                      0.3, 0.2, 0.5)
+    if (hist["wire_bytes"] != want_bytes
+            or len(want_bytes) != steps // XLSTM_PSGF["sync_interval"]
+            or not 0 < hist["psgf_bytes"] < hist["full_bytes"]
+            or hist["full_bytes"] != 2.0 * pods * n_xlstm * 4 * len(want_bytes)
+            or psgf["flash_launches"] != 0):
+        raise RuntimeError(f"xlstm PSGF bytes {hist['wire_bytes']} (from the gates "
+                           f"{want_bytes}), total {hist['psgf_bytes']} vs full "
+                           f"{hist['full_bytes']}, flash {psgf['flash_launches']}")
+    psgf.update(per_step(psgf, steps, pods))
+    psgf["tokens_per_s"] = (pods * XLSTM_PSGF["batch"] * XLSTM_PSGF["seq"]
+                            / (psgf["warm_ms_per_step"] / 1e3))
+    psgf["ms_per_sync"] = [t * 1e3 for t in hist["sync_s"]]
+    psgf["psgf_over_full_bytes"] = hist["psgf_bytes"] / hist["full_bytes"]
+    psgf["wire_bytes"] = hist["wire_bytes"]
+    training["xlstm_train_psgf"] = {**{k: v for k, v in psgf.items()
+                                       if k != "history"}, "config": XLSTM_PSGF}
+    for name, arch, conf in (("xlstm_train", XLSTM, XLSTM_TRAIN),
+                             ("seamless_train", SEAMLESS, SEAMLESS_TRAIN)):
+        rec = train_run(name, lambda a=arch, **k: TR.train(a, **k), flash_ops,
+                        ssm_ops, reduced=False, log_every=1, **conf)
+        cfg = get_config(arch)
+        # the forward and its remat recompute
+        want = flash_layers(cfg) * (2 if cfg.remat else 1) * conf["steps"]
+        if rec["flash_route_launches"] != {"scalar": 0, "short": 0,
+                                           "tensor_core": want}:
+            raise RuntimeError(f"{name} flash launches {rec['flash_route_launches']}"
+                               f" (want {want} tensor-core)")
+        rec.update(per_step(rec, conf["steps"]))
+        rec["tokens_per_s"] = conf["batch"] * conf["seq"] / (rec["warm_ms_per_step"] / 1e3)
+        training[name] = {**{k: v for k, v in rec.items() if k != "history"},
+                          "config": conf}
+    log(json.dumps({"last_families_training": {**training, "card": card}}))
+
+    block0, reduced, reduced_training = {}, {}, {}
+    for arch in (XLSTM, SEAMLESS):
+        free_device_memory()
+        block0[arch] = last_block0_card_vs_cpu(arch)
+        reduced[arch] = last_reduced_card_vs_cpu(arch)
+        reduced_training[arch] = last_training_card_vs_cpu(TR, arch)
+    return {"card": card, "activations": "bfloat16",
+            "weights": "float32 from PRNGKey(0)", "models": models,
+            "training": training, "flash_tensor_core": kernels,
+            "block0_card_vs_cpu": block0, "reduced_card_vs_cpu": reduced,
+            "reduced_training_card_vs_cpu": reduced_training,
+            "flash_launches_prefill": sum(
+                m["flash_route_launches_prefill"]["tensor_core"] for m in models),
+            "flash_launches_training": training["seamless_train"]["flash_launches"]}
 
 
 def main() -> int:
@@ -3288,6 +3600,13 @@ def main() -> int:
     log(json.dumps({"zoo_families": zoo_families}))
     record["launches_zoo_families"] = zoo_families["flash_launches_prefill"]
 
+    # 12. the zoo's last two families, xlstm-125m and seamless-m4t-large-v2
+    free_device_memory()
+    last = drive_last_families(ops, ref, ssm_ops)
+    log(json.dumps({"zoo_last_families": last}))
+    record["launches_zoo_last_families"] = last["flash_launches_prefill"]
+    record["launches_zoo_last_families_training"] = last["flash_launches_training"]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -3321,7 +3640,12 @@ def main() -> int:
                         "library_ms": tc["library_ms"],
                         "qwen2_training": zoo["flash_qwen2"],
                         "launches_zoo_families": record["launches_zoo_families"],
-                        "zoo_families": zoo_families["flash_tensor_core"]},
+                        "zoo_families": zoo_families["flash_tensor_core"],
+                        "launches_zoo_last_families":
+                            record["launches_zoo_last_families"],
+                        "launches_zoo_last_families_training":
+                            record["launches_zoo_last_families_training"],
+                        "zoo_last_families": last["flash_tensor_core"]},
     }
     k1_record = mix_record.pop("k1_psgf_mix")
     log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))

@@ -1,9 +1,7 @@
 """Serving launcher: batched prefill + autoregressive decode on one device
 (counterpart of ``repro.launch.serve``).
 
-Usage (any ported arch: qwen2-1.5b, qwen2-72b, mistral-large-123b,
-command-r-plus-104b, hymba-1.5b, internvl2-2b, phi3.5-moe-42b-a6.6b,
-deepseek-v2-236b):
+Usage (any arch of ``configs.ARCH_IDS``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --device cpu --batch 2 --prompt-len 48 --gen 8        # reduced config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
@@ -15,7 +13,9 @@ calls :class:`~repro_torch.launch.api.ModelApi` directly. Weights are float32
 from ``PRNGKey(0)`` (as the reference's ``serve``), activations in the
 config's type; the prompt is ``synthetic_tokens(0, ...)``. A ``vlm`` model
 gets ``0.1 * normal(PRNGKey(0))`` patch embeddings (B, num_patches, d) in
-front of the prompt, and decodes from position ``prompt_len + num_patches``.
+front of the prompt, and decodes from position ``prompt_len + num_patches``;
+an ``audio`` (encoder-decoder) model gets ``0.1 * normal(PRNGKey(0))``
+source frames (B, prompt_len, d) and takes the prompt as its target prefix.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.launch.api import ModelApi
-from repro_torch.models import decoder
+from repro_torch.models import decoder, encdec
 from repro_torch.models.spec import spec_num_params
 
 
@@ -65,6 +65,9 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         npatch = cfg.vlm.num_patches
         inputs["img_embeds"] = decoder.image_embeds(
             cfg, batch, R.PRNGKey(0, device=dev))
+    if cfg.family == "audio":
+        inputs["src_embeds"] = encdec.source_embeds(
+            cfg, batch, prompt_len, R.PRNGKey(0, device=dev))
     start = prompt_len + npatch
     sampler = None if greedy else torch.Generator(dev).manual_seed(0)
 
@@ -94,7 +97,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           f" ({t_dec/max(gen, 1)*1e3:.2f} ms/tok) on {dev}")
     print("generated (first row):", gen_arr[0][:16])
     return {"tokens": gen_arr,
-            "params": spec_num_params(decoder.model_spec(cfg)),
+            "params": spec_num_params(api.mod.model_spec(cfg)),
             "init_s": init_s, "prefill_ms": t_pref * 1e3,
             "decode_ms_per_token": t_dec / max(gen, 1) * 1e3}
 

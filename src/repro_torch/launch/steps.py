@@ -14,8 +14,7 @@ from torch.profiler import record_function
 
 from repro_torch.common import pytree_utils as pt
 from repro_torch.common.device import DEFAULT_DEVICE
-from repro_torch.launch.api import ModelApi
-from repro_torch.models import decoder
+from repro_torch.launch.api import ModelApi, model_module
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import spec_num_params
 from repro_torch.optim import Adam, cosine_decay
@@ -23,7 +22,7 @@ from repro_torch.optim import Adam, cosine_decay
 
 def make_optimizer(cfg: ModelConfig, total_steps: int = 10000):
     """Adam with a cosine schedule; bf16 moments above 20B params."""
-    n = spec_num_params(decoder.model_spec(cfg))
+    n = spec_num_params(model_module(cfg).model_spec(cfg))
     moment_dtype = "bfloat16" if n > 20e9 else "float32"
     return Adam(lr=cosine_decay(3e-4, total_steps, warmup=200),
                 moment_dtype=moment_dtype)

@@ -34,7 +34,7 @@ from repro_torch.core import psgf_dp as P
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.launch.api import ModelApi
 from repro_torch.launch.steps import build_train_step
-from repro_torch.models import decoder
+from repro_torch.models import decoder, encdec
 from repro_torch.optim import Adam, one_cycle
 
 
@@ -51,11 +51,9 @@ def _sync(device: torch.device):
 def make_batch(cfg, step: int, batch: int, seq: int, device=DEFAULT_DEVICE):
     """``{"tokens", "labels"}`` (batch, seq) int32: ``synthetic_tokens(step,
     batch, seq + 1, vocab)`` shifted by one; a ``vlm`` batch also has
-    ``img_embeds`` from ``PRNGKey(step)`` (``decoder.image_embeds``)."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "the audio (encdec) family's inputs are not ported yet (ROADMAP "
-            "Queue A item 9 (a))")
+    ``img_embeds`` from ``PRNGKey(step)`` (``decoder.image_embeds``), an
+    ``audio`` batch ``src_embeds`` (batch, seq, d) from ``PRNGKey(step)``
+    (``encdec.source_embeds``)."""
     dev = resolve_device(device)
     toks = torch.from_numpy(synthetic_tokens(step, batch, seq + 1,
                                              cfg.vocab_size)).to(dev)
@@ -63,6 +61,9 @@ def make_batch(cfg, step: int, batch: int, seq: int, device=DEFAULT_DEVICE):
     if cfg.family == "vlm":
         out["img_embeds"] = decoder.image_embeds(
             cfg, batch, R.PRNGKey(step, device=dev))
+    if cfg.family == "audio":
+        out["src_embeds"] = encdec.source_embeds(
+            cfg, batch, seq, R.PRNGKey(step, device=dev))
     return out
 
 

@@ -7,10 +7,12 @@ ported for the families:
   * ``moe`` (phi3.5-moe: attention; deepseek-v2: MLA), then a routed MoE
     whose load-balance loss is summed over the layers;
   * ``hybrid`` (hymba): attention and a Mamba branch in parallel, then a
-    gated MLP.
+    gated MLP;
+  * ``ssm`` (xLSTM): an mLSTM and an sLSTM cell, no attention; both run in
+    every layer and a per-layer flag picks one (every ``slstm_every``-th
+    layer the sLSTM), as in the reference.
 
-The ``ssm`` family (xLSTM) and the encoder-decoder (``audio``) raise
-``NotImplementedError`` (ROADMAP Queue A item 9 (a)).
+The encoder-decoder (``audio``) is ``repro_torch.models.encdec``.
 
 Public API, as the reference's:
   model_spec / init_params(cfg, key)              -- params from a key
@@ -28,8 +30,9 @@ layer runs under ``torch.utils.checkpoint`` (the reference's per-layer
 ``jax.checkpoint``): its activations are recomputed in the backward, which
 launches its kernels a second time; the results are unchanged.
 The reference's prefill recomputes each layer's cache entries (K/V, MLA's
-latent, the final SSM state by a second scan); here the forward returns
-them (the ssm_scan kernel returns the state with ``y``).
+latent, the final SSM, mLSTM and sLSTM states by a second scan); here the
+forward returns them (the ssm_scan kernel returns the state with ``y``, the
+xLSTM loops their last carry).
 ``decode_step`` updates the cache in place (see ``layers.decode_attention``).
 :func:`params_from_numpy` / :func:`params_to_numpy` carry weights across
 packages: the JAX tree's paths and shapes, unchanged.
@@ -50,14 +53,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import spec as S
 from repro_torch.models.config import ModelConfig
 
-FAMILIES = ("dense", "vlm", "moe", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 
 
 def _check_family(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"decoder family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP Queue A item 9 (a): ssm, audio); ported: {FAMILIES}")
+        raise ValueError(f"the decoder does not handle family {cfg.family!r} "
+                         f"({cfg.name}; the encoder-decoder is models.encdec); "
+                         f"its families: {FAMILIES}")
 
 
 def _uses_mla(cfg: ModelConfig) -> bool:
@@ -72,6 +75,9 @@ def _uses_mla(cfg: ModelConfig) -> bool:
 def block_spec(cfg: ModelConfig):
     _check_family(cfg)
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln1": L.norm_spec(d), "mlstm": L.mlstm_spec(cfg),
+                "ln2": L.norm_spec(d), "slstm": L.slstm_spec(cfg)}
     spec = {
         "ln1": L.norm_spec(d),
         "attn": L.mla_spec(cfg) if _uses_mla(cfg) else L.attention_spec(cfg),
@@ -103,14 +109,17 @@ def init_params(cfg: ModelConfig, key, device=DEFAULT_DEVICE):
 
 
 def _layer_flags(cfg: ModelConfig):
-    """Per-layer scalar flags (the xLSTM sLSTM mix); zeros for the other
-    families."""
+    """Per-layer scalar flags: for ``ssm`` 1.0 on every ``slstm_every``-th
+    layer (the sLSTM's), else 0.0; zeros for the other families."""
+    if cfg.family == "ssm":
+        k = cfg.xlstm.slstm_every
+        return [float(i % k == k - 1) for i in range(cfg.num_layers)]
     return [0.0] * cfg.num_layers
 
 
-def _layers(params):
-    """Every layer's params: each stacked leaf unbound once."""
-    pairs = pt.flatten_with_paths(params["blocks"])
+def _layers(blocks):
+    """Every layer's params from a stacked tree: each leaf unbound once."""
+    pairs = pt.flatten_with_paths(blocks)
     parts = [leaf.unbind(0) for _, leaf in pairs]
     return [pt.unflatten([(path, part[i]) for (path, _), part in zip(pairs, parts)])
             for i in range(len(parts[0]))]
@@ -140,13 +149,32 @@ def _attention(cfg: ModelConfig, p, h, positions, attn_impl, with_cache):
     return a, {"kv": (k, v)}
 
 
+def _xlstm_mix(x, m_out, s_out, flag):
+    """``x + ((1 - flag) * m_out + flag * s_out)`` with the blend in float32
+    (the reference's flag is a float32 array), cast to x's type. Both cells
+    stay in the graph, so the unused one's params get zero gradients."""
+    f32 = torch.float32
+    return x + ((1.0 - flag) * m_out.to(f32) + flag * s_out.to(f32)).to(x.dtype)
+
+
 def _block_apply(cfg: ModelConfig, p, x, positions, flag, attn_impl,
                  with_cache=False):
     """One block over the full sequence. Returns (x, aux), and with
     ``with_cache`` (x, aux, cache entries {"kv": (k, v)} or {"mla": (c_kv,
-    k_rope)} [, "ssm": state])."""
+    k_rope)} [, "ssm": state], or for ``ssm`` {"mlstm": state, "slstm":
+    state})."""
     _check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+        m_out = L.mlstm_apply(p["mlstm"], h, cfg, return_state=with_cache)
+        h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+        s_out = L.slstm_apply(p["slstm"], h2, cfg, return_state=with_cache)
+        if not with_cache:
+            return _xlstm_mix(x, m_out, s_out, flag), aux
+        (m_out, m_state), (s_out, s_state) = m_out, s_out
+        return (_xlstm_mix(x, m_out, s_out, flag), aux,
+                {"mlstm": m_state, "slstm": s_state})
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     a, entries = _attention(cfg, p["attn"], h, positions, attn_impl, with_cache)
     if cfg.family == "hybrid":
@@ -165,31 +193,39 @@ def _block_apply(cfg: ModelConfig, p, x, positions, flag, attn_impl,
     return (x, aux, entries) if with_cache else (x, aux)
 
 
+def apply_layer(cfg: ModelConfig, block, p, *args):
+    """``block(cfg, p, *args)`` for one layer's params ``p``, under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` and gradients are on: the
+    remat policy of every family's layer loop."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, cfg, p, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(cfg, p, *args)
+
+
 def forward_hidden(cfg: ModelConfig, params, x, positions, attn_impl="auto"):
     """Run the block stack. x: (B,S,d) already embedded."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for p, flag in zip(_layers(params), _layer_flags(cfg)):
-        if remat:
-            x, aux = checkpoint(_block_apply, cfg, p, x, positions, flag,
-                                attn_impl, use_reentrant=False,
-                                preserve_rng_state=False)
-        else:
-            x, aux = _block_apply(cfg, p, x, positions, flag, attn_impl)
+    for p, flag in zip(_layers(params["blocks"]), _layer_flags(cfg)):
+        x, aux = apply_layer(cfg, _block_apply, p, x, positions, flag, attn_impl)
         aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, aux_total
 
 
-def image_embeds(cfg: ModelConfig, batch: int, key):
-    """The stubbed vision frontend's patch embeddings for a ``vlm`` config:
-    ``0.1 * normal(key, (batch, num_patches, d_model))`` drawn and scaled in
-    the activation type, bit for bit the reference launchers' draw (float32
-    up to ``erfinv``'s last ulps; see ``random.normal``)."""
+def stub_embeds(cfg: ModelConfig, shape, key):
+    """A stubbed frontend's output: ``0.1 * normal(key, shape)`` drawn and
+    scaled in the activation type, bit for bit the reference launchers'
+    draw (float32 up to ``erfinv``'s last ulps; see ``random.normal``)."""
     dtype = cfg.activation_dtype
-    shape = (batch, cfg.vlm.num_patches, cfg.d_model)
     return R.normal(key, shape, dtype=dtype) * torch.tensor(
         0.1, dtype=dtype, device=key.device)
+
+
+def image_embeds(cfg: ModelConfig, batch: int, key):
+    """The stubbed vision frontend's patch embeddings for a ``vlm`` config,
+    (batch, num_patches, d_model) (:func:`stub_embeds`)."""
+    return stub_embeds(cfg, (batch, cfg.vlm.num_patches, cfg.d_model), key)
 
 
 def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
@@ -237,6 +273,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
+    if cfg.family == "ssm":
+        Lc, f32 = cfg.num_layers, torch.float32
+        mshp = L.mlstm_state_shape(cfg, batch)
+        sshp = L.slstm_state_shape(cfg, batch)
+        return {
+            "mlstm": {
+                "C": torch.zeros((Lc,) + mshp["C"], dtype=f32, device=dev),
+                "n": torch.zeros((Lc,) + mshp["n"], dtype=f32, device=dev),
+                "m": torch.full((Lc,) + mshp["m"], L.M_INIT, dtype=f32, device=dev),
+            },
+            "slstm": {
+                "c": torch.zeros((Lc,) + sshp["c"], dtype=f32, device=dev),
+                "n": torch.zeros((Lc,) + sshp["n"], dtype=f32, device=dev),
+                "h": torch.zeros((Lc,) + sshp["h"], dtype=dtype, device=dev),
+                "m": torch.full((Lc,) + sshp["m"], L.M_INIT, dtype=f32, device=dev),
+            },
+        }
     if _uses_mla(cfg):
         cache = {"mla": L.init_mla_cache(cfg, batch, cache_len, dtype, dev)}
     else:
@@ -253,6 +306,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 def _block_decode(cfg: ModelConfig, p, x, layer_cache, pos, flag):
     _check_family(cfg)
     new_cache = {}
+    if cfg.family == "ssm":
+        h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+        m_out, new_cache["mlstm"] = L.mlstm_decode(p["mlstm"], h,
+                                                   layer_cache["mlstm"], cfg)
+        h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+        s_out, new_cache["slstm"] = L.slstm_decode(p["slstm"], h2,
+                                                   layer_cache["slstm"], cfg)
+        return _xlstm_mix(x, m_out, s_out, flag), new_cache
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     if _uses_mla(cfg):
         a, new_cache["mla"] = L.mla_decode_attention(p["attn"], h,
@@ -278,15 +339,17 @@ def _block_decode(cfg: ModelConfig, p, x, layer_cache, pos, flag):
 
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """One autoregressive step. token: (B,1) integer; pos: int. Returns
-    (logits (B,1,V), cache), the cache updated in place."""
+    (logits (B,1,V), cache), the cache updated in place (the recurrent
+    states, SSM and xLSTM, copied into their layer's slot)."""
     pos = int(pos)
     x = L.embed_apply(params["embed"], token, cfg.activation_dtype)
-    for i, (p, flag) in enumerate(zip(_layers(params), _layer_flags(cfg))):
+    for i, (p, flag) in enumerate(zip(_layers(params["blocks"]),
+                                      _layer_flags(cfg))):
         layer_cache = pt.tree_map(lambda a: a[i], cache)
         x, new = _block_decode(cfg, p, x, layer_cache, pos, flag)
-        if "ssm" in new:
-            cache["ssm"]["h"][i].copy_(new["ssm"]["h"])
-            cache["ssm"]["conv"][i].copy_(new["ssm"]["conv"])
+        for name in ("ssm", "mlstm", "slstm"):
+            for key, value in new.get(name, {}).items():
+                cache[name][key][i].copy_(value)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = L.head_apply(params.get("head", {}), params["embed"], x, cfg)
     return logits, cache
@@ -322,7 +385,8 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
     use (>= prompt length); the physical cache is min(window, cache_len).
     Each layer's K/V (MLA: ``c_kv`` and the roped ``k_rope``) come from its
     attention, its SSM state from the scan kernel's final state and its
-    conv state from the last K-1 inputs."""
+    conv state from the last K-1 inputs, its mLSTM / sLSTM states from the
+    cells' last carry."""
     x = embed_inputs(cfg, params, tokens, img_embeds)
     Stot = x.shape[1]
     cache_len = cache_len or Stot
@@ -332,7 +396,7 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
     window = cfg.attention_window
     phys = cache_len if window is None else min(window, cache_len)
     entries = []
-    for p, flag in zip(_layers(params), _layer_flags(cfg)):
+    for p, flag in zip(_layers(params["blocks"]), _layer_flags(cfg)):
         x, _, e = _block_apply(cfg, p, x, positions, flag, attn_impl,
                                with_cache=True)
         for name, keys in _CACHE_KEYS.items():

@@ -1,9 +1,11 @@
 """Neural-net layers of the model zoo (counterpart of ``repro.models.layers``)
-for the ``dense`` (qwen2, mistral, command-r), ``vlm`` (internvl2),
-``moe`` (phi3.5-moe, deepseek-v2 with MLA) and ``hybrid`` (hymba) families,
-their decode and their training: plain functions over the reference's
-params dict, with its names, shapes and layouts (q/k/v ``(B, S, H, hd)``,
-caches keyed as in JAX).
+for every family — ``dense`` (qwen2, mistral, command-r), ``vlm``
+(internvl2), ``moe`` (phi3.5-moe, deepseek-v2 with MLA), ``hybrid``
+(hymba), ``ssm`` (xLSTM's mLSTM / sLSTM cells) and the encoder-decoder
+``audio`` (seamless: the ungated MLP and :func:`cross_attention`) — their
+decode and their training: plain functions over the reference's params
+dict, with its names, shapes and layouts (q/k/v ``(B, S, H, hd)``, caches
+keyed as in JAX).
 
 Routing to the kernels:
 
@@ -28,8 +30,9 @@ double scans (no Pallas kernel) as two Python loops over blocks; the MoE
 expert products are einsums, as there. Weights are float32 and cast to the
 activation type at each use, as the reference does (``.astype(x.dtype)``);
 the embedding table is gathered first and the rows cast, which gives the
-same values without casting the whole table. Not ported yet: the xLSTM
-cells (mLSTM / sLSTM) and cross-attention (ROADMAP Queue A item 9 (a)).
+same values without casting the whole table. The xLSTM cells' ``lax.scan``
+over time is a Python loop over positions in torch ops (the reference has
+no kernel for them), and :func:`cross_attention` is dense, as there.
 """
 from __future__ import annotations
 
@@ -405,26 +408,50 @@ def decode_attention(params, x, layer_cache, pos: int, cfg: ModelConfig):
     return out, layer_cache
 
 
+def cross_attention(params, x, kv_k, kv_v, src_valid, cfg: ModelConfig):
+    """The decoder's attention over the frozen encoder K/V (no rope, no
+    mask but ``src_valid``). x: (B,S,d); kv_k, kv_v: (B,Ssrc,KV,hd);
+    src_valid: (B,Ssrc) bool. Dense on every device, as in the reference."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    bias = torch.where(src_valid[:, None, None, :], 0.0, NEG_INF).to(torch.float32)
+    out = gqa_attend(q, kv_k, kv_v, bias)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
 
-def mlp_spec(d: int, f: int):
-    """The gated (SwiGLU) MLP (also the MoE's shared experts); the
-    reference's ungated GELU variant serves the encdec family, not ported
-    yet."""
+def mlp_spec(d: int, f: int, gated: bool = True):
+    """The gated (SwiGLU) MLP of the decoder families and the MoE's shared
+    experts, or with ``gated=False`` the encoder-decoder's GELU MLP with
+    biases."""
+    if gated:
+        return {
+            "w_gate": ArraySpec((d, f), ("embed", "mlp"), init="scaled"),
+            "w_up": ArraySpec((d, f), ("embed", "mlp"), init="scaled"),
+            "w_down": ArraySpec((f, d), ("mlp", "embed"), init="scaled"),
+        }
     return {
-        "w_gate": ArraySpec((d, f), ("embed", "mlp"), init="scaled"),
         "w_up": ArraySpec((d, f), ("embed", "mlp"), init="scaled"),
+        "b_up": ArraySpec((f,), ("mlp",), init="zeros"),
         "w_down": ArraySpec((f, d), ("mlp", "embed"), init="scaled"),
+        "b_down": ArraySpec((d,), ("act_embed",), init="zeros"),
     }
 
 
-def mlp_apply(params, x):
-    g = F.silu(x @ params["w_gate"].to(x.dtype))
-    u = x @ params["w_up"].to(x.dtype)
-    return (g * u) @ params["w_down"].to(x.dtype)
+def mlp_apply(params, x, gated: bool = True):
+    if gated:
+        g = F.silu(x @ params["w_gate"].to(x.dtype))
+        u = x @ params["w_up"].to(x.dtype)
+        return (g * u) @ params["w_down"].to(x.dtype)
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(x @ params["w_up"].to(x.dtype) + params["b_up"].to(x.dtype),
+               approximate="tanh")
+    return h @ params["w_down"].to(x.dtype) + params["b_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -790,6 +817,211 @@ def ssm_decode(params, x, state, cfg: ModelConfig):
     y = (y * F.silu(z[:, 0]))[:, None, :]
     out = y @ params["w_out"].to(x.dtype)
     return out, {"h": h, "conv": hist[:, 1:, :]}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM cells (mLSTM matrix memory + sLSTM scalar memory) [arXiv:2405.04517]
+# ---------------------------------------------------------------------------
+#
+# The reference scans each cell over time; here a Python loop over the
+# positions runs one step function, shared with decode. Each step keeps the
+# reference's float32 order: m_new = max(logsigmoid(f) + m, i), then
+# exp(i - m_new) and exp(logsigmoid(f) + m - m_new), with m starting at
+# -1e30. ``torch.maximum`` against a 0-d one (not ``clamp``) splits a tie's
+# gradient in half as ``jnp.maximum`` does: the sLSTM normaliser n is
+# exactly 1 at the first position.
+
+M_INIT = -1e30
+
+
+def _mlstm_dims(cfg: ModelConfig):
+    """(H, d_inner, head dim) of the mLSTM: its head dim is d_inner / H,
+    not ``cfg.head_dim``."""
+    H = cfg.num_heads
+    di = int(cfg.xlstm.proj_factor * cfg.d_model) // H * H
+    return H, di, di // H
+
+
+def mlstm_spec(cfg: ModelConfig):
+    d = cfg.d_model
+    H, di, dh = _mlstm_dims(cfg)
+    return {
+        "w_up": ArraySpec((d, 2 * di), ("embed", "mlp"), init="scaled"),
+        "wq": ArraySpec((di, H, dh), ("mlp", "heads", "head_dim"), init="scaled"),
+        "wk": ArraySpec((di, H, dh), ("mlp", "heads", "head_dim"), init="scaled"),
+        "wv": ArraySpec((di, H, dh), ("mlp", "heads", "head_dim"), init="scaled"),
+        "w_if": ArraySpec((di, H, 2), ("mlp", "heads", None), init="scaled"),
+        "b_if": ArraySpec((H, 2), ("heads", None), init="zeros"),
+        "w_down": ArraySpec((di, d), ("mlp", "embed"), init="scaled"),
+    }
+
+
+def _mlstm_inputs(params, x, H):
+    """Up-projection and gates, all positions at once: (z, q, k, v float32
+    (B,S,H,dh), i_pre, logsigmoid(f_pre) float32 (B,S,H)); q, k, v and the
+    gate pre-activations are formed in x's type, as in the reference."""
+    di = params["w_down"].shape[0]
+    dh = di // H
+    up = x @ params["w_up"].to(x.dtype)
+    xm, z = up[..., :di], up[..., di:]
+    q = torch.einsum("bsd,dhk->bshk", xm, params["wq"].to(x.dtype)) / math.sqrt(dh)
+    k = torch.einsum("bsd,dhk->bshk", xm, params["wk"].to(x.dtype)) / math.sqrt(dh)
+    v = torch.einsum("bsd,dhk->bshk", xm, params["wv"].to(x.dtype))
+    gif = (torch.einsum("bsd,dhg->bshg", xm, params["w_if"].to(x.dtype))
+           + params["b_if"].to(x.dtype))
+    f32 = torch.float32
+    return (z, q.to(f32), k.to(f32), v.to(f32), gif[..., 0].to(f32),
+            F.logsigmoid(gif[..., 1].to(f32)))
+
+
+def _mlstm_step(state, q_t, k_t, v_t, i_t, lf_t, one):
+    """One position: state (C (B,H,dh,dh), n (B,H,dh), m (B,H)) float32 ->
+    (new state, h_t (B,H,dh) float32)."""
+    C, n, m = state
+    a = lf_t + m
+    m_new = torch.maximum(a, i_t)
+    ig = torch.exp(i_t - m_new)
+    fg = torch.exp(a - m_new)
+    C = fg[..., None, None] * C + ig[..., None, None] * (
+        v_t[..., :, None] * k_t[..., None, :])
+    n = fg[..., None] * n + ig[..., None] * k_t
+    num = torch.einsum("bhvk,bhk->bhv", C, q_t)
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q_t)), one)
+    return (C, n, m_new), num / den[..., None]
+
+
+def _mlstm_out(params, h, z, x):
+    """h (B,S,H,dh) float32 -> the block's output (B,S,d) in x's type."""
+    h = h.to(x.dtype).reshape(*z.shape)
+    return (h * F.silu(z)) @ params["w_down"].to(x.dtype)
+
+
+def mlstm_apply(params, x, cfg: ModelConfig, return_state=False):
+    """Full-sequence mLSTM (stabilised exponential gating). x: (B,S,d) ->
+    (B,S,d); with ``return_state`` also the final ``{"C", "n", "m"}``
+    (the reference's prefill gets it from a second scan)."""
+    H, _, dh = _mlstm_dims(cfg)
+    z, q, k, v, i_pre, lf = _mlstm_inputs(params, x, H)
+    B, dev, f32 = x.shape[0], x.device, torch.float32
+    state = (torch.zeros((B, H, dh, dh), dtype=f32, device=dev),
+             torch.zeros((B, H, dh), dtype=f32, device=dev),
+             torch.full((B, H), M_INIT, dtype=f32, device=dev))
+    one = torch.ones((), dtype=f32, device=dev)
+    hs = []
+    for t in range(x.shape[1]):
+        state, h_t = _mlstm_step(state, q[:, t], k[:, t], v[:, t], i_pre[:, t],
+                                 lf[:, t], one)
+        hs.append(h_t)
+    out = _mlstm_out(params, torch.stack(hs, dim=1), z, x)
+    if return_state:
+        return out, dict(zip(("C", "n", "m"), state))
+    return out
+
+
+def mlstm_state_shape(cfg: ModelConfig, batch: int):
+    H, _, dh = _mlstm_dims(cfg)
+    return {"C": (batch, H, dh, dh), "n": (batch, H, dh), "m": (batch, H)}
+
+
+def mlstm_decode(params, x, state, cfg: ModelConfig):
+    """One position. x: (B,1,d); state: dict(C, n, m). Returns (out
+    (B,1,d), new state)."""
+    H = cfg.num_heads
+    z, q, k, v, i_pre, lf = _mlstm_inputs(params, x, H)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    new, h = _mlstm_step((state["C"], state["n"], state["m"]), q[:, 0], k[:, 0],
+                         v[:, 0], i_pre[:, 0], lf[:, 0], one)
+    return _mlstm_out(params, h[:, None], z, x), dict(zip(("C", "n", "m"), new))
+
+
+def slstm_spec(cfg: ModelConfig):
+    d = cfg.d_model
+    H = cfg.num_heads
+    dh = d // H
+    return {
+        # input projections for i,f,z,o gates
+        "w_gates": ArraySpec((d, H, 4 * dh), ("embed", "heads", "head_dim"), init="scaled"),
+        "b_gates": ArraySpec((H, 4 * dh), ("heads", "head_dim"), init="zeros"),
+        # recurrent (block-diagonal per head) projections
+        "r_gates": ArraySpec((H, dh, 4 * dh), ("heads", "head_dim", None), init="scaled"),
+        "w_down": ArraySpec((d, d), ("embed", "act_embed"), init="scaled"),
+    }
+
+
+def _promoted_einsum(eq, a, b):
+    """``jnp.einsum`` of mixed types: both operands cast to their promoted
+    type (``torch.einsum`` refuses mixed types)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _slstm_weights(params, x):
+    """The reference's ``wp``: float32 params stay float32, others take x's
+    type; the cell's products then run in the promoted type."""
+    return {k: v if v.dtype == torch.float32 else v.to(x.dtype)
+            for k, v in params.items()}
+
+
+def _slstm_gx(wp, x):
+    """The input half of every position's gates, (B,S,H,4dh)."""
+    return _promoted_einsum("bsd,dhk->bshk", x, wp["w_gates"]) + wp["b_gates"]
+
+
+def _slstm_step(wp, carry, gx_t, one):
+    """One position: carry (c, n float32, h in x's type, m float32), each
+    (B,H,dh); gx_t (B,H,4dh) -> new carry (h_new in h's type)."""
+    c, n, h, m = carry
+    gr = _promoted_einsum("bhd,hdk->bhk", h, wp["r_gates"])
+    g = (gx_t + gr).to(torch.float32)
+    i_pre, f_pre, z_pre, o_pre = torch.chunk(g, 4, dim=-1)
+    a = F.logsigmoid(f_pre) + m
+    m_new = torch.maximum(a, i_pre)
+    ig = torch.exp(i_pre - m_new)
+    fg = torch.exp(a - m_new)
+    c = fg * c + ig * torch.tanh(z_pre)
+    n = fg * n + ig
+    h_new = (torch.sigmoid(o_pre) * c / torch.maximum(n, one)).to(h.dtype)
+    return c, n, h_new, m_new
+
+
+def slstm_apply(params, x, cfg: ModelConfig, return_state=False):
+    """Full-sequence sLSTM. x: (B,S,d) -> (B,S,d); with ``return_state``
+    also the final ``{"c", "n", "h", "m"}``."""
+    H = cfg.num_heads
+    dh = cfg.d_model // H
+    B, S, dev, f32 = x.shape[0], x.shape[1], x.device, torch.float32
+    wp = _slstm_weights(params, x)
+    gx = _slstm_gx(wp, x)
+    carry = (torch.zeros((B, H, dh), dtype=f32, device=dev),
+             torch.zeros((B, H, dh), dtype=f32, device=dev),
+             torch.zeros((B, H, dh), dtype=x.dtype, device=dev),
+             torch.full((B, H, dh), M_INIT, dtype=f32, device=dev))
+    one = torch.ones((), dtype=f32, device=dev)
+    hs = []
+    for t in range(S):
+        carry = _slstm_step(wp, carry, gx[:, t], one)
+        hs.append(carry[2])
+    out = torch.stack(hs, dim=1).reshape(B, S, cfg.d_model) @ params["w_down"].to(x.dtype)
+    if return_state:
+        return out, dict(zip(("c", "n", "h", "m"), carry))
+    return out
+
+
+def slstm_state_shape(cfg: ModelConfig, batch: int):
+    H = cfg.num_heads
+    dh = cfg.d_model // H
+    return {"c": (batch, H, dh), "n": (batch, H, dh), "h": (batch, H, dh), "m": (batch, H, dh)}
+
+
+def slstm_decode(params, x, state, cfg: ModelConfig):
+    """One position. x: (B,1,d); state: dict(c, n, h, m). Returns (out
+    (B,1,d), new state)."""
+    wp = _slstm_weights(params, x)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    carry = _slstm_step(wp, (state["c"], state["n"], state["h"], state["m"]),
+                        _slstm_gx(wp, x)[:, 0], one)
+    out = carry[2].reshape(x.shape[0], 1, cfg.d_model) @ params["w_down"].to(x.dtype)
+    return out, dict(zip(("c", "n", "h", "m"), carry))
 
 
 # ---------------------------------------------------------------------------

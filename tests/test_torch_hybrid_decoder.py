@@ -142,18 +142,15 @@ def test_self_attention_matches_jax(params, attn_impl, qkv_bias):
 
 
 def test_attention_impls_not_ported_raise(params):
-    """Every attention impl is ported; the families still unported (xLSTM's
-    ``ssm``, the encoder-decoder ``audio``) raise naming the ROADMAP, and an
-    unknown impl raises ``ValueError``."""
+    """Every attention impl and every family is ported: an unknown impl
+    raises ``ValueError``, and so does the decoder for the encoder-decoder
+    family (``models.encdec`` serves it)."""
     p = _torch(_layer0(params)["attn"])
     x = torch.zeros(1, 4, T_CFG.d_model)
     pos = torch.arange(4, dtype=torch.int32)
-    for family in ("ssm", "audio"):
-        cfg = dataclasses.replace(T_CFG, family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TD._block_apply(cfg, _torch(_layer0(params)), x, pos, 0.0, "auto")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TD.embed_inputs(cfg, _torch(params), torch.zeros(1, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="encdec"):
+        TD._block_apply(dataclasses.replace(T_CFG, family="audio"),
+                        _torch(_layer0(params)), x, pos, 0.0, "auto")
     with pytest.raises(ValueError, match="attn_impl"):
         TL.self_attention(p, x, pos, T_CFG, attn_impl="flash")
     with pytest.raises(ValueError, match="impl"):
@@ -318,19 +315,19 @@ def test_registry_and_families():
 
     assert ARCH_IDS == JAX_ARCH_IDS
     for arch in ARCH_IDS:
-        if arch in ("xlstm-125m", "seamless-m4t-large-v2"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_config(arch)
-            continue
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             jax_get_config(arch))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    ssm = dataclasses.replace(T_CFG, family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.model_spec(ssm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.init_cache(ssm, 1, 4, device="cpu")
+    # the ssm family builds the reference's spec and cache
+    ssm, jssm = get_config("xlstm-125m").reduced(), jax_get_config("xlstm-125m").reduced()
+    tspec = pt.flatten_with_paths(TD.model_spec(ssm), is_leaf=S.is_spec)
+    jspec = jax.tree_util.tree_flatten_with_path(
+        JD.model_spec(jssm), is_leaf=lambda a: hasattr(a, "init"))[0]
+    assert [(p, tuple(s.shape)) for p, s in tspec] == [
+        ("/".join(str(k.key) for k in p), tuple(s.shape)) for p, s in jspec]
+    cache = TD.init_cache(ssm, 1, 4, device="cpu")
+    _close_trees(cache, JD.init_cache(jssm, 1, 4), 0.0)
     dense = get_config("qwen2-1.5b").reduced()
     assert sorted(TD.block_spec(dense)) == sorted(JD.block_spec(
         jax_get_config("qwen2-1.5b").reduced()))

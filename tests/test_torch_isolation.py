@@ -79,7 +79,10 @@ def test_importing_every_module_pulls_in_no_jax():
                  "repro_torch.configs.internvl2_2b",
                  "repro_torch.configs.mistral_large_123b",
                  "repro_torch.configs.command_r_plus_104b",
-                 "repro_torch.configs.qwen2_72b"):
+                 "repro_torch.configs.qwen2_72b",
+                 "repro_torch.configs.xlstm_125m",
+                 "repro_torch.configs.seamless_m4t_large_v2",
+                 "repro_torch.models.encdec"):
         assert name in rep["modules"]
     assert rep["bad"] == []
 
@@ -190,6 +193,18 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: decoder.init_cache(hymba, 1, 4),
         lambda: decoder.params_from_numpy({"w": np.ones(2, np.float32)}),
     ]
+    from repro_torch.models import encdec
+
+    xlstm = get_config("xlstm-125m").reduced()
+    seamless = get_config("seamless-m4t-large-v2").reduced()
+    calls += [
+        lambda: llm_serve.serve("xlstm-125m"),
+        lambda: llm_serve.serve("seamless-m4t-large-v2"),
+        lambda: ModelApi(seamless),
+        lambda: decoder.init_cache(xlstm, 1, 4),
+        lambda: encdec.init_params(seamless, R.PRNGKey(0)),
+        lambda: encdec.init_cache(seamless, 1, 4, src_len=2),
+    ]
     from repro_torch.launch import steps as train_steps
     from repro_torch.launch import train as llm_train
 
@@ -202,6 +217,9 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
                                 "--sync", "psgf"]),
         lambda: llm_train.make_batch(qwen2, 0, 1, 4),
         lambda: llm_train.make_batch(get_config("internvl2-2b").reduced(), 0, 1, 4),
+        lambda: llm_train.make_batch(seamless, 0, 1, 4),
+        lambda: llm_train.train("xlstm-125m", steps=1),
+        lambda: llm_train.train_psgf("seamless-m4t-large-v2", steps=1),
         lambda: train_steps.build_train_step(qwen2),
         lambda: decoder.init_params(qwen2, R.PRNGKey(0)),
     ]

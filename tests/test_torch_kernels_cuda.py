@@ -717,6 +717,71 @@ def test_zoo_family_prefill_and_decode_on_the_card_match_cpu(cuda, monkeypatch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["encoder", "decoder"])
+def test_flash_tensor_core_at_a_shrunk_seamless_shape(cuda, causal):
+    """The tensor-core route at seamless-m4t's head layout (16/16 heads, hd
+    64, bf16) with the sequence cut to 512: the encoder's non-causal and the
+    decoder's causal self-attention."""
+    q, k, v = _inputs(12, 2, 512, 512, 16, 16, 64, cuda, torch.bfloat16)
+    _check_tensor_core_call(q, k, v, causal, None, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "seamless-m4t-large-v2"])
+def test_last_families_prefill_and_decode_on_the_card_match_cpu(cuda, arch):
+    """Reduced xlstm (4 layers: both cells, no kernel) and seamless (flash
+    kernel in each encoder and decoder layer, dense cross-attention) in
+    float32, the same params on both devices: prefill (the final mLSTM /
+    sLSTM states, the self and cross K/V) and 4 decode steps; then one
+    training step's loss and gradients."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch.api import ModelApi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = {"num_layers": 4} if arch == "xlstm-125m" else {}
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32", **kw)
+    apis = {"cpu": ModelApi(cfg, "cpu"), "cuda": ModelApi(cfg, cuda)}
+    params = apis["cpu"].init_params(R.PRNGKey(0))
+    tp = pt.tree_map(lambda t: t.to(cuda), params)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)}
+    if cfg.family == "audio":
+        batch["src_embeds"] = 0.1 * torch.randn(2, 32, cfg.d_model, generator=gen)
+    on_card = {k: t.to(cuda) for k, t in batch.items()}
+    before = ops.LAUNCHES
+    with torch.no_grad():
+        got_l, got_c = apis["cuda"].prefill(tp, on_card, cache_len=28)
+        torch.cuda.synchronize()
+        layers = 0 if cfg.family == "ssm" else 2 * cfg.num_layers
+        assert ops.LAUNCHES == before + layers
+        want_l, want_c = apis["cpu"].prefill(params, batch, cache_len=28)
+        torch.testing.assert_close(got_l.cpu(), want_l, atol=ZOO_CPU_TOL,
+                                   rtol=ZOO_CPU_TOL)
+        for (path, g), (_, w) in zip(pt.flatten_with_paths(got_c),
+                                     pt.flatten_with_paths(want_c)):
+            torch.testing.assert_close(g.cpu(), w, atol=ZOO_CPU_TOL,
+                                       rtol=ZOO_CPU_TOL, msg=path)
+        tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
+        for i in range(4):
+            got_l, got_c = apis["cuda"].decode_step(tp, got_c, tok.to(cuda), 24 + i)
+            want_l, want_c = apis["cpu"].decode_step(params, want_c, tok, 24 + i)
+            torch.testing.assert_close(got_l.cpu(), want_l, atol=ZOO_CPU_TOL,
+                                       rtol=ZOO_CPU_TOL)
+            tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    on_card["labels"] = batch["labels"].to(cuda)
+    (gl, _), gg = pt.value_and_grad(apis["cuda"].loss_fn, tp, on_card)
+    (wl, _), wg = pt.value_and_grad(apis["cpu"].loss_fn, params, batch)
+    torch.testing.assert_close(gl.cpu(), wl, atol=ZOO_CPU_TOL, rtol=ZOO_CPU_TOL)
+    for (path, g), (_, w) in zip(pt.flatten_with_paths(gg), pt.flatten_with_paths(wg)):
+        torch.testing.assert_close(g.cpu(), w, atol=ZOO_CPU_TOL, rtol=ZOO_CPU_TOL,
+                                   msg=path)
+
+
+@pytest.mark.cuda
 def test_flash_mha_on_the_card_matches_cpu(cuda):
     """The long-sequence path on the card (torch ops, no kernel) at MLA's
     head dims 192 / 128 and 2,049 tokens: forward and gradients against the

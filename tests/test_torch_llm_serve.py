@@ -41,6 +41,10 @@ def _jax_serve_loop(cfg, batch, prompt_len, gen):
         npatch = cfg.vlm.num_patches
         inputs["img_embeds"] = 0.1 * jax.random.normal(
             jax.random.PRNGKey(0), (batch, npatch, cfg.d_model), cfg.activation_dtype)
+    if cfg.family == "audio":
+        inputs["src_embeds"] = 0.1 * jax.random.normal(
+            jax.random.PRNGKey(0), (batch, prompt_len, cfg.d_model),
+            cfg.activation_dtype)
     start = prompt_len + npatch
     logits, cache = jax.jit(partial(api.prefill, cache_len=start + gen))(
         params, inputs)
@@ -80,10 +84,18 @@ def test_cli_on_the_cpu(capsys):
     assert toks.shape == (2, 2) and 0 <= toks.min() and toks.max() < 512
 
 
-def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.serve("xlstm-125m", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_mod.serve("seamless-m4t-large-v2", device="cpu")
+def test_unported_archs_raise(monkeypatch):
+    """Every arch serves: the last two families (xlstm-125m, the
+    encoder-decoder seamless-m4t-large-v2) at their reduced configs in
+    float32, 2 greedy tokens against the reference's loop; an unknown arch
+    raises ``KeyError``."""
+    _float32_configs(monkeypatch)
+    for arch in ("xlstm-125m", "seamless-m4t-large-v2"):
+        rep = serve_mod.serve(arch, batch=BATCH, prompt_len=8, gen=2,
+                              reduced=True, device="cpu")
+        jcfg = dataclasses.replace(jax_get_config(arch), dtype="float32").reduced()
+        np.testing.assert_array_equal(rep["tokens"], _jax_serve_loop(jcfg, BATCH, 8, 2))
+        want_params = JaxModelApi(jcfg).mod.model_spec(jcfg)
+        assert rep["params"] == jax_num_params(want_params)
     with pytest.raises(KeyError):
         serve_mod.serve("no-such-arch", device="cpu")

@@ -274,7 +274,37 @@ def test_cli_on_the_cpu(capsys, tmp_path):
     assert os.listdir(tmp_path) == ["step_00000003"]
 
 
-def test_unported_families_raise():
+def test_unported_families_raise(monkeypatch):
+    """Every family trains: one step of xlstm-125m and of the
+    encoder-decoder seamless-m4t-large-v2 at their reduced configs in
+    float32; the first loss against the reference's ``loss_fn`` at its own
+    ``PRNGKey(0)`` weights on its own first batch."""
+    from repro.launch.api import ModelApi as JaxModelApi
+
+    monkeypatch.setattr(train_mod, "get_config", _f32(get_config))
     for arch in ("xlstm-125m", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_mod.train(arch, steps=1, device="cpu")
+        losses = train_mod.train(arch, steps=1, batch=1, seq=8, device="cpu")
+        jcfg = dataclasses.replace(jax_get_config(arch), dtype="float32").reduced()
+        api = JaxModelApi(jcfg)
+        params = jax.jit(api.init_params)(jax.random.PRNGKey(0))
+        want, _ = jax.jit(api.loss_fn)(params, jax_train.make_batch(jcfg, 0, 1, 8))
+        assert len(losses) == 1
+        # weights from one key on each side (erfinv's last ulps)
+        _close(losses[0], float(want), arch)
+
+
+def test_seamless_losses_follow_the_reference_under_one_cycle(monkeypatch):
+    """Four ``train`` steps of reduced seamless-m4t-large-v2 in float32 under
+    the trainers' 1cycle (lr/25 at step 0, the peak at step 1, cosine down),
+    every loss against the reference's ``train`` from ``PRNGKey(0)``. The
+    reference's loss rises at the last of the four steps, and the port's
+    with it: the rise is the trainer's schedule, taken step for step."""
+    monkeypatch.setattr(jax_train, "get_config", _f32(jax_get_config))
+    monkeypatch.setattr(train_mod, "get_config", _f32(get_config))
+    kw = dict(steps=4, batch=1, seq=8, reduced=True, lr=LR, log_every=100)
+    want = jax_train.train("seamless-m4t-large-v2", **kw)
+    got = train_mod.train("seamless-m4t-large-v2", **kw, device="cpu")
+    assert len(got) == 4
+    _close(got, want)
+    assert want[3] > want[2] and got[3] > got[2]
+    assert got[-1] < got[0]
