@@ -137,10 +137,29 @@ Phases, each of which raises (exit code != 0) on failure:
      the card against the CPU: logits, greedy tokens, the prefill's final
      mLSTM / sLSTM states and cross K/V, two training steps' losses.
 
+ 13. card training of the moe and vlm families, at every published width:
+     ``train`` of internvl2-2b whole (4 x (256 patches + 1,792 tokens), 8
+     steps) and of phi3.5-moe-42b-a6.6b at 2 of its 32 layers (4 x 2,048,
+     8 steps), then ``train_psgf`` of phi3.5-moe (2 pods x 4 x 512, a sync
+     every 4 steps, 8 steps) at the deepest cut whose dry-run estimate is
+     within 70 GB; before each run the dry run's one-device peak estimate
+     (``launch.dryrun.one_device_peak``), after it the measured peak; losses
+     finite and falling, every flash launch on the tensor-core route (two a
+     layer and step: the forward and its remat recompute), every sync's
+     wire bytes equal to the bytes worked out from its gates and below a
+     full sync's; deepseek-v2's full-width estimate (one layer, more than
+     the card holds), then reduced deepseek-v2 (2 steps at 2,048 and 4,096
+     tokens: dense MLA and ``flash_mha``'s backward), phi3.5-moe and
+     internvl2 in float32 on the card against the CPU, losses within 1e-4
+     and every MoE call's top-k experts equal; and flash at phi3.5-moe's
+     PSGF shape (4, 512, 32/8, 128) against its plain version, timed beside
+     ``scaled_dot_product_attention``.
+
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
 ...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``,
-``{"zoo_last_families": ...}``, one ``{"kernels": [...]}`` line (flash
+``{"zoo_last_families": ...}``, ``{"zoo_moe_vlm_training": ...}``, one
+``{"kernels": [...]}`` line (flash
 attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
 the standard library and ``repro_torch`` (from ``src/`` beside this file)
@@ -166,15 +185,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 rate
-# outside the tensor cores (the kernel does fp32 FMAs on CUDA cores)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-# and dense bf16 on the tensor cores (NVIDIA data sheet), and the
-# special-function units' ex2, 16 per clock per SM (CUDA C Programming
-# Guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
-BF16_FLOP_PER_S = 989e12
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 # served outputs (GPU) against the CPU forward of the same params: both fp32
 # with no TF32, but cuBLAS and the CPU sum each matmul (K up to 1920 in the
@@ -247,14 +257,16 @@ def flash_bound_ms(ref, q, k, v, causal=False, window=None):
     keeps, 2 flops per MAC, at the fp32 rate, or for bf16 at the tensor
     cores' rate, with the pairs' exponentials on the SFUs. Returns (ms, by,
     bytes, flops, pairs)."""
+    from repro_torch.common import hw
+
     B, Sq, H, hd = q.shape
     pairs = int(ref.attention_mask(Sq, k.shape[1], causal=causal, window=window,
                                    kv_len=None).sum())
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
     flops = 4 * B * H * hd * pairs
-    ops_s = (flops / FP32_FLOP_PER_S if q.dtype == torch.float32 else
-             max(flops / BF16_FLOP_PER_S, B * H * pairs / SFU_OPS_PER_S))
-    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops_s * 1e3}
+    ops_s = (flops / hw.FP32_FLOP_PER_S if q.dtype == torch.float32 else
+             max(flops / hw.BF16_FLOP_PER_S, B * H * pairs / hw.SFU_OPS_PER_S))
+    times = {"bytes": nbytes / hw.HBM_BYTES_PER_S * 1e3, "operations": ops_s * 1e3}
     by = max(times, key=times.get)
     return times[by], by, nbytes, flops, pairs
 
@@ -759,8 +771,10 @@ def mix_inputs(gen, K, D, kind):
 def mix_bound_ms(K, D):
     """Least time: w and m read, the output written (K*D floats each), g
     read once, at the HBM rate; 2 flops per element at the fp32 rate."""
+    from repro_torch.common import hw
+
     nbytes = (3 * K * D + D) * 4
-    return max(nbytes / HBM_BYTES_PER_S, 3 * K * D / FP32_FLOP_PER_S) * 1e3, nbytes
+    return max(nbytes / hw.HBM_BYTES_PER_S, 3 * K * D / hw.FP32_FLOP_PER_S) * 1e3, nbytes
 
 
 def check_psgf_mix_replays(gen, mix_ops, mix_ref) -> dict:
@@ -1619,13 +1633,15 @@ def ssm_bound_ms(x, bm, a):
     """Least time: x, dt, B, C and A read once, y written once, at the HBM
     rate; the B*S*D*N exponentials on the special-function units; ~6 fp32
     flops per (t, d, n) on the CUDA cores. The larger of the three."""
+    from repro_torch.common import hw
+
     B, S, D = x.shape
     N = a.shape[1]
     nbytes = 3 * x.nbytes + 2 * bm.nbytes + a.nbytes
     work = B * S * D * N
-    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": max(work / SFU_OPS_PER_S,
-                               6 * work / FP32_FLOP_PER_S) * 1e3}
+    times = {"bytes": nbytes / hw.HBM_BYTES_PER_S * 1e3,
+             "operations": max(work / hw.SFU_OPS_PER_S,
+                               6 * work / hw.FP32_FLOP_PER_S) * 1e3}
     by = max(times, key=times.get)
     return times[by], by, nbytes, work
 
@@ -2441,10 +2457,12 @@ def free_device_memory():
 
 def train_run(name, fn, flash_ops, ssm_ops, **kw) -> dict:
     """One trainer call on the card with every kernel count set to 0 just
-    before and read just after; its wall, peak memory and history."""
+    before and read just after; its wall, peak memory, what was allocated
+    before it (earlier phases' leftovers) and history."""
     free_device_memory()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     hist = {}
     ssm_ops.LAUNCHES = 0
     flash_ops.reset_launch_counts()
@@ -2454,6 +2472,7 @@ def train_run(name, fn, flash_ops, ssm_ops, **kw) -> dict:
     wall_s = time.perf_counter() - t0
     rec = {"losses": losses, "wall_s": wall_s,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "base_memory_bytes": base,
            "flash_launches": flash_ops.LAUNCHES,
            "flash_route_launches": dict(flash_ops.ROUTE_LAUNCHES),
            "ssm_scan_launches": ssm_ops.LAUNCHES, "history": hist}
@@ -3155,6 +3174,7 @@ def drive_zoo_families(flash_ops, flash_ref) -> dict:
     of 32 layers) and deepseek-v2-236b (2 of 60 layers) at their published
     widths; flash at their prefill shapes; full-width block 0 and the
     reduced configs on the card against the CPU."""
+    from repro_torch.common import hw
     from repro_torch.configs import get_config
     from repro_torch.models import layers
 
@@ -3183,7 +3203,7 @@ def drive_zoo_families(flash_ops, flash_ref) -> dict:
         rep.update(model=arch, layers=cfg.num_layers,
                    layers_published=get_config(arch).num_layers,
                    decode_cast_bytes_per_token=cast,
-                   decode_cast_bound_ms=cast / HBM_BYTES_PER_S * 1e3,
+                   decode_cast_bound_ms=cast / hw.HBM_BYTES_PER_S * 1e3,
                    card=card)
         log(json.dumps({"zoo_model": rep}))
         models.append(rep)
@@ -3402,6 +3422,7 @@ def drive_last_families(flash_ops, flash_ref, ssm_ops) -> dict:
     ``train_psgf`` and ``train`` of xlstm, ``train`` of seamless; flash at
     seamless's prefill and training shapes; full-width block 0 and the reduced models
     (serving and two training steps) on the card against the CPU."""
+    from repro_torch.common import hw
     from repro_torch.configs import get_config
     from repro_torch.launch import train as TR
     from repro_torch.models import layers
@@ -3430,7 +3451,7 @@ def drive_last_families(flash_ops, flash_ref, ssm_ops) -> dict:
         cast = decode_cast_bytes(cfg)
         rep.update(model=arch, layers=cfg.num_layers,
                    decode_cast_bytes_per_token=cast,
-                   decode_cast_bound_ms=cast / HBM_BYTES_PER_S * 1e3, card=card)
+                   decode_cast_bound_ms=cast / hw.HBM_BYTES_PER_S * 1e3, card=card)
         log(json.dumps({"zoo_model": rep}))
         models.append(rep)
 
@@ -3489,6 +3510,239 @@ def drive_last_families(flash_ops, flash_ref, ssm_ops) -> dict:
             "flash_launches_prefill": sum(
                 m["flash_route_launches_prefill"]["tensor_core"] for m in models),
             "flash_launches_training": training["seamless_train"]["flash_launches"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: card training of the moe and vlm families
+# ---------------------------------------------------------------------------
+
+INTERNVL, PHI, DEEPSEEK = "internvl2-2b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"
+# (record, arch, layers kept (None: all), trainer's keywords): every width as
+# published; internvl2 whole, its 256 patches + 1,792 tokens a 2,048-position
+# sequence; phi3.5-moe at 2 of its 32 layers, the depth whose one-device
+# estimate fits with Adam (launch.dryrun: ~55 GB; 3 layers ~76)
+MOE_VLM_TRAIN = (
+    ("internvl2_train", INTERNVL, None, dict(batch=4, seq=1792, steps=8)),
+    ("phi35_train", PHI, 2, dict(batch=4, seq=2048, steps=8)),
+)
+# phi3.5-moe under PSGF-DP: two pods with their Adam moments and the global
+# model, at the deepest cut whose dry-run estimate is within PSGF_PEAK_LIMIT
+PHI_PSGF = dict(pods=2, sync_interval=4, batch=4, seq=512, steps=8)
+PSGF_PEAK_LIMIT = 70e9
+# flash at phi3.5's PSGF step: (B, S, H, KV, hd), bf16, causal
+PHI_PSGF_ATTN = (4, 512, 32, 8, 128)
+# deepseek-v2 trains at reduced() size only; its full-width estimate, one
+# layer of 60 with its embedding and head at 1 x 2,048, says why
+DEEPSEEK_FULL_ESTIMATE = dict(layers=1, batch=1, seq=2048)
+# the reduced models on the card against the CPU in float32: (arch, seq);
+# deepseek at 2,048 (dense MLA) and 4,096 (past the threshold: flash_mha's
+# blockwise backward)
+MOE_VLM_REDUCED = ((DEEPSEEK, 2048), (DEEPSEEK, 4096), (PHI, 64), (INTERNVL, 64))
+
+
+def cut_config(arch, depth):
+    """``get_config(arch)`` with ``num_layers`` cut to ``depth`` (None: as
+    published)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg, num_layers=depth)
+
+
+def peak_estimate(DR, cfg, batch, seq, pods=1) -> float:
+    """The dry run's one-device peak estimate in bytes, logged."""
+    est = DR.one_device_peak(cfg, batch, seq, pods)["peak_bytes"]
+    log(f"dry-run estimate: {cfg.name} at {cfg.num_layers} layers, {pods} pod(s)"
+        f" x {batch} x {seq}: one-device peak {est / 1e9:.2f} GB")
+    return est
+
+
+def cut_train_run(TR, name, arch, depth, flash_ops, ssm_ops, estimate, psgf, **kw):
+    """``train`` (or ``train_psgf``) of ``arch`` cut to ``depth`` layers
+    through ``train_run``, with the measured peak logged beside the
+    estimate: the peak less what was allocated before the trainer ran is
+    the trainer's own, which the estimate accounts."""
+    trainer = TR.train_psgf if psgf else TR.train
+    with patched(TR, "get_config", lambda a: cut_config(a, depth)):
+        rec = train_run(name, lambda **k: trainer(arch, **k), flash_ops, ssm_ops,
+                        reduced=False, **kw)
+    own = rec["peak_memory_bytes"] - rec["base_memory_bytes"]
+    log(f"{name}: peak {rec['peak_memory_bytes'] / 1e9:.2f} GB measured, "
+        f"{rec['base_memory_bytes'] / 1e9:.2f} GB of it allocated before the "
+        f"trainer, {own / 1e9:.2f} GB its own; {estimate / 1e9:.2f} GB estimated")
+    rec.update(peak_estimate_bytes=estimate, peak_own_bytes=own,
+               peak_measured_over_estimate=rec["peak_memory_bytes"] / estimate,
+               peak_own_over_estimate=own / estimate)
+    return rec
+
+
+def profile_train_step(TR, cfg, batch, seq) -> dict:
+    """One warm ``train`` step of ``cfg`` on the card under the profiler,
+    split into forward, backward and optimizer (the backward's kernels come
+    from autograd's thread and land in ``other``, renamed here)."""
+    from repro_torch import random as R
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import Adam, one_cycle
+
+    free_device_memory()
+    fn, api, optimizer = build_train_step(cfg, Adam(lr=one_cycle(3e-4, 8)), "cuda")
+    params = api.init_params(R.PRNGKey(0))
+    opt = optimizer.init(params)
+    b = TR.make_batch(cfg, 0, batch, seq, "cuda")
+    fn(params, opt, b)                                          # warm
+    prof = profile_spans(lambda: fn(params, opt, b), ("train.",))
+    prof["stages"]["backward"] = prof["stages"].pop("other")
+    del params, opt
+    return prof
+
+
+def check_flash_phi_psgf(ops, ref) -> dict:
+    """Flash at phi3.5-moe's PSGF step (PHI_PSGF_ATTN, bf16, causal) against
+    its plain version on the tensor-core route, timed beside the plain
+    version and ``scaled_dot_product_attention``."""
+    B, S, H, KV, hd = PHI_PSGF_ATTN
+    q, k, v = attention_inputs(torch.Generator().manual_seed(SEED + 15),
+                               B, S, S, H, KV, hd, torch.bfloat16)
+    if route_of(ops, q, k) != "tensor_core":
+        raise RuntimeError("flash at phi3.5-moe's PSGF shape is not routed to the "
+                           "tensor cores")
+    _, err, ratio = flash_case(ops, ref, "flash at phi3.5-moe's PSGF step",
+                               q, k, v, True, None, None, BF16_TOL)
+    return {"shape": list(PHI_PSGF_ATTN), "max_abs_err": err, "bound_ratio": ratio,
+            **tensor_core_times(ops, ref, q, k, v, None)}
+
+
+def moe_vlm_training_card_vs_cpu(TR, layers, arch, seq) -> dict:
+    """Two ``train`` steps of reduced ``arch`` in float32 on the card and on
+    the CPU from the same key, batch 2 x ``seq``: losses finite and within
+    TRAIN_CPU_TOL, and every MoE call's top-k experts equal (the forward's
+    and the remat recompute's)."""
+    import dataclasses
+
+    real = TR._config
+
+    def config(a, reduced):
+        return dataclasses.replace(real(a, reduced), dtype="float32")
+
+    losses, routes = {}, {}
+    with patched(TR, "_config", config):
+        for dev in ("cuda", "cpu"):
+            routes[dev] = []
+            with recording_routes(layers, routes[dev]):
+                losses[dev] = TR.train(arch, steps=2, batch=2, seq=seq,
+                                       log_every=100, device=dev)
+    diff = [abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    if not (all(math.isfinite(x) for x in losses["cuda"])
+            and all(d <= TRAIN_CPU_TOL * (1 + abs(b))
+                    for d, b in zip(diff, losses["cpu"]))):
+        raise RuntimeError(f"reduced {arch} at seq {seq}: losses card "
+                           f"{losses['cuda']} vs CPU {losses['cpu']}")
+    rg, rc = routes["cuda"], routes["cpu"]
+    moe = cut_config(arch, None).family == "moe"
+    if moe and not (rg and len(rg) == len(rc)
+                    and all(torch.equal(a, b) for a, b in zip(rg, rc))):
+        raise RuntimeError(f"reduced {arch} at seq {seq}: MoE top-k experts differ "
+                           f"between the card and the CPU ({len(rg)} / {len(rc)} "
+                           "calls)")
+    return {"seq": seq, "losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+            "losses_max_abs_err": max(diff),
+            "moe_calls_routed_equal": len(rg) if moe else None}
+
+
+def drive_moe_vlm_training(flash_ops, flash_ref, ssm_ops) -> dict:
+    """Phase 13: ``train`` of internvl2-2b whole and phi3.5-moe at 2 layers
+    (and a profiled warm step of the latter), ``train_psgf`` of phi3.5-moe at the deepest cut the dry run fits within
+    PSGF_PEAK_LIMIT, each beside the dry run's one-device peak estimate;
+    deepseek-v2's full-width estimate; the reduced models' training on the
+    card against the CPU; flash at phi3.5-moe's PSGF shape."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as TR
+    from repro_torch.models import decoder, layers
+    from repro_torch.models.spec import spec_num_params
+
+    card = card_info()
+    kernel = check_flash_phi_psgf(flash_ops, flash_ref)
+    training, launches = {}, 0
+    for name, arch, depth, conf in MOE_VLM_TRAIN:
+        cfg = cut_config(arch, depth)
+        est = peak_estimate(DR, cfg, conf["batch"], conf["seq"])
+        rec = cut_train_run(TR, name, arch, depth, flash_ops, ssm_ops, est, False,
+                            log_every=1, **conf)
+        want = cfg.num_layers * (2 if cfg.remat else 1) * conf["steps"]
+        if rec["flash_route_launches"] != {"scalar": 0, "short": 0,
+                                           "tensor_core": want}:
+            raise RuntimeError(f"{name} flash launches {rec['flash_route_launches']}"
+                               f" (want {want} tensor-core)")
+        launches += rec["flash_launches"]
+        rec.update(per_step(rec, conf["steps"]))
+        positions = conf["seq"] + (cfg.vlm.num_patches if cfg.family == "vlm" else 0)
+        rec["tokens_per_s"] = conf["batch"] * positions / (rec["warm_ms_per_step"] / 1e3)
+        training[name] = {**{k: v for k, v in rec.items() if k != "history"},
+                          "layers": cfg.num_layers, "config": conf}
+        if cfg.family == "moe":
+            training[name]["profile_step"] = profile_train_step(
+                TR, cfg, conf["batch"], conf["seq"])
+        log(json.dumps({"moe_vlm_train": {name: training[name], "card": card}}))
+
+    pods, steps = PHI_PSGF["pods"], PHI_PSGF["steps"]
+    estimates, depth = {}, 0
+    while depth < cut_config(PHI, None).num_layers:
+        est = peak_estimate(DR, cut_config(PHI, depth + 1), PHI_PSGF["batch"],
+                            PHI_PSGF["seq"], pods)
+        estimates[depth + 1] = est
+        if est > PSGF_PEAK_LIMIT:
+            break
+        depth += 1
+    if depth == 0:
+        raise RuntimeError(f"phi3.5-moe PSGF: no depth fits {PSGF_PEAK_LIMIT / 1e9} "
+                           f"GB by the dry run ({estimates})")
+    cfg = cut_config(PHI, depth)
+    psgf = cut_train_run(TR, "phi35_train_psgf", PHI, depth, flash_ops, ssm_ops,
+                         estimates[depth], True, log_every=4, **PHI_PSGF)
+    hist = psgf["history"]
+    n_params = spec_num_params(decoder.model_spec(cfg))
+    want_bytes = gate_bytes_from_keys(cfg, hist["sync_keys"], pods, 0.3, 0.2, 0.5)
+    if (hist["wire_bytes"] != want_bytes
+            or len(want_bytes) != steps // PHI_PSGF["sync_interval"]
+            or not 0 < hist["psgf_bytes"] < hist["full_bytes"]
+            or hist["full_bytes"] != 2.0 * pods * n_params * 4 * len(want_bytes)):
+        raise RuntimeError(f"phi3.5-moe PSGF bytes {hist['wire_bytes']} (from the "
+                           f"gates {want_bytes}), total {hist['psgf_bytes']} vs "
+                           f"full {hist['full_bytes']}")
+    want = depth * (2 if cfg.remat else 1) * steps * pods
+    if psgf["flash_route_launches"] != {"scalar": 0, "short": 0, "tensor_core": want}:
+        raise RuntimeError(f"phi3.5-moe PSGF flash launches "
+                           f"{psgf['flash_route_launches']} (want {want} tensor-core)")
+    launches += psgf["flash_launches"]
+    psgf.update(per_step(psgf, steps, pods))
+    psgf["tokens_per_s"] = (pods * PHI_PSGF["batch"] * PHI_PSGF["seq"]
+                            / (psgf["warm_ms_per_step"] / 1e3))
+    psgf["ms_per_sync"] = [t * 1e3 for t in hist["sync_s"]]
+    psgf["psgf_over_full_bytes"] = hist["psgf_bytes"] / hist["full_bytes"]
+    psgf["wire_bytes"] = hist["wire_bytes"]
+    training["phi35_train_psgf"] = {
+        **{k: v for k, v in psgf.items() if k != "history"}, "layers": depth,
+        "params": n_params, "estimates_by_depth": estimates, "config": PHI_PSGF}
+    log(json.dumps({"moe_vlm_train": {"phi35_train_psgf":
+                                      training["phi35_train_psgf"], "card": card}}))
+
+    full = DEEPSEEK_FULL_ESTIMATE
+    deepseek_full = peak_estimate(DR, cut_config(DEEPSEEK, full["layers"]),
+                                  full["batch"], full["seq"])
+    if deepseek_full <= 80e9:
+        raise RuntimeError(f"deepseek-v2 at {full}: the dry run estimates "
+                           f"{deepseek_full / 1e9:.1f} GB, which would fit the card")
+    reduced = {}
+    for arch, seq in MOE_VLM_REDUCED:
+        free_device_memory()
+        reduced[f"{arch}@{seq}"] = moe_vlm_training_card_vs_cpu(TR, layers, arch, seq)
+    return {"card": card, "activations": "bfloat16",
+            "weights": "float32 from PRNGKey(0)", "training": training,
+            "deepseek_full_width_estimate": {**full, "peak_bytes": deepseek_full},
+            "reduced_training_card_vs_cpu": reduced,
+            "flash_tensor_core": kernel, "flash_launches_training": launches}
 
 
 def main() -> int:
@@ -3607,6 +3861,12 @@ def main() -> int:
     record["launches_zoo_last_families"] = last["flash_launches_prefill"]
     record["launches_zoo_last_families_training"] = last["flash_launches_training"]
 
+    # 13. card training of the moe and vlm families
+    free_device_memory()
+    moe_vlm = drive_moe_vlm_training(ops, ref, ssm_ops)
+    log(json.dumps({"zoo_moe_vlm_training": moe_vlm}))
+    record["launches_zoo_moe_vlm_training"] = moe_vlm["flash_launches_training"]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -3645,7 +3905,10 @@ def main() -> int:
                             record["launches_zoo_last_families"],
                         "launches_zoo_last_families_training":
                             record["launches_zoo_last_families_training"],
-                        "zoo_last_families": last["flash_tensor_core"]},
+                        "zoo_last_families": last["flash_tensor_core"],
+                        "launches_zoo_moe_vlm_training":
+                            record["launches_zoo_moe_vlm_training"],
+                        "zoo_moe_vlm_training": moe_vlm["flash_tensor_core"]},
     }
     k1_record = mix_record.pop("k1_psgf_mix")
     log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))

@@ -1,9 +1,10 @@
 """deepseek-v2-236b [arXiv:2405.04434] — MoE with Multi-head Latent Attention.
 
 60L d_model=5120 128H d_ff(expert)=1536 vocab=102400; MLA kv_lora=512;
-2 shared + 160 routed experts, top-6. ``attention_window`` stays None by
-default; the long_500k shape switches on the sliding-window variant via
-the reference's ``launch.shapes``, not ported yet.
+2 shared + 160 routed experts, top-6. ``attention_window`` stays None:
+at long_500k ``launch.shapes.shape_variant`` keeps full attention over the
+compressed MLA latent cache, context-parallel over ``data``, where the
+dense configs switch to a sliding window.
 """
 from repro_torch.models.config import ModelConfig, MoEConfig, MLAConfig
 

@@ -17,7 +17,9 @@
     fp32 FMAs, a thread per query row). All are built at first use.
     Anything the kernels do not take RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`), the same
-    function computed densely.
+    function computed densely; ``meta`` tensors (the dry run's,
+    ``launch.dryrun``) run it on shapes alone under the kernel's autograd,
+    and nothing launches.
 
 Differentiation is the reference's design (``ops.py:47-65`` there): a
 ``torch.autograd.Function`` whose forward is the kernel and whose backward is
@@ -169,6 +171,12 @@ def _launch(q, k, v, causal, window, kv_len, route=None):
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k, v on different devices: {devices}")
+    if q.device.type == "meta":
+        # the dry run (launch.dryrun): the plain version's arithmetic on
+        # shapes alone, under the kernel's autograd (its saved tensors and
+        # plain backward); nothing launches
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len)
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes float32 or bfloat16, the "
                         f"same for q, k, v; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -259,6 +267,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None):
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on CUDA, CPU or meta tensors, not {q.device}")
     return _FlashAttention.apply(q, k, v, causal, window, kv_len)

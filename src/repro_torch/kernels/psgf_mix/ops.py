@@ -8,7 +8,8 @@ count.
   * CUDA tensors launch the hand-written kernel
     (``repro_torch/csrc/psgf_mix.cu``, built at first use): float32,
     contiguous, one device. Anything else RAISES — there is no fallback;
-  * CPU tensors run the plain PyTorch version (:mod:`.ref`).
+  * CPU tensors run the plain PyTorch version (:mod:`.ref`), and so do
+    ``meta`` tensors (the dry run's, ``launch.dryrun``: shapes alone).
 
 Replaces ``src/repro/kernels/psgf_mix/kernel.py::psgf_mix_batch_kernel``
 (``pallas_call`` at kernel.py:76) and ``::psgf_mix_kernel`` (kernel.py:39);
@@ -134,16 +135,16 @@ def _launch(w_global, w_clients, mask, single=False):
 
 
 def _dispatch(w_global, w_clients, mask, ref):
-    """The plain version's result for CPU tensors; None for CUDA tensors
-    (the caller launches); raises for mixed or other devices."""
+    """The plain version's result for CPU (or meta) tensors; None for CUDA
+    tensors (the caller launches); raises for mixed or other devices."""
     devices = {w_global.device, w_clients.device, mask.device}
     if len(devices) != 1:
         raise ValueError(f"psgf_mix: tensors on different devices: {devices}")
     device = devices.pop()
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):    # meta: the dry run's shapes alone
         return ref(w_global, w_clients, mask)
     if device.type != "cuda":
-        raise ValueError(f"psgf_mix runs on CUDA or CPU tensors, not {device}")
+        raise ValueError(f"psgf_mix runs on CUDA, CPU or meta tensors, not {device}")
     return None
 
 

@@ -9,7 +9,9 @@ SSM heads.
     (``repro_torch/csrc/ssm_scan.cu``, built at first use): x, dt, Bm, Cm
     float32 or bfloat16 (one type), A float32, contiguous, one device, N in
     :data:`STATE_DIMS`. Anything else RAISES — there is no fallback;
-  * CPU tensors run the plain PyTorch version (:mod:`.ref`).
+  * CPU tensors run the plain PyTorch version (:mod:`.ref`); ``meta``
+    tensors (the dry run's, ``launch.dryrun``) run it on shapes alone under
+    the kernel's autograd, and nothing launches.
 
 Unlike the reference's wrapper there is no ``chunk`` or ``d_block``: the
 kernel walks S and D as they are (ragged edges by loop bounds), so nothing
@@ -77,6 +79,10 @@ def _check_shapes(x, dt, Bm, Cm, A):
 def _launch(x, dt, Bm, Cm, A, return_state):
     """Checks, then one kernel launch on the current stream."""
     global LAUNCHES
+    if x.device.type == "meta":
+        # the dry run (launch.dryrun): the plain version on shapes alone,
+        # under the kernel's autograd; nothing launches
+        return ssm_scan_ref(x, dt, Bm, Cm, A, return_state=return_state)
     tensors = (x, dt, Bm, Cm, A)
     if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in (dt, Bm, Cm)):
         raise TypeError("ssm_scan kernel takes float32 or bfloat16 x, dt, Bm, Cm "
@@ -141,6 +147,6 @@ def ssm_scan(x, dt, Bm, Cm, A, *, return_state=False):
     device = devices.pop()
     if device.type == "cpu":
         return ssm_scan_ref(x, dt, Bm, Cm, A, return_state=return_state)
-    if device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on CUDA or CPU tensors, not {device}")
+    if device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssm_scan runs on CUDA, CPU or meta tensors, not {device}")
     return _SsmScan.apply(x, dt, Bm, Cm, A, return_state)

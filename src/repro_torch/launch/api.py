@@ -1,21 +1,28 @@
 """ModelApi: one facade over the model zoo's implementations (counterpart of
 ``repro.launch.api``), the decoder-only families
 (``repro_torch.models.decoder``) and the encoder-decoder ``audio`` family
-(``repro_torch.models.encdec``), on one ``device``.
+(``repro_torch.models.encdec``), on one ``device``; and the abstract,
+sharded inputs of each (config, shape) for the dry run.
 
-The reference's ``input_specs`` / ``shard_structs`` (abstract, sharded
-inputs for its dry-run) wait for the launch modules (ROADMAP Queue A item
-9 (c)).
+Where the reference builds ``jax.ShapeDtypeStruct``s, the port builds
+``meta`` tensors (shape and dtype, no storage), and a sharded input is a
+:class:`ShardedStruct`: the meta tensor with its spec and per-device shape
+from ``sharding.rules``, which one card records and does not apply.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import torch
 
+from repro_torch.common import pytree_utils as pt
 from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch.shapes import InputShape
 from repro_torch.models import decoder, encdec
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import ShardingRules, logical_to_sharding
 
 
 def model_module(cfg: ModelConfig):
@@ -40,6 +47,15 @@ class ModelApi:
     def init_params(self, key):
         return self.mod.init_params(self.cfg, key, self.device)
 
+    def param_axes(self):
+        return self.mod.param_axes(self.cfg)
+
+    def abstract_params(self, dtype=None):
+        """The params as ``meta`` tensors; float leaves in ``dtype`` if
+        given (bf16 weights when serving)."""
+        ap = self.mod.abstract_params(self.cfg)
+        return ap if dtype is None else cast_float_structs(ap, dtype)
+
     # --- steps ---------------------------------------------------------------
     def loss_fn(self, params, batch):
         return self.mod.loss_fn(self.cfg, params, batch)
@@ -62,3 +78,131 @@ class ModelApi:
             return encdec.init_cache(self.cfg, batch, cache_len, dtype,
                                      src_len=src_len, device=self.device)
         return decoder.init_cache(self.cfg, batch, cache_len, dtype, self.device)
+
+    def abstract_cache(self, batch: int, cache_len: int, dtype=None, src_len: int = 1):
+        """:meth:`init_cache`'s tree as ``meta`` tensors."""
+        if self.cfg.family == "audio":
+            return encdec.abstract_cache(self.cfg, batch, cache_len, dtype, src_len)
+        return decoder.abstract_cache(self.cfg, batch, cache_len, dtype)
+
+    def cache_axes(self, context_parallel: bool = False):
+        return self.mod.cache_axes(self.cfg, context_parallel)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def cast_float_structs(tree, dtype):
+    """Float leaves of a tree of meta tensors recast to ``dtype``."""
+    return pt.tree_map(lambda x: _meta(x.shape, dtype) if x.is_floating_point()
+                       else x, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedStruct:
+    """An abstract input: a ``meta`` tensor, its spec (one mesh-axis entry
+    per leading dimension, as ``sharding.rules`` gives it) and the shape
+    each device holds (the reference's ShapeDtypeStruct with a
+    NamedSharding)."""
+
+    value: torch.Tensor
+    spec: tuple
+    shard_shape: tuple
+
+    @property
+    def shape(self):
+        return self.value.shape
+
+    @property
+    def dtype(self):
+        return self.value.dtype
+
+    @property
+    def shard_nbytes(self) -> int:
+        return math.prod(self.shard_shape) * self.value.element_size()
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs per (cfg, shape)
+# ---------------------------------------------------------------------------
+
+
+def batch_axes(cfg: ModelConfig, shape: InputShape, kind: str):
+    """Logical-axis trees of the input batch (mirrors :func:`input_structs`)."""
+    if kind not in ("train", "prefill"):
+        raise ValueError(kind)
+    if cfg.family == "audio":
+        ax = {"src_embeds": ("batch", None, None), "tokens": ("batch", None)}
+    elif cfg.family == "vlm":
+        ax = {"img_embeds": ("batch", None, None), "tokens": ("batch", None)}
+    else:
+        ax = {"tokens": ("batch", None)}
+    if kind == "train":
+        ax["labels"] = ("batch", None)
+    return ax
+
+
+def input_structs(cfg: ModelConfig, shape: InputShape):
+    """Meta tensors (unsharded) of the step inputs of ``shape.kind``: the
+    batch for train / prefill (an ``audio`` model's sequence split between
+    source frames and target tokens, a ``vlm`` model's between patches and
+    tokens), ``{cache, token, pos}`` for decode."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, act = torch.int32, cfg.activation_dtype
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            half = S // 2
+            batch = {"src_embeds": _meta((B, half, cfg.d_model), act),
+                     "tokens": _meta((B, half), i32)}
+            text = half
+        elif cfg.family == "vlm":
+            P = cfg.vlm.num_patches
+            batch = {"img_embeds": _meta((B, P, cfg.d_model), act),
+                     "tokens": _meta((B, S - P), i32)}
+            text = S - P
+        else:
+            batch = {"tokens": _meta((B, S), i32)}
+            text = S
+        if shape.kind == "train":
+            batch["labels"] = _meta((B, text), i32)
+        return batch
+    if shape.kind == "decode":
+        src_len = S // 2 if cfg.family == "audio" else 1
+        cache = ModelApi(cfg, "meta").abstract_cache(B, S, src_len=src_len)
+        return {"cache": cache, "token": _meta((B, 1), i32), "pos": _meta((), i32)}
+    raise ValueError(shape.kind)
+
+
+def with_shardings(structs, shardings):
+    """Each meta tensor of ``structs`` as a :class:`ShardedStruct` with its
+    ``(spec, shard shape)`` from the matching leaf of ``shardings``."""
+    return pt.tree_map(lambda s, sh: ShardedStruct(s, *sh), structs, shardings)
+
+
+def shard_structs(structs, axes_tree, rules: ShardingRules):
+    """Each meta tensor of ``structs`` as a :class:`ShardedStruct` with the
+    spec and shard shape its logical axes give on ``rules.mesh``."""
+    return with_shardings(structs, logical_to_sharding(axes_tree, rules, structs))
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                rules: Optional[ShardingRules] = None):
+    """Sharded abstract inputs for the dry run (the meta tensors alone
+    without ``rules``). Decode gives ``{cache, token, pos}``; when the batch
+    does not divide over the batch rule's mesh axes (batch 1 at long_500k)
+    the cache's sequence shards over them instead (context parallelism)
+    and the token is replicated, as the reference decides
+    (``api.py:153-170`` there)."""
+    structs = input_structs(cfg, shape)
+    if rules is None:
+        return structs
+    if shape.kind in ("train", "prefill"):
+        return shard_structs(structs, batch_axes(cfg, shape, shape.kind), rules)
+    data_par = rules.axis_size(rules.table.get("batch"))
+    context_parallel = shape.global_batch % max(data_par, 1) != 0
+    cache_ax = ModelApi(cfg, "meta").cache_axes(context_parallel=context_parallel)
+    tok_ax = (None, None) if context_parallel else ("batch", None)
+    return {"cache": shard_structs(structs["cache"], cache_ax, rules),
+            "token": shard_structs(structs["token"], tok_ax, rules),
+            "pos": ShardedStruct(structs["pos"], (), ())}

@@ -14,13 +14,24 @@ ownership along the axis is ``launch.distributed.block_range``.
 
 On one local device either is the unsharded path, as in the reference.
 Several GPUs in one process are not ported (ROADMAP Queue A 11: ``run_fl``
-and ``ForecastServer(shard_batch=True)`` raise). The reference's
-``make_production_mesh`` and ``make_host_mesh`` are the TPU layouts of its
-dry run and trainer and go with ROADMAP Queue A 9 (c).
+and ``ForecastServer(shard_batch=True)`` raise).
+
+The zoo's meshes are :class:`AbstractMesh`es: named axes and their sizes,
+all that ``sharding.rules`` reads.
+
+  * :func:`make_production_mesh` — the reference's production layouts,
+    ``(16, 16)`` over ``("data", "model")`` on one pod and ``(2, 16, 16)``
+    over ``("pod", "data", "model")`` on two, with no devices behind them:
+    the dry run (``launch.dryrun``) accounts specs and bytes on them, so
+    that the rules and the accounting agree with the reference's;
+  * :func:`make_host_mesh` — the same over this process's local devices,
+    ``(1, 1)`` on one card, where every shard shape is the whole shape.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
@@ -49,6 +60,39 @@ class Mesh:
     def rows(self, total: int) -> Tuple[int, int]:
         """The ``[lo, hi)`` block of ``total`` rows this process owns."""
         return D.block_range(total, self.index, self.count)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Named mesh axes and their sizes (``.shape``, an ordered axis -> size
+    mapping, as a jax mesh's), and the local devices it lays out, if any."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+    devices: Tuple[torch.device, ...] = ()
+
+    @property
+    def shape(self) -> "OrderedDict[str, int]":
+        return OrderedDict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """``(16, 16)`` over ``("data", "model")`` on one pod; ``(2, 16, 16)``
+    over ``("pod", "data", "model")`` for the 2-pod, 512-chip deployment."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(device=DEFAULT_DEVICE) -> AbstractMesh:
+    """``(n, 1)`` over ``("data", "model")`` for this process's ``n`` local
+    devices (every GPU for ``"cuda"``; raises without one)."""
+    devices = _local_devices(device)
+    return AbstractMesh(("data", "model"), (len(devices), 1), devices)
 
 
 def _local_devices(device) -> Tuple[torch.device, ...]:

@@ -7,9 +7,9 @@ Usage (any arch of ``configs.ARCH_IDS``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --no-reduced --device cuda --batch 4 --prompt-len 2048 --gen 32
 
-The reference builds jitted, sharded prefill and decode steps
-(``launch/steps.py``, ``launch/mesh.py``); one card needs neither, so this
-calls :class:`~repro_torch.launch.api.ModelApi` directly. Weights are float32
+The prefill and decode steps come from ``launch.steps.build_prefill_step``
+/ ``build_serve_step``, as the reference's do; one card needs no mesh, so
+they take none. Weights are float32
 from ``PRNGKey(0)`` (as the reference's ``serve``), activations in the
 config's type; the prompt is ``synthetic_tokens(0, ...)``. A ``vlm`` model
 gets ``0.1 * normal(PRNGKey(0))`` patch embeddings (B, num_patches, d) in
@@ -29,7 +29,7 @@ from repro_torch import random as R
 from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import synthetic_tokens
-from repro_torch.launch.api import ModelApi
+from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models import decoder, encdec
 from repro_torch.models.spec import spec_num_params
 
@@ -51,7 +51,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    api = ModelApi(cfg, dev)
+    prefill_fn, api = build_prefill_step(cfg, dev)
+    serve_fn, _ = build_serve_step(cfg, dev)
 
     t0 = time.perf_counter()
     params = api.init_params(R.PRNGKey(0))
@@ -79,7 +80,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = api.prefill(params, inputs, cache_len=start + gen)
+        logits, cache = prefill_fn(params, inputs, cache_len=start + gen)
         _sync(dev)
         t_pref = time.perf_counter() - t0
         out_tokens = []
@@ -87,7 +88,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         t0 = time.perf_counter()
         for i in range(gen):
             out_tokens.append(tok)
-            logits, cache = api.decode_step(params, cache, tok, start + i)
+            logits, cache = serve_fn(params, cache, tok, start + i)
             tok = pick(logits)
         _sync(dev)
         t_dec = time.perf_counter() - t0

@@ -21,6 +21,9 @@ Public API, as the reference's:
   prefill(cfg, params, tokens, cache_len=...)     -- prompt -> (logits, cache)
   decode_step(cfg, params, cache, token, pos)     -- one token
   init_cache(cfg, batch, cache_len)               -- KV / MLA ring buffer (+ SSM state)
+  param_axes / abstract_params(cfg)               -- logical axes, meta tensors
+  cache_axes(cfg, context_parallel)               -- the cache's logical axes
+  abstract_cache(cfg, batch, cache_len)           -- init_cache on ``meta``
   image_embeds(cfg, batch, key)                   -- a vlm batch's patch stub
 
 The reference scans over the stacked layer axis; the port loops over it,
@@ -106,6 +109,16 @@ def init_params(cfg: ModelConfig, key, device=DEFAULT_DEVICE):
     draws up to ``erfinv``'s last ulps (``repro_torch.random.normal``),
     made on ``device``."""
     return S.init_params_from_key(model_spec(cfg), key, resolve_device(device))
+
+
+def param_axes(cfg: ModelConfig):
+    """Each parameter's logical axes (``sharding.rules`` maps them)."""
+    return S.axes_tree(model_spec(cfg))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The params tree as ``meta`` tensors: shapes and dtypes, no storage."""
+    return S.abstract_params(model_spec(cfg))
 
 
 def _layer_flags(cfg: ModelConfig):
@@ -301,6 +314,40 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
             "conv": torch.zeros(shp["conv"], dtype=dtype, device=dev),
         }
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None):
+    """:func:`init_cache`'s tree as ``meta`` tensors."""
+    return init_cache(cfg, batch, cache_len, dtype, device="meta")
+
+
+def cache_axes(cfg: ModelConfig, context_parallel: bool = False):
+    """Logical axes of the cache tree. ``context_parallel`` shards the cache
+    sequence over the batch rule's mesh axes instead of the batch (batch 1
+    at long_500k), as the reference decides (``decoder.py:254`` there)."""
+    _check_family(cfg)
+    seq_ax = "batch" if context_parallel else None
+    bt_ax = None if context_parallel else "batch"
+    if cfg.family == "ssm":
+        return {
+            "mlstm": {"C": ("layers", bt_ax, "heads", "head_dim", None),
+                      "n": ("layers", bt_ax, "heads", "head_dim"),
+                      "m": ("layers", bt_ax, "heads")},
+            "slstm": {name: ("layers", bt_ax, "heads", "head_dim")
+                      for name in ("c", "n", "h", "m")},
+        }
+    if _uses_mla(cfg):
+        ax = {"mla": {"c_kv": ("layers", bt_ax, seq_ax, "lora"),
+                      "k_rope": ("layers", bt_ax, seq_ax, "head_dim"),
+                      "slot_pos": ("layers", seq_ax)}}
+    else:
+        ax = {"kv": {"k": ("layers", bt_ax, seq_ax, "kv_heads", "head_dim"),
+                     "v": ("layers", bt_ax, seq_ax, "kv_heads", "head_dim"),
+                     "slot_pos": ("layers", seq_ax)}}
+    if cfg.family == "hybrid":
+        ax["ssm"] = {"h": ("layers", bt_ax, "mlp", "ssm_state"),
+                     "conv": ("layers", bt_ax, "conv", "mlp")}
+    return ax
 
 
 def _block_decode(cfg: ModelConfig, p, x, layer_cache, pos, flag):

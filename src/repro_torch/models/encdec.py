@@ -12,6 +12,8 @@ Public API, as the reference's:
   prefill(cfg, params, src_embeds, tgt_tokens, cache_len=...)
   decode_step(cfg, params, cache, token, pos)           -- one token
   init_cache(cfg, batch, cache_len, src_len=...)        -- self K/V + cross K/V
+  param_axes / abstract_params(cfg)                     -- logical axes, meta
+  cache_axes(cfg, context_parallel) / abstract_cache    -- the cache's axes, meta
 
 The layer loops are the decoder's (each stacked leaf unbound once; each
 layer through ``decoder.apply_layer``, its remat under ``cfg.remat``),
@@ -74,6 +76,16 @@ def init_params(cfg: ModelConfig, key, device=DEFAULT_DEVICE):
     """The reference's ``init_params(cfg, key)`` on ``device`` (see
     ``decoder.init_params``)."""
     return S.init_params_from_key(model_spec(cfg), key, resolve_device(device))
+
+
+def param_axes(cfg: ModelConfig):
+    """Each parameter's logical axes (``sharding.rules`` maps them)."""
+    return S.axes_tree(model_spec(cfg))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The params tree as ``meta`` tensors: shapes and dtypes, no storage."""
+    return S.abstract_params(model_spec(cfg))
 
 
 def source_embeds(cfg: ModelConfig, batch: int, src_len: int, key):
@@ -182,6 +194,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                                            device=dev)},
         "cross": {"k": zeros(src_len), "v": zeros(src_len)},
     }
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
+                   src_len: int = 1):
+    """:func:`init_cache`'s tree as ``meta`` tensors."""
+    return init_cache(cfg, batch, cache_len, dtype, src_len, device="meta")
+
+
+def cache_axes(cfg: ModelConfig, context_parallel: bool = False):
+    """Logical axes of the cache tree; ``context_parallel`` as in
+    ``decoder.cache_axes`` (the cross K/V's source frames shard with it)."""
+    seq_ax = "batch" if context_parallel else None
+    bt_ax = None if context_parallel else "batch"
+    kv = ("layers", bt_ax, seq_ax, "kv_heads", "head_dim")
+    return {"self_kv": {"k": kv, "v": kv, "slot_pos": ("layers", seq_ax)},
+            "cross": {"k": kv, "v": kv}}
 
 
 def prefill(cfg: ModelConfig, params, src_embeds, tgt_tokens, attn_impl="auto",

@@ -11,9 +11,11 @@ Routing to the kernels:
 
   * :func:`self_attention` — ``attn_impl`` ``"auto"`` and ``"pallas"`` run
     the CUDA flash-attention kernel for CUDA tensors
-    (``kernels.flash_attention.ops``), at every length; on the CPU ``"auto"``
-    runs :func:`gqa_attend` up to :data:`CHUNKED_ATTN_THRESHOLD` tokens and
-    the long-sequence path above it (``"pallas"`` the kernel wrapper's plain
+    (``kernels.flash_attention.ops``), at every length, and the same
+    wrapper's plain version for ``meta`` tensors (the dry run's); on the CPU
+    ``"auto"`` runs :func:`gqa_attend` up to :data:`CHUNKED_ATTN_THRESHOLD`
+    tokens and the long-sequence path above it (``"pallas"`` the kernel
+    wrapper's plain
     version); ``"full"`` is dense on any device; ``"chunked"`` is the
     long-sequence path on any device: :func:`flash_mha` with
     ``cfg.attn_custom_vjp``, else :func:`chunked_attend`;
@@ -336,7 +338,8 @@ def self_attention(params, x, positions, cfg: ModelConfig, *, causal=True,
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     S = x.shape[1]
-    on_card = x.device.type == "cuda"
+    # meta tensors (the dry run) take the card's route
+    on_card = x.device.type in ("cuda", "meta")
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)

@@ -4,7 +4,10 @@ initializers (counterpart of ``repro.models.spec``).
 A model builds a *spec tree* (nested dicts of :class:`ArraySpec`). From it:
   * :func:`init_params` — the materialized parameter tree of tensors;
   * :func:`abstract_params` — shape/dtype only (``meta`` tensors, nothing
-    allocated), the template a checkpoint restores into.
+    allocated), the template a checkpoint restores into and what the dry
+    run (``launch.dryrun``) accounts;
+  * :func:`axes_tree` — each leaf's logical axes, which
+    ``sharding.rules`` maps to a mesh.
 
 Initial values come from an explicit ``torch.Generator`` (:func:`init_params`)
 and differ from JAX's for the same seed, or from a ``repro_torch.random``
@@ -108,6 +111,11 @@ def init_params_from_key(spec_tree, key, device) -> dict:
         (path, _init_one(s, lambda shape, k=k: normal_in_ranges(k, shape),
                          device))
         for (path, s), k in zip(pairs, keys)])
+
+
+def axes_tree(spec_tree):
+    """Tree of logical-axis tuples, in the structure of the params tree."""
+    return pt.tree_map(lambda s: s.axes, spec_tree, is_leaf=is_spec)
 
 
 def abstract_params(spec_tree):

@@ -148,8 +148,12 @@ def test_wrapper_rejects_bad_shapes_and_devices():
         flash_attention(q, k, v, kv_len=9)
     with pytest.raises(ValueError, match="do not match"):
         flash_attention(q, k[..., :4], v[..., :4])
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        flash_attention(q.to("meta"), k, v)
+    # meta tensors (the dry run's) run the plain version on shapes alone
+    before = ops.LAUNCHES
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert out.is_meta and out.shape == q.shape and ops.LAUNCHES == before
 
 
 def test_build_names_library_by_source_hash(monkeypatch):

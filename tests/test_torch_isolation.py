@@ -82,7 +82,10 @@ def test_importing_every_module_pulls_in_no_jax():
                  "repro_torch.configs.qwen2_72b",
                  "repro_torch.configs.xlstm_125m",
                  "repro_torch.configs.seamless_m4t_large_v2",
-                 "repro_torch.models.encdec"):
+                 "repro_torch.models.encdec", "repro_torch.common.hw",
+                 "repro_torch.launch.shapes", "repro_torch.sharding",
+                 "repro_torch.sharding.rules", "repro_torch.launch.cost",
+                 "repro_torch.launch.dryrun"):
         assert name in rep["modules"]
     assert rep["bad"] == []
 
@@ -249,6 +252,9 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: dist_launch.main(["--smoke"]),
         lambda: mesh.make_client_mesh(),
         lambda: mesh.make_batch_mesh(),
+        lambda: mesh.make_host_mesh(),
+        lambda: train_steps.build_prefill_step(qwen2),
+        lambda: train_steps.build_serve_step(qwen2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
@@ -271,3 +277,17 @@ def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):
                               text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_dry_run_needs_no_gpu(tmp_path):
+    """The dry run is the one entry point on ``meta``: it runs here, and its
+    record holds the argument bytes, FLOPs and H100 roofline."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               DRYRUN_OUT=str(tmp_path), CUDA_VISIBLE_DEVICES="")
+    subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                    "qwen2-1.5b", "--shape", "decode_32k"], env=env, check=True,
+                   capture_output=True, text=True, timeout=120)
+    rec = json.loads((tmp_path / "qwen2-1.5b__decode_32k__single.json").read_text())
+    assert rec["status"] == "ok" and rec["cost"]["flops"] > 0
+    assert rec["memory"]["argument_bytes_per_device"]["total"] > 0
+    assert rec["roofline"]["bound_by"] in ("bytes", "operations")

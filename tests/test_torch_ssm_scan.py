@@ -129,8 +129,12 @@ def test_wrapper_checks():
         ops.ssm_scan(x, dt, Bm, Cm, A[:8])
     with pytest.raises(ValueError, match="wants"):
         ops.ssm_scan(x[0], dt, Bm, Cm, A)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        ops.ssm_scan(*(t.to("meta") for t in (x, dt, Bm, Cm, A)))
+    # meta tensors (the dry run's) run the plain version on shapes alone
+    before = ops.LAUNCHES
+    y, h = ops.ssm_scan(*(t.to("meta") for t in (x, dt, Bm, Cm, A)),
+                        return_state=True)
+    assert y.is_meta and y.shape == x.shape and y.dtype == x.dtype
+    assert h.is_meta and h.shape == (1, 16, 4) and ops.LAUNCHES == before
     with pytest.raises(ValueError, match="different devices"):
         ops.ssm_scan(x, dt, Bm, Cm, A.to("meta"))
     # the kernel's own checks, which raise before anything reaches the card
