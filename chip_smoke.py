@@ -154,16 +154,37 @@ Phases, each of which raises (exit code != 0) on failure:
      and every MoE call's top-k experts equal; and flash at phi3.5-moe's
      PSGF shape (4, 512, 32/8, 128) against its plain version, timed beside
      ``scaled_dot_product_attention``.
+ 14. the sharded steps' collectives, in two fresh interpreters of this
+     script, one after the other (``--collectives-child``), so that no
+     process group meets another and (a) is timed alone, (b) first: (a)
+     on the card, a one-rank NCCL group and ``make_host_mesh("cuda")`` as
+     a (1, 1) ``DeviceMesh``: qwen2-1.5b's ``train`` step at full width
+     (4 x 2,048, 4 steps) over DTensors laid out by the train rules (the
+     flash wrapper taking them itself) beside the plain step from the
+     same params, the losses within 1e-5, the param delta, the same
+     tensor-core flash launches, ``collective_bytes`` total 0 (every
+     group has one rank), ms per step of each, warm from the second;
+     (b) on this machine's CPU in a ``fake`` process
+     group, every tensor on ``meta``: the dry run's record, with its
+     ``collectives``, of qwen2-72b ``train_4k`` on two pods and phi3.5-moe
+     ``train_4k`` on one pod at full width (one layer recounted under
+     torch's ``CommDebugMode``: the same number of collectives), then
+     ``benchmarks/psgf_dp_comm.py``'s table as the port computes it
+     (qwen2-1.5b's bf16 param tree on (2, 2, 2), ``full_sync`` against
+     ``psgf_sync_static`` at share 0.5 / 0.3 / 0.2: each exactly twice its
+     shared leaves' bytes, all across pods) and PSGF-DP's local step (no
+     collective). Its wall seconds are printed.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
 ...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``,
-``{"zoo_last_families": ...}``, ``{"zoo_moe_vlm_training": ...}``, one
-``{"kernels": [...]}`` line (flash
+``{"zoo_last_families": ...}``, ``{"zoo_moe_vlm_training": ...}``,
+``{"collectives": ...}``, one ``{"kernels": [...]}`` line (flash
 attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
 the standard library and ``repro_torch`` (from ``src/`` beside this file)
-only. With ``--distributed-child DIR`` it is one of phase 10's processes.
+only. With ``--distributed-child DIR`` it is one of phase 10's processes,
+with ``--collectives-child card|accounting DIR`` one of phase 14's.
 """
 from __future__ import annotations
 
@@ -3745,12 +3766,299 @@ def drive_moe_vlm_training(flash_ops, flash_ref, ssm_ops) -> dict:
             "flash_tensor_core": kernel, "flash_launches_training": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the sharded steps' collectives
+# ---------------------------------------------------------------------------
+
+# (a) qwen2-1.5b at full width, phase 9's `train` shape, over the (1, 1) host
+# mesh as DTensors beside the plain step: (batch, seq, steps); the first
+# step warms up, the median of the other three is the warm ms per step
+SHARDED_TRAIN = dict(batch=4, seq=2048, steps=4)
+# the sharded step against the plain one: the same ops on the same shards
+# (every placement of a one-card mesh is whole), so any difference is the
+# order of a reduction; 1e-5 on losses ~10
+SHARDED_LOSS_TOL = 1e-5
+# (b) accounted on this machine's CPU in a fake process group: the
+# reference's perf_iters pair B (qwen2-72b on two pods) and the MoE's
+# all-to-all path (phi3.5-moe on one pod), both train_4k at full width;
+# then benchmarks/psgf_dp_comm.py's table, qwen2-1.5b's bf16 param tree on
+# (2, 2, 2) over ("pod", "data", "model"), pods of 4 ranks
+ACCOUNTED = (("qwen2-72b", "train_4k", True),
+             ("phi3.5-moe-42b-a6.6b", "train_4k", False))
+PSGF_COMM_SHARES = (0.5, 0.3, 0.2)
+PSGF_COMM_FORWARD = 0.2
+PSGF_COMM_DRAWS = range(5)
+PSGF_LOCAL_STEP = dict(pods=2, batch=2, seq=64)
+COLLECTIVES_TIMEOUT_S = 900
+
+
+def sharded_train_child(workdir: str) -> dict:
+    """Phase 14 (a), ``chip_smoke.py --collectives-child card DIR``: a real
+    one-rank NCCL group on ``cuda:0`` and ``make_host_mesh("cuda")`` as a
+    (1, 1) ``DeviceMesh``; qwen2-1.5b's plain ``train`` step and the same
+    step built with ``mesh=`` over DTensors laid out by the train rules,
+    each ``SHARDED_TRAIN["steps"]`` steps from params drawn from
+    ``PRNGKey(0)`` (the same bits both times), run in turn with the first's
+    state moved to the host before the second starts."""
+    src = os.path.join(ROOT, "src")
+    sys.path.insert(0, src)
+    import torch.distributed as dist
+
+    from repro_torch import random as R
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import cost
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.api import distribute_structs
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_train_step, sharded_train_inputs
+    from repro_torch.launch.train import make_batch
+    from repro_torch.optim import Adam, one_cycle
+    from repro_torch.sharding.rules import make_rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        workdir, "store"), rank=0, world_size=1)
+    cfg = get_config("qwen2-1.5b")
+    B, S, steps = (SHARDED_TRAIN[k] for k in ("batch", "seq", "steps"))
+    host = M.make_host_mesh("cuda")
+    dm = M.device_mesh(host, "cuda")
+    optimizer = Adam(lr=one_cycle(3e-4, steps))
+    out, finals = {}, {}
+    for name, mesh in (("plain", None), ("sharded", dm)):
+        free_device_memory()
+        fn, api, _ = build_train_step(cfg, optimizer, "cuda", mesh=mesh)
+        params = api.init_params(R.PRNGKey(0))
+        state = optimizer.init(params)
+        if mesh is not None:
+            p_st, o_st, b_st = sharded_train_inputs(
+                cfg, InputShape("train", S, B, "train"), make_rules(host, "train"),
+                optimizer)
+            params = distribute_structs(p_st, dm, params)
+            state = distribute_structs(o_st, dm, state)
+        flash_ops.reset_launch_counts()
+        losses, step_ms, records = [], [], []
+        for step in range(steps):
+            batch = make_batch(cfg, step, B, S, "cuda")
+            if mesh is not None:
+                batch = distribute_structs(b_st, dm, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cost.counting_collectives() as got:
+                _, _, metrics = fn(params, state, batch)
+            loss = metrics["loss"]
+            loss = float(loss.full_tensor() if mesh is not None else loss)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            records += got
+            losses.append(loss)
+        out[name] = {"losses": losses, "ms_per_step": step_ms,
+                     "warm_ms_per_step": statistics.median(step_ms[1:]),
+                     "flash_route_launches": dict(flash_ops.ROUTE_LAUNCHES),
+                     "flash_launches": flash_ops.LAUNCHES,
+                     "collectives": cost.summarize_collectives(records),
+                     "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        leaves = pt.flatten_with_paths(params)
+        if mesh is None:
+            finals = {p: x.cpu() for p, x in leaves}
+        else:
+            out["max_abs_param_delta"] = max(
+                float((x.full_tensor() - finals[p].cuda()).abs().max())
+                for p, x in leaves)
+        del params, state, leaves
+        torch.cuda.reset_peak_memory_stats()
+    dist.destroy_process_group()
+    return out
+
+
+def accounting_child() -> dict:
+    """Phase 14 (b), ``chip_smoke.py --collectives-child accounting``: on
+    this machine's CPU, every tensor on ``meta``, in the dry run's fake
+    process group (``launch.dryrun.accounting_mesh``): ``account_combo`` of
+    each ``ACCOUNTED`` combo with its ``collectives``; then
+    ``benchmarks/psgf_dp_comm.py``'s table as the port computes it, each
+    sync's ``collective_bytes(pod_size=4)`` beside the wire bytes of its
+    formula, and PSGF-DP's local step on the same mesh."""
+    src = os.path.join(ROOT, "src")
+    sys.path.insert(0, src)
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.configs import get_config
+    from repro_torch.core import psgf_dp as P
+    from repro_torch.launch import cost
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.api import ModelApi, input_structs
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.optim import Adam
+
+    import dataclasses
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shapes import SHAPES, shape_variant
+
+    out = {"combos": {}}
+    for arch, shape, multi in ACCOUNTED:
+        t0 = time.perf_counter()
+        rec = DR.account_combo(arch, shape, multi)
+        coll = rec.get("collectives", {})
+        if "error" in coll or rec["status"] != "ok":
+            raise RuntimeError(f"{arch} x {shape}: {rec.get('status')} "
+                               f"{coll.get('error')}")
+        seconds = time.perf_counter() - t0
+        # one layer once more under torch's own counter: the same ops
+        one = dataclasses.replace(shape_variant(get_config(arch), SHAPES[shape]),
+                                  num_layers=1)
+        with CommDebugMode() as comm:
+            mine = DR.step_collectives(one, SHAPES[shape],
+                                       make_production_mesh(multi_pod=multi))["count"]
+        theirs = sum(comm.get_comm_counts().values())
+        if mine != theirs:
+            raise RuntimeError(f"{arch}: {mine} collectives counted at one layer, "
+                               f"CommDebugMode saw {theirs}")
+        out["combos"][f"{arch}__{shape}__{rec['mesh']}"] = {
+            "mesh_shape": rec["mesh_shape"],
+            "collectives": {k: v for k, v in coll.items() if k != "extrapolated"},
+            "counted_depths": coll["extrapolated"]["depths"],
+            "count_one_layer": mine, "comm_debug_mode_one_layer": theirs,
+            "flops": rec["cost"]["flops"], "seconds": seconds}
+
+    t0 = time.perf_counter()
+    mesh = AbstractMesh(("pod", "data", "model"), (2, 2, 2))
+    dm = DR.accounting_mesh(mesh)
+    cfg = get_config("qwen2-1.5b")
+    api = ModelApi(cfg, "meta")
+    tree = api.abstract_params(torch.bfloat16)
+    pods = 2
+    local = P.stack_for_pods(tree, pods, dm)
+    glob = P.on_mesh(tree, dm)
+    leaf_bytes = [x.numel() * x.element_size() for x in pt.leaves(tree)]
+    table = {}
+    _, _, stats = P.full_sync(local, pods)
+    full = cost.collective_bytes(P.full_sync, local, pods, pod_size=4)
+    if full["all-reduce"] != 2 * sum(leaf_bytes) or full["cross_pod"] != full["total"]:
+        raise RuntimeError(f"full_sync collectives {full}, leaves {sum(leaf_bytes)} B")
+    table["full_sync"] = {"collectives": full, "wire_bytes": stats["wire_bytes"]}
+    for share in PSGF_COMM_SHARES:
+        rng = np.random.default_rng(SEED)
+        s_gates = P.sample_static_gates(rng, tree, share)
+        f_gates = P.sample_static_gates(rng, tree, PSGF_COMM_FORWARD)
+        selected = (True, False)
+        _, _, stats = P.psgf_sync_static(local, glob, s_gates, f_gates, selected)
+        got = cost.collective_bytes(P.psgf_sync_static, local, glob, s_gates,
+                                    f_gates, selected, pod_size=4)
+        shared = sum(b for b, g in zip(leaf_bytes, pt.leaves(s_gates)) if g)
+        if (got.get("all-reduce", 0) != 2 * shared or got["total"] != 2 * shared
+                or got["cross_pod"] != got["total"]):
+            raise RuntimeError(f"psgf_sync_static at {share}: {got}, shared "
+                               f"leaves {shared} B")
+        # the benchmark's mean over its five mask draws (seeds 0-4): the
+        # embedding is ~15% of this model's bytes, so one draw is coarse
+        draws = []
+        for seed in PSGF_COMM_DRAWS:
+            rng = np.random.default_rng(seed)
+            sg = P.sample_static_gates(rng, tree, share)
+            fg = P.sample_static_gates(rng, tree, PSGF_COMM_FORWARD)
+            draws.append(cost.collective_bytes(P.psgf_sync_static, local, glob, sg,
+                                               fg, selected, pod_size=4)["total"])
+        table[f"psgf_r{int(share * 100)}"] = {
+            "collectives": got, "wire_bytes": stats["wire_bytes"],
+            "shared_leaves": sum(map(bool, pt.leaves(s_gates))),
+            "forwarded_leaves": sum(map(bool, pt.leaves(f_gates))),
+            "fraction_of_full": got["total"] / full["total"],
+            "draws_total": draws,
+            "draws_mean_fraction_of_full": statistics.mean(draws) / full["total"]}
+    # the local step: every rank's pods on its own shard, no collective
+    n, b, sq = (PSGF_LOCAL_STEP[k] for k in ("pods", "batch", "seq"))
+    params = P.stack_for_pods(api.abstract_params(), n, dm)
+    optimizer = Adam(lr=lambda t: 1e-4)
+    state = P.init_pod_opt_state(optimizer, params)
+    batch = P.stack_for_pods(input_structs(cfg, InputShape("local", sq, b, "train")),
+                             n, dm)
+    step = P.make_local_train_step(api.loss_fn, optimizer, mesh=dm)
+    local_step = cost.collective_bytes(step, params, state, batch, pod_size=4)
+    if local_step["total"] != 0 or local_step["count"] != 0:
+        raise RuntimeError(f"PSGF-DP's local step issued collectives: {local_step}")
+    out["psgf_dp_comm"] = {"mesh": dict(mesh.shape), "pod_size": 4,
+                           "params": "qwen2-1.5b, bfloat16", "seed": SEED,
+                           "forward_ratio": PSGF_COMM_FORWARD, "table": table,
+                           "local_step": {**local_step, "config": PSGF_LOCAL_STEP},
+                           "seconds": time.perf_counter() - t0}
+    return out
+
+
+def drive_collectives() -> dict:
+    """Phase 14: (b), then (a), each in a fresh interpreter of this script
+    (``--collectives-child``), so that neither process group meets another
+    one or phase 10's, and (a)'s times are taken alone; returns both reports and checks
+    (a): the sharded step's losses within SHARDED_LOSS_TOL of the plain
+    step's, the same tensor-core flash launches (two a layer and step, the
+    forward and its remat recompute), no collective bytes."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(ROOT, "build", "chip_smoke_collectives")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    reports = {}
+    # one after the other: the card child's ms per step is measured with
+    # no CPU-heavy accounting beside it
+    for kind in ("accounting", "card"):
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--collectives-child",
+             kind, workdir], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=COLLECTIVES_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for line in stderr.splitlines()[-12:]:
+            log(f"  [{kind}] {line}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 14 {kind} child exited {proc.returncode}")
+        reports[kind] = json.loads(stdout.strip().splitlines()[-1])
+    card = reports["card"]
+    plain, sharded = card["plain"], card["sharded"]
+    cfg = get_config("qwen2-1.5b")
+    want = cfg.num_layers * (2 if cfg.remat else 1) * SHARDED_TRAIN["steps"]
+    delta = max(abs(a - b) for a, b in zip(plain["losses"], sharded["losses"]))
+    if not (all(math.isfinite(x) for x in sharded["losses"])
+            and delta <= SHARDED_LOSS_TOL):
+        raise RuntimeError(f"sharded step losses {sharded['losses']} vs plain "
+                           f"{plain['losses']}")
+    for name, run in (("plain", plain), ("sharded", sharded)):
+        if run["flash_route_launches"] != {"scalar": 0, "short": 0,
+                                           "tensor_core": want}:
+            raise RuntimeError(f"{name} step flash launches "
+                               f"{run['flash_route_launches']} (want {want})")
+    if sharded["collectives"]["total"] != 0:
+        raise RuntimeError(f"the (1, 1) mesh's step sent bytes: "
+                           f"{sharded['collectives']}")
+    card["max_abs_loss_delta"] = delta
+    return {"card": card_info(), "sharded_train": card,
+            "accounting": reports["accounting"],
+            "flash_launches": sharded["flash_launches"],
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--distributed-child"]:        # phase 10's children
         print(json.dumps(distributed_child(sys.argv[2])))
+        return 0
+    if sys.argv[1:2] == ["--collectives-child"]:        # phase 14's children
+        kind = sys.argv[2]
+        print(json.dumps(sharded_train_child(sys.argv[3]) if kind == "card"
+                         else accounting_child()))
         return 0
     src = os.path.join(ROOT, "src")
     sys.path.insert(0, src)
@@ -3867,6 +4175,14 @@ def main() -> int:
     log(json.dumps({"zoo_moe_vlm_training": moe_vlm}))
     record["launches_zoo_moe_vlm_training"] = moe_vlm["flash_launches_training"]
 
+    # 14. the sharded steps' collectives: the (1, 1) mesh on the card, the
+    # production meshes' accounting on the CPU
+    free_device_memory()
+    collectives = drive_collectives()
+    log(json.dumps({"collectives": collectives}))
+    log(f"phase 14: {collectives['seconds']:.1f} s")
+    record["launches_zoo_sharded_training"] = collectives["flash_launches"]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -3908,6 +4224,8 @@ def main() -> int:
                         "zoo_last_families": last["flash_tensor_core"],
                         "launches_zoo_moe_vlm_training":
                             record["launches_zoo_moe_vlm_training"],
+                        "launches_zoo_sharded_training":
+                            record["launches_zoo_sharded_training"],
                         "zoo_moe_vlm_training": moe_vlm["flash_tensor_core"]},
     }
     k1_record = mix_record.pop("k1_psgf_mix")

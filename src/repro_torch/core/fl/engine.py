@@ -54,7 +54,7 @@ under an initialized group partitions the host store; both run the
 partitioned round of :mod:`repro_torch.core.fl.partition` and equal the
 one-process run bit for bit. ``shard_clients=True`` and a one-process mesh
 on one device are the unsharded run; several GPUs in one process are not
-ported (ROADMAP Queue A 11) and raise.
+ported (ROADMAP Queue A 11 (b)) and raise.
 
 :func:`sync_round` is the train-free gate/aggregate/distribute cycle over
 client-stacked trees that ``core.psgf_dp`` syncs its pods with, under the
@@ -941,7 +941,7 @@ def run_fl(
     those rows, ``history["owned_rows"]`` says which, ``history
     ["exchange"]`` the bytes and seconds of each exchange); on one process
     and one device it is the unsharded run, as is ``shard_clients=True``.
-    Several local GPUs in one process raise (ROADMAP Queue A 11).
+    Several local GPUs in one process raise (ROADMAP Queue A 11 (b)).
 
     ``init_params`` warm-starts from a params tree. ``checkpoint_dir`` saves
     the final global model with ``save_forecaster`` (process 0 alone across
@@ -975,7 +975,7 @@ def run_fl(
         if len(mesh.devices) > 1:
             raise NotImplementedError(
                 f"the client axis over {len(mesh.devices)} local GPUs in one "
-                f"process is not ported (ROADMAP Queue A 11); run one "
+                f"process is not ported (ROADMAP Queue A 11 (b)); run one "
                 f"process per GPU with launch.distributed and "
                 f"make_client_mesh(multi_host=True)")
         if mesh.count > 1:

@@ -21,9 +21,18 @@ the model's size — the paper's Table II/III trade-off as bytes between pods.
 On one card the pods are a leading axis of every leaf: ``local`` holds one
 real copy per pod (:func:`stack_for_pods`), and :func:`make_local_train_step`
 runs one independent step per pod in turn, holding one pod's gradients at a
-time. The reference's point for :func:`psgf_sync_static` — an HLO in which
-unshared leaves make no collective — has no PyTorch meaning here; its gate
-math and byte counts are ported as they are.
+time.
+
+On a mesh with a ``pod`` axis (``launch.mesh.device_mesh``) the pod axis is
+a mesh axis, as in the reference: :func:`stack_for_pods` lays the leading
+pod axis out as ``Shard(0)`` over ``pod`` and :func:`on_mesh` the global
+model as ``Replicate()``. The syncs then sum over the pod axis as the
+reference's ``jnp.sum(..., axis=0)`` does, which is an all-reduce over
+``pod`` (``launch.cost.collective_bytes`` counts it); in
+:func:`psgf_sync_static` a leaf that no pod receives makes no collective
+at all, the reference's point for it. ``make_local_train_step(...,
+mesh=)`` runs each rank's pods on its own shard (``local_map`` over
+``pod``): no collective, as the reference's vmapped step.
 """
 from __future__ import annotations
 
@@ -46,6 +55,45 @@ class PSGFDPConfig:
     sync_interval: int = 8  # local steps between syncs (H)
 
 
+def _over_mesh(tree):
+    """A context for a sync over ``tree``'s leaves: DTensor's
+    ``implicit_replication`` (the gates and masks are plain tensors) when
+    they are DTensors, else nothing."""
+    import contextlib
+
+    from repro_torch.kernels import _sharded
+
+    if not _sharded.any_dtensor(*pt.leaves(tree)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def _laid_as(x, like):
+    """``x`` redistributed to ``like``'s placements when both are DTensors
+    (a whole global leaf written into pod-split local leaves: each rank
+    keeps its pods' part, nothing moves), else ``x``."""
+    from repro_torch.kernels import _sharded
+
+    if (_sharded.any_dtensor(x) and _sharded.any_dtensor(like)
+            and tuple(x.placements) != tuple(like.placements)):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
+def _whole(x):
+    """A DTensor replicated over every mesh dimension (the global model):
+    the pending sum over ``pod`` reduced, an all-reduce. Plain tensors pass."""
+    from repro_torch.kernels import _sharded
+
+    if not _sharded.any_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
+
+
 def psgf_sync(local, global_, key, cfg: PSGFDPConfig, num_pods: int):
     """One PSGF sync round (the engine's sync core).
 
@@ -59,8 +107,12 @@ def psgf_sync(local, global_, key, cfg: PSGFDPConfig, num_pods: int):
             f"num_pods={num_pods} does not match local's pod axis ({leading})")
     policy = pol.LeafPSGF(share_ratio=cfg.share_ratio,
                           forward_ratio=cfg.forward_ratio)
-    with record_function("psgf.sync"):
-        return E.sync_round(local, global_, key, policy, cfg.select_ratio)
+    with record_function("psgf.sync"), _over_mesh(local):
+        new_local, new_global, stats = E.sync_round(local, global_, key, policy,
+                                                    cfg.select_ratio)
+        new_global = pt.tree_map(_whole, new_global)
+        new_local = pt.tree_map(_laid_as, new_local, local)
+    return new_local, new_global, stats
 
 
 def _pod_axis(mask, leaf):
@@ -71,7 +123,8 @@ def psgf_sync_static(local, global_, share_gates, fwd_gates, selected):
     """PSGF sync with host-decided gates: ``share_gates`` / ``fwd_gates``
     are trees of Python bools (the structure of ``global_``), ``selected``
     a sequence of Python bools, one per pod. A leaf that no pod receives is
-    not touched (returned as it is)."""
+    not touched (returned as it is): over pod-split DTensors it makes no
+    collective, and a shared leaf makes one all-reduce over ``pod``."""
     num_pods = len(selected)
     c = max(1, sum(bool(s) for s in selected))
     device = pt.leaves(local)[0].device
@@ -81,20 +134,21 @@ def psgf_sync_static(local, global_, share_gates, fwd_gates, selected):
         if not gs:
             return leaf_global
         w = _pod_axis(sel.to(leaf_local.dtype), leaf_local)
-        return torch.sum(leaf_local * w, dim=0) / c
-
-    new_global = pt.tree_map(agg, local, global_, share_gates)
+        return _whole(torch.sum(leaf_local * w, dim=0) / c)
 
     def dist(leaf_local, leaf_global, gs, gf):
         if not gs and not gf:
             return leaf_local
         if gs and gf:
-            return leaf_global[None].expand(leaf_local.shape).clone()
+            return _laid_as(leaf_global[None].expand(leaf_local.shape).clone(),
+                            leaf_local)
         mask = sel if gs else ~sel
-        return torch.where(_pod_axis(mask, leaf_local), leaf_global[None],
-                           leaf_local)
+        return _laid_as(torch.where(_pod_axis(mask, leaf_local),
+                                    leaf_global[None], leaf_local), leaf_local)
 
-    new_local = pt.tree_map(dist, local, new_global, share_gates, fwd_gates)
+    with _over_mesh(local):
+        new_global = pt.tree_map(agg, local, global_, share_gates)
+        new_local = pt.tree_map(dist, local, new_global, share_gates, fwd_gates)
 
     leaves_g = pt.leaves(global_)
     sb = sum(leaf.numel() * leaf.element_size()
@@ -112,32 +166,69 @@ def sample_static_gates(rng, tree, ratio: float):
 
 
 def full_sync(local, num_pods: int):
-    """Baseline: the mean over pods of ALL parameters, written to every pod."""
-    new_global = pt.tree_map(lambda leaf: torch.mean(leaf, dim=0), local)
-    new_local = pt.tree_map(lambda g, leaf: g[None].expand(leaf.shape).clone(),
-                            new_global, local)
+    """Baseline: the mean over pods of ALL parameters, written to every pod
+    (over pod-split DTensors: an all-reduce of every leaf over ``pod``)."""
+    with _over_mesh(local):
+        new_global = pt.tree_map(lambda leaf: _whole(torch.mean(leaf, dim=0)),
+                                 local)
+        new_local = pt.tree_map(
+            lambda g, leaf: _laid_as(g[None].expand(leaf.shape).clone(), leaf),
+            new_global, local)
     stats = {"wire_bytes": 2.0 * num_pods * pt.tree_size_bytes(new_global)}
     return new_local, new_global, stats
 
 
-def stack_for_pods(tree, num_pods: int):
+def stack_for_pods(tree, num_pods: int, mesh=None):
     """One real copy of the tree per pod, along a new leading pod axis (the
-    pods diverge, so no leaf may be a broadcast view)."""
-    return pt.tree_map(
+    pods diverge, so no leaf may be a broadcast view). With ``mesh`` (a
+    ``DeviceMesh`` with a ``pod`` axis) each leaf is a DTensor split along
+    the pod axis over ``pod`` and whole over the other mesh axes."""
+    stacked = pt.tree_map(
         lambda x: x[None].repeat((num_pods,) + (1,) * x.dim()), tree)
+    if mesh is None:
+        return stacked
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    placements = tuple(Shard(0) if name == "pod" else Replicate()
+                       for name in mesh.mesh_dim_names)
+    if "pod" not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh axes {mesh.mesh_dim_names} have no 'pod'")
+    return pt.tree_map(lambda x: distribute_tensor(x, mesh, placements), stacked)
+
+
+def on_mesh(tree, mesh):
+    """The global model over ``mesh``: every leaf a DTensor whole on every
+    mesh axis (``Replicate()``)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    placements = (Replicate(),) * mesh.ndim
+    return pt.tree_map(lambda x: distribute_tensor(x, mesh, placements), tree)
 
 
 def init_pod_opt_state(optimizer, local):
     """The optimizer's state for pod-stacked params (the reference's
     ``vmap(optimizer.init)``): the moments carry the pod axis, and each pod
     counts its own steps."""
+    first = pt.leaves(local)[0]
+    from repro_torch.kernels import _sharded
+
+    if _sharded.any_dtensor(first):
+        # the moments and counts laid out as the pods: split over ``pod``
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh, placements = first.device_mesh, first.placements
+        zeros = optimizer.init(pt.tree_map(
+            lambda x: torch.empty(x.shape, dtype=x.dtype, device=x.to_local().device),
+            local))
+        zeros["t"] = zeros["t"].expand(first.shape[0]).clone()
+        return pt.tree_map(lambda x: distribute_tensor(x, mesh, placements), zeros)
     state = optimizer.init(local)
-    num_pods = pt.leaves(local)[0].shape[0]
+    num_pods = first.shape[0]
     state["t"] = state["t"].expand(num_pods).clone()
     return state
 
 
-def make_local_train_step(loss_fn, optimizer):
+def make_local_train_step(loss_fn, optimizer, mesh=None):
     """A per-pod local train step over the leading pod axis.
 
     ``loss_fn(params, batch) -> (loss, metrics)``; ``optimizer`` from
@@ -147,7 +238,45 @@ def make_local_train_step(loss_fn, optimizer):
     results into ``stacked_params`` and ``stacked_opt`` (which it returns):
     the pods stay independent, as the reference's ``vmap``, and one pod's
     gradients are held at a time.
+
+    With ``mesh``, the stacked trees are DTensors split over ``pod`` (see
+    :func:`stack_for_pods`; the optimizer state and batch laid out alike)
+    and each rank runs that step on its own pods' shards through
+    ``local_map``: no collective. Indexing a pod of the split axis on the
+    DTensors would gather it, so the loop runs only inside.
     """
+    step = _local_train_step(loss_fn, optimizer)
+    if mesh is None:
+        return step
+    from torch.distributed.tensor.experimental import local_map
+
+    def sharded(stacked_params, stacked_opt, stacked_batch):
+        trees = (stacked_params, stacked_opt, stacked_batch)
+        leaves = [pt.leaves(t) for t in trees]
+        flat = [x for ls in leaves for x in ls]
+        sizes = [len(ls) for ls in leaves]
+
+        def local(*xs):
+            parts, at = [], 0
+            for tree, n in zip(trees, sizes):
+                parts.append(pt.unflatten(
+                    [(path, x) for (path, _), x in
+                     zip(pt.flatten_with_paths(tree), xs[at:at + n])]))
+                at += n
+            _, _, losses = step(*parts)
+            return losses
+
+        pod_split = tuple(flat[0].placements)
+        losses = local_map(local, out_placements=list(pod_split),
+                           in_placements=tuple(tuple(x.placements) for x in flat),
+                           device_mesh=mesh)(*flat)
+        return stacked_params, stacked_opt, losses
+
+    return sharded
+
+
+def _local_train_step(loss_fn, optimizer):
+    """:func:`make_local_train_step` on one device: a loop over the pods."""
 
     def step(stacked_params, stacked_opt, stacked_batch):
         num_pods = pt.leaves(stacked_params)[0].shape[0]

@@ -153,7 +153,7 @@ class ExperimentSpec:
     the stop on the device) or ``"host"`` (the client state in pinned host
     memory; needs ``streaming_windows``). ``shard_clients`` passes through
     to ``run_fl``: on one device it is the unsharded run, several local GPUs
-    in one process raise (ROADMAP Queue A 11)."""
+    in one process raise (ROADMAP Queue A 11 (b))."""
 
     task: ForecastTask
     model: Forecaster

@@ -19,7 +19,12 @@
   * CPU tensors run the plain PyTorch version (:mod:`.ref`), the same
     function computed densely; ``meta`` tensors (the dry run's,
     ``launch.dryrun``) run it on shapes alone under the kernel's autograd,
-    and nothing launches.
+    and nothing launches;
+  * DTensors (a step over a mesh, ``launch.steps``) run one of the above on
+    each rank's local shards when the batch, or the heads (q heads and kv
+    heads alike, or one kv head for all), are what is sharded; a sharded
+    sequence or head dim is first made whole, a counted collective
+    (``kernels._sharded``).
 
 Differentiation is the reference's design (``ops.py:47-65`` there): a
 ``torch.autograd.Function`` whose forward is the kernel and whose backward is
@@ -46,7 +51,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _sharded
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_ref_backward)
 
@@ -264,9 +269,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, kv_len=None):
     ``kv_len`` (default ``Skv``) masks keys at or past it; ``window`` keeps
     keys with ``k > q - window``; ``causal`` keeps ``k <= q``."""
     _check_shapes(q, k, v, kv_len)
+    if _sharded.any_dtensor(q, k, v):
+        return _flash_attention_sharded(q, k, v, causal, window, kv_len)
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    kv_len=kv_len)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on CUDA, CPU or meta tensors, not {q.device}")
     return _FlashAttention.apply(q, k, v, causal, window, kv_len)
+
+
+def _flash_attention_sharded(q, k, v, causal, window, kv_len):
+    """:func:`flash_attention` over DTensors, on each rank's shards
+    (``_sharded.attention_layouts``: a batch split, or a head split with
+    the kv heads split alike or one kv head for all, stays local; any
+    other split is made whole first)."""
+    def local(ql, kl, vl):
+        return flash_attention(ql, kl, vl, causal=causal, window=window,
+                               kv_len=kv_len)
+
+    return _sharded.attention_local(local, q, k, v)

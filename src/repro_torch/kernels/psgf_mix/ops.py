@@ -9,7 +9,10 @@ count.
     (``repro_torch/csrc/psgf_mix.cu``, built at first use): float32,
     contiguous, one device. Anything else RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`), and so do
-    ``meta`` tensors (the dry run's, ``launch.dryrun``: shapes alone).
+    ``meta`` tensors (the dry run's, ``launch.dryrun``: shapes alone);
+  * DTensors run one of the above on each rank's shards when the rows or
+    D are split (the count then a pending sum over those mesh dimensions);
+    any other split is made whole first (``kernels._sharded``).
 
 Replaces ``src/repro/kernels/psgf_mix/kernel.py::psgf_mix_batch_kernel``
 (``pallas_call`` at kernel.py:76) and ``::psgf_mix_kernel`` (kernel.py:39);
@@ -44,7 +47,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _sharded
 from repro_torch.kernels.psgf_mix.ref import psgf_mix_batch_ref, psgf_mix_ref
 
 LAUNCHES = 0
@@ -159,6 +162,8 @@ def psgf_mix_batch(w_global, w_clients, mask):
         raise ValueError(f"psgf_mix_batch wants w_global (D,), w_clients and "
                          f"mask (K, D); got {tuple(w_global.shape)}, "
                          f"{tuple(w_clients.shape)}, {tuple(mask.shape)}")
+    if _sharded.any_dtensor(w_global, w_clients, mask):
+        return _mix_sharded(psgf_mix_batch, w_global, w_clients, mask)
     out = _dispatch(w_global, w_clients, mask, psgf_mix_batch_ref)
     return out if out is not None else _launch(w_global, w_clients, mask)
 
@@ -170,9 +175,40 @@ def psgf_mix(w_global, w_local, mask):
         raise ValueError(f"psgf_mix wants three (D,) tensors; got "
                          f"{tuple(w_global.shape)}, {tuple(w_local.shape)}, "
                          f"{tuple(mask.shape)}")
+    if _sharded.any_dtensor(w_global, w_local, mask):
+        return _mix_sharded(psgf_mix, w_global, w_local, mask)
     out = _dispatch(w_global, w_local, mask, psgf_mix_ref)
     if out is not None:
         return out
     mixed, count = _launch(w_global, w_local[None, :], mask[None, :],
                            single=True)
     return mixed[0], count
+
+
+def _mix_sharded(wrapper, w_global, w_rows, mask):
+    """``wrapper`` (:func:`psgf_mix_batch` or :func:`psgf_mix`) over
+    DTensors, on each rank's shards: per mesh dimension of ``w_rows``'s
+    placements, a split of the rows (``psgf_mix_batch``'s K) or of D stays
+    local (``w_global`` split alike along D, whole for rows, its gradient
+    then a sum over the ranks), and the count becomes a pending sum there;
+    anything else is made whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = _sharded.mesh_of(w_global, w_rows, mask)
+    d_dim = w_rows.dim() - 1
+    wpl = (w_rows.placements if isinstance(w_rows, DTensor)
+           else (Replicate(),) * mesh.ndim)
+    g, g_grad, w, c = [], [], [], []
+    for i, p in enumerate(wpl):
+        n = mesh.size(i)
+        if d_dim == 1 and p.is_shard(0) and w_rows.shape[0] % n == 0:
+            row = (Replicate(), Partial(), Shard(0), Partial())
+        elif p.is_shard(d_dim) and w_rows.shape[d_dim] % n == 0:
+            row = (Shard(0), Shard(0), Shard(d_dim), Partial())
+        else:
+            row = (Replicate(),) * 4
+        for lst, pl in zip((g, g_grad, w, c), row):
+            lst.append(pl)
+    g, g_grad, w, c = map(tuple, (g, g_grad, w, c))
+    return _sharded.run_local(wrapper, mesh, (w_global, w_rows, mask),
+                              (g, w, w), (w, c), (g_grad, w, w))

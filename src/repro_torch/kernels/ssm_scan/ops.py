@@ -40,7 +40,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _sharded
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref, ssm_scan_ref_backward
 
 STATE_DIMS = (4, 8, 16, 32, 64)
@@ -141,6 +141,8 @@ def ssm_scan(x, dt, Bm, Cm, A, *, return_state=False):
     x.dtype; with ``return_state`` also the final state h (B, D, N) float32
     (zeros for S = 0)."""
     _check_shapes(x, dt, Bm, Cm, A)
+    if _sharded.any_dtensor(x, dt, Bm, Cm, A):
+        return _ssm_scan_sharded(x, dt, Bm, Cm, A, return_state)
     devices = {t.device for t in (x, dt, Bm, Cm, A)}
     if len(devices) != 1:
         raise ValueError(f"ssm_scan: tensors on different devices: {devices}")
@@ -150,3 +152,39 @@ def ssm_scan(x, dt, Bm, Cm, A, *, return_state=False):
     if device.type not in ("cuda", "meta"):
         raise ValueError(f"ssm_scan runs on CUDA, CPU or meta tensors, not {device}")
     return _SsmScan.apply(x, dt, Bm, Cm, A, return_state)
+
+
+def _ssm_scan_sharded(x, dt, Bm, Cm, A, return_state):
+    """:func:`ssm_scan` over DTensors, on each rank's shards (the
+    wrapper's own dispatch inside): per mesh dimension of ``x``'s
+    placements, a batch split stays local (dt, Bm, Cm split alike, A
+    whole), and so does a channel split (dt and A's rows alike, Bm and Cm
+    whole); a sequence split is made whole first (``kernels._sharded``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = _sharded.mesh_of(x, dt, Bm, Cm, A)
+    Bsz, _, D = x.shape
+    xpl = x.placements if isinstance(x, DTensor) else (Replicate(),) * mesh.ndim
+    xd, bc, a, y, h, bc_grad, a_grad = [], [], [], [], [], [], []
+    for i, p in enumerate(xpl):
+        n = mesh.size(i)
+        # a whole input used by every rank's part gets a summed gradient
+        if p.is_shard(0) and Bsz % n == 0:
+            row = (Shard(0), Shard(0), Replicate(), Shard(0), Shard(0),
+                   Shard(0), Partial())
+        elif p.is_shard(2) and D % n == 0:
+            row = (Shard(2), Replicate(), Shard(0), Shard(2), Shard(1),
+                   Partial(), Shard(0))
+        else:
+            row = (Replicate(),) * 7
+        for lst, pl in zip((xd, bc, a, y, h, bc_grad, a_grad), row):
+            lst.append(pl)
+    xd, bc, a, y, h, bc_grad, a_grad = map(tuple, (xd, bc, a, y, h, bc_grad,
+                                                   a_grad))
+
+    def local(xl, dtl, bl, cl, al):
+        return ssm_scan(xl, dtl, bl, cl, al, return_state=return_state)
+
+    return _sharded.run_local(local, mesh, (x, dt, Bm, Cm, A),
+                              (xd, xd, bc, bc, a), (y, h) if return_state else y,
+                              (xd, xd, bc_grad, bc_grad, a_grad))

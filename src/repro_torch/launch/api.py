@@ -7,7 +7,9 @@ sharded inputs of each (config, shape) for the dry run.
 Where the reference builds ``jax.ShapeDtypeStruct``s, the port builds
 ``meta`` tensors (shape and dtype, no storage), and a sharded input is a
 :class:`ShardedStruct`: the meta tensor with its spec and per-device shape
-from ``sharding.rules``, which one card records and does not apply.
+from ``sharding.rules``. :func:`distribute_structs` lays a tree of them out
+as DTensors over a ``DeviceMesh`` (``launch.mesh.device_mesh``): meta
+shards for accounting, or real values on the card.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch.shapes import InputShape
 from repro_torch.models import decoder, encdec
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import ShardingRules, logical_to_sharding
+from repro_torch.sharding.rules import (ShardingRules, logical_to_sharding,
+                                        spec_to_placements)
 
 
 def model_module(cfg: ModelConfig):
@@ -122,6 +125,28 @@ class ShardedStruct:
     def shard_nbytes(self) -> int:
         return math.prod(self.shard_shape) * self.value.element_size()
 
+    def placements(self, device_mesh) -> tuple:
+        """The spec as DTensor placements on ``device_mesh``."""
+        return spec_to_placements(self.spec, device_mesh)
+
+    def to_dtensor(self, device_mesh, value: Optional[torch.Tensor] = None):
+        """A DTensor over ``device_mesh`` laid out by the spec: without
+        ``value``, a meta shard of :attr:`shard_shape` on this rank (no
+        storage, no data moved); with ``value`` (the whole tensor, on the
+        mesh's device), ``distribute_tensor`` of it."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        placements = self.placements(device_mesh)
+        if value is not None:
+            if tuple(value.shape) != tuple(self.shape):
+                raise ValueError(f"value {tuple(value.shape)} is not the "
+                                 f"struct's {tuple(self.shape)}")
+            return distribute_tensor(value, device_mesh, placements)
+        local = torch.empty(self.shard_shape, dtype=self.dtype, device="meta")
+        return DTensor.from_local(local, device_mesh, placements,
+                                  run_check=False, shape=self.value.shape,
+                                  stride=self.value.stride())
+
 
 # ---------------------------------------------------------------------------
 # Abstract inputs per (cfg, shape)
@@ -178,6 +203,25 @@ def with_shardings(structs, shardings):
     """Each meta tensor of ``structs`` as a :class:`ShardedStruct` with its
     ``(spec, shard shape)`` from the matching leaf of ``shardings``."""
     return pt.tree_map(lambda s, sh: ShardedStruct(s, *sh), structs, shardings)
+
+
+def distribute_structs(tree, device_mesh, values=None):
+    """Each :class:`ShardedStruct` of ``tree`` as a DTensor over
+    ``device_mesh`` (:meth:`ShardedStruct.to_dtensor`): meta shards, or with
+    ``values`` (a tree of whole tensors of the same structure) those values
+    laid out by the specs. Leaves that are not ``ShardedStruct``s (a decode
+    step's ``pos``) pass through."""
+    def one(s, v=None):
+        return s.to_dtensor(device_mesh, v) if isinstance(s, ShardedStruct) else s
+
+    if values is None:
+        return pt.tree_map(one, tree, is_leaf=_is_struct)
+    # the values' structure leads: a params tree drops empty subtrees
+    return pt.tree_map(lambda v, s: one(s, v), values, tree)
+
+
+def _is_struct(x) -> bool:
+    return isinstance(x, ShardedStruct)
 
 
 def shard_structs(structs, axes_tree, rules: ShardingRules):

@@ -22,6 +22,15 @@ that does not default to the card. A record (:func:`account_combo`) holds:
   * ``roofline``: seconds per device against ``common.hw``'s H100 peaks,
     the FLOPs at the bf16 tensor-core rate and the argument bytes (each read
     once) at the HBM rate, and which of the two bounds it;
+  * ``collectives``: the reference's ``collective_bytes`` dict of the step
+    on the production mesh (``launch.cost.collective_bytes``, with
+    ``cross_pod`` on two pods of 256 ranks): the step runs over
+    DTensors laid out by the rules on a ``fake`` process group of 512 ranks
+    (``launch.mesh.accounting_group``, opened once per process), so the
+    bytes are DTensor's choice of collectives, not XLA's, and differ
+    between torch versions (``torch`` names the one that counted them).
+    Where a step cannot run there, ``collectives`` holds the ``error`` and
+    the op;
   * ``dropped_shardings``.
 
 The kernel wrappers run their plain versions' arithmetic on meta tensors:
@@ -33,13 +42,16 @@ identical layers (the reference's roofline extrapolates over depth too).
 Where a pass loops over positions in Python (the xLSTM cells, the plain
 ssm_scan), it is counted at three short lengths as well and extrapolated
 as a quadratic in length (attention's S x S term); such a record says
-``extrapolated``.
+``extrapolated``. The collectives are counted and fitted the same way,
+each of their numbers on its own (the decoders hold every layer's input to
+one layout, so each layer issues the same collectives), a looped family's
+at :data:`COLLECTIVE_LENGTHS`.
 
 Dropped from the reference: its first lines, which set ``XLA_FLAGS`` for
-512 placeholder host devices (the meshes here are abstract), its
-``lower_s`` / ``compile_s`` (there is no XLA compile), the compiled
-``memory_analysis`` (replaced by the argument bytes and the peak estimate)
-and the HLO's collective bytes (``launch.cost`` says why).
+512 placeholder host devices (the fake process group plays them), its
+``lower_s`` / ``compile_s`` (there is no XLA compile) and the compiled
+``memory_analysis`` (replaced by the argument bytes and the peak
+estimate).
 """
 from __future__ import annotations
 
@@ -57,7 +69,7 @@ import torch
 from repro_torch.common import hw
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch import cost
-from repro_torch.launch.api import input_structs
+from repro_torch.launch.api import distribute_structs, input_structs
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shapes import SHAPES, InputShape, shape_supported, shape_variant
 from repro_torch.launch.steps import (abstract_opt_state, build_prefill_step,
@@ -77,6 +89,11 @@ LOOPED_FAMILIES = ("ssm", "hybrid")
 # the depths and lengths a count is extrapolated from
 COUNT_DEPTHS = (1, 2)
 COUNT_LENGTHS = (16, 32, 48)
+# the lengths a looped family's collectives are counted at: from 32 tokens
+# on each layer issues the same collectives with bytes linear in the length
+# (hymba-1.5b train_4k on 16 x 16: 93 at 32 to 192 tokens), where at 16 a
+# sequence as short as a mesh axis gets others (103)
+COLLECTIVE_LENGTHS = (64, 128, 192)
 FLOPS_NOTE = ("matmul FLOPs of the plain versions: flash attention's full "
               "S x S products (the kernel skips masked blocks); a train step "
               "includes its backward and the remat recompute")
@@ -108,10 +125,10 @@ def step_flops(cfg: ModelConfig, shape: InputShape) -> int:
         args = (api.abstract_params(), abstract_opt_state(api, optimizer),
                 input_structs(cfg, shape))
     elif shape.kind == "prefill":
-        fn, api = build_prefill_step(cfg, "meta")
+        fn, api, _ = build_prefill_step(cfg, "meta")
         args = (api.abstract_params(torch.bfloat16), input_structs(cfg, shape))
     else:
-        fn, api = build_serve_step(cfg, "meta")
+        fn, api, _ = build_serve_step(cfg, "meta")
         rest = input_structs(cfg, shape)
         args = (api.abstract_params(torch.bfloat16), rest["cache"], rest["token"],
                 shape.seq_len - 1)
@@ -142,30 +159,115 @@ def _basis(depths, length):
     return [t * length ** j for j in range(3) for t in lin]
 
 
-def extrapolated_flops(cfg: ModelConfig, shape: InputShape, lengths=None):
-    """``(flops, points)``: :func:`step_flops` at depth 1 and with each depth
-    field at 2, and, given ``lengths`` (three), at each of those sequence
-    lengths; the exact fit of ``(1 + depths) x (1, S, S^2)`` through them,
-    evaluated at ``cfg``'s depths and ``shape.seq_len``."""
+def _extrapolate(cfg: ModelConfig, shape: InputShape, lengths, count, nest=None):
+    """``count(cfg', shape')`` (a dict of integers) at depth 1 and with each
+    depth field at 2, and, given ``lengths`` (three), at each of those
+    sequence lengths; each key's exact fit of ``(1 + depths) x (1, S,
+    S^2)`` through them, evaluated at ``cfg``'s depths and
+    ``shape.seq_len``. Returns ``(fitted, points)``, each point's counts
+    under ``nest`` (or merged into it)."""
     fields = _depth_fields(cfg)
     depth_points = [(COUNT_DEPTHS[0],) * len(fields)] + [
         tuple(COUNT_DEPTHS[1] if i == j else COUNT_DEPTHS[0]
               for i in range(len(fields))) for j in range(len(fields))]
-    points, rows, rhs = [], [], []
+    points, rows, counted = [], [], []
     for length in (lengths or (None,)):
         at = shape if length is None else dataclasses.replace(shape, seq_len=length)
         for depths in depth_points:
-            flops = step_flops(_at_depths(cfg, depths), at)
-            points.append({"depths": dict(zip(fields, depths)),
-                           "seq_len": at.seq_len, "flops": flops})
+            got = count(_at_depths(cfg, depths), at)
+            point = {"depths": dict(zip(fields, depths)), "seq_len": at.seq_len}
+            point.update({nest: got} if nest else got)
+            points.append(point)
             rows.append(_basis(depths, length))
-            rhs.append(flops)
-    coef = _solve(rows, rhs)
+            counted.append(got)
     target = _basis(_depths(cfg), None if lengths is None else shape.seq_len)
-    value = sum(c * t for c, t in zip(coef, target))
-    if value.denominator != 1:
-        raise ArithmeticError(f"extrapolated FLOPs {value} are not an integer")
-    return int(value), points
+    keys = sorted({k for got in counted for k in got})
+    fitted = {}
+    for key in keys:
+        value = sum(c * t for c, t in zip(
+            _solve(rows, [int(got.get(key, 0)) for got in counted]), target))
+        if value.denominator != 1:
+            raise ArithmeticError(f"extrapolated {key} {value} is not an integer")
+        fitted[key] = int(value)
+    return fitted, points
+
+
+def extrapolated_flops(cfg: ModelConfig, shape: InputShape, lengths=None):
+    """``(flops, points)``: :func:`step_flops` extrapolated over depth (and,
+    given ``lengths``, over length) by :func:`_extrapolate`."""
+    fitted, points = _extrapolate(
+        cfg, shape, lengths, lambda c, s: {"flops": step_flops(c, s)})
+    return fitted["flops"], points
+
+
+# the production meshes' largest size: the accounting group's world
+ACCOUNTING_WORLD = 512
+_ACCOUNTING = {}
+
+
+def accounting_mesh(mesh):
+    """``mesh`` (an ``AbstractMesh`` of at most :data:`ACCOUNTING_WORLD`
+    ranks) as a ``DeviceMesh`` on the accounting group
+    (``launch.mesh.accounting_group``), which the first call opens for the
+    rest of the process."""
+    import atexit
+    import contextlib
+
+    from repro_torch.launch import mesh as M
+
+    if "stack" not in _ACCOUNTING:
+        stack = contextlib.ExitStack()
+        stack.enter_context(M.accounting_group(ACCOUNTING_WORLD))
+        atexit.register(stack.close)
+        _ACCOUNTING["stack"] = stack
+    key = (mesh.axis_names, mesh.axis_sizes)
+    if key not in _ACCOUNTING:
+        _ACCOUNTING[key] = M.device_mesh(mesh)
+    return _ACCOUNTING[key]
+
+
+def step_collectives(cfg: ModelConfig, shape: InputShape, mesh) -> dict:
+    """The reference's ``collective_bytes`` dict of one step of
+    ``shape.kind`` for ``cfg`` on ``mesh`` (an ``AbstractMesh``), counted
+    directly: the step over DTensors laid out by the train or serve rules,
+    on the accounting group; ``cross_pod`` when the mesh has a ``pod``
+    axis (a pod being the ranks of one ``pod`` index)."""
+    dm = accounting_mesh(mesh)
+    if shape.kind == "train":
+        optimizer = make_optimizer(cfg)
+        fn, api, _ = build_train_step(cfg, optimizer, "meta", mesh=dm)
+        args = sharded_train_inputs(cfg, shape, make_rules(mesh, "train"), optimizer)
+    elif shape.kind == "prefill":
+        fn, api, rules = build_prefill_step(cfg, "meta", mesh=dm)
+        args = sharded_serve_inputs(cfg, shape, rules)
+    else:
+        fn, api, rules = build_serve_step(cfg, "meta", mesh=dm)
+        params, rest = sharded_serve_inputs(cfg, shape, rules)
+        args = (params, rest["cache"], rest["token"], shape.seq_len - 1)
+    args = tuple(a if isinstance(a, int) else distribute_structs(a, dm)
+                 for a in args)
+    pod_size = mesh.size // mesh.shape["pod"] if "pod" in mesh.shape else None
+    with torch.set_grad_enabled(shape.kind == "train"):
+        return cost.collective_bytes(fn, *args, pod_size=pod_size)
+
+
+@functools.lru_cache(maxsize=None)
+def count_collectives(cfg: ModelConfig, shape: InputShape, mesh) -> dict:
+    """:func:`step_collectives` extrapolated over depth (and for a looped
+    family's train / prefill step over length, at
+    :data:`COLLECTIVE_LENGTHS`) as :func:`count_flops` does, each number
+    fitted on its own; ``extrapolated`` lists the counted points."""
+    looped = shape.kind != "decode" and cfg.family in LOOPED_FAMILIES
+    lengths = COLLECTIVE_LENGTHS if looped else None
+    fitted, points = _extrapolate(
+        cfg, shape, lengths, lambda c, s: step_collectives(c, s, mesh),
+        nest="collectives")
+    out = {k: v for k, v in fitted.items()
+           if v or k in ("total", "count", "cross_pod")}
+    out["extrapolated"] = {"depths": list(COUNT_DEPTHS), "points": points}
+    if looped:
+        out["extrapolated"]["lengths"] = list(lengths)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,10 +333,16 @@ def one_device_peak(cfg: ModelConfig, batch: int, seq: int, pods: int = 1) -> di
 
 
 def account_combo(arch_id: str, shape_name: str, multi_pod: bool,
-                  cfg_override=None, peak: bool = False) -> dict:
+                  cfg_override=None, peak: bool = False,
+                  collectives: bool = True) -> dict:
     """Account one combo on the production mesh; returns the record. With
     ``peak``, a train shape's record also holds one device's estimated peak
-    for the whole step (the whole model and global batch on one card)."""
+    for the whole step (the whole model and global batch on one card).
+    ``collectives`` (default) counts the step's collectives on the
+    accounting group (:func:`count_collectives`), which this process then
+    holds as its default process group; where the step cannot run over
+    DTensors the record's ``collectives`` is ``{"error": ...}`` naming the
+    op, and its status stays ``ok``."""
     shape = SHAPES[shape_name]
     cfg = cfg_override or get_config(arch_id)
     mesh_name = "multi" if multi_pod else "single"
@@ -262,7 +370,7 @@ def account_combo(arch_id: str, shape_name: str, multi_pod: bool,
     chips = mesh.size
     per_device = counted["flops"] / chips
     arg_bytes = memory["argument_bytes_per_device"]["total"]
-    return {
+    rec = {
         "arch": arch_id, "shape": shape_name, "mesh": mesh_name,
         "mesh_shape": dict(mesh.shape), "status": "ok", "kind": shape.kind,
         "memory": memory,
@@ -271,6 +379,15 @@ def account_combo(arch_id: str, shape_name: str, multi_pod: bool,
         "roofline": {**roofline(per_device, arg_bytes), "hw": "H100 SXM"},
         "dropped_shardings": sorted(str(d) for d in rules.dropped),
     }
+    if collectives:
+        try:
+            counted = dict(count_collectives(cfg, shape, mesh))
+        except Exception as e:  # noqa: BLE001  (recorded: the op DTensor could not place)
+            traceback.print_exc()
+            counted = {"error": f"{type(e).__name__}: {e}"[:2000]}
+        # DTensor's choice of collectives differs between torch versions
+        rec["collectives"] = dict(counted, torch=torch.__version__)
+    return rec
 
 
 def save(rec) -> str:

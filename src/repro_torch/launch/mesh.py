@@ -13,8 +13,8 @@ ownership along the axis is ``launch.distributed.block_range``.
   * :func:`make_batch_mesh` — serving's batch axis over the local devices.
 
 On one local device either is the unsharded path, as in the reference.
-Several GPUs in one process are not ported (ROADMAP Queue A 11: ``run_fl``
-and ``ForecastServer(shard_batch=True)`` raise).
+Several GPUs in one process are not ported (ROADMAP Queue A 11 (b):
+``run_fl`` and ``ForecastServer(shard_batch=True)`` raise).
 
 The zoo's meshes are :class:`AbstractMesh`es: named axes and their sizes,
 all that ``sharding.rules`` reads.
@@ -26,9 +26,20 @@ all that ``sharding.rules`` reads.
     that the rules and the accounting agree with the reference's;
   * :func:`make_host_mesh` — the same over this process's local devices,
     ``(1, 1)`` on one card, where every shard shape is the whole shape.
+
+:func:`device_mesh` lays an :class:`AbstractMesh` out as a
+``torch.distributed`` ``DeviceMesh`` with the same axis names and sizes,
+rank ``r`` at the row-major place ``r`` (the reference's device order), so
+that DTensor placements (``sharding.rules.spec_to_placements``) can carry
+the specs. It needs a default process group of at least ``mesh.size``
+ranks: a real one on devices (one rank on one card: the ``(1, 1)`` host
+mesh), or for accounting :func:`accounting_group`, one process playing
+rank 0 of a ``fake`` group in which no collective moves data (the
+reference's dry run lowers on 512 placeholder CPU devices the same way).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from collections import OrderedDict
@@ -125,3 +136,52 @@ def make_batch_mesh(axis: str = "batch", device=DEFAULT_DEVICE) -> Mesh:
     """Serving's batch mesh over this process's local devices (every local
     GPU for ``"cuda"``)."""
     return Mesh(axis, _local_devices(device))
+
+
+@contextlib.contextmanager
+def accounting_group(world_size: int):
+    """A ``fake`` default process group of ``world_size`` ranks with this
+    process as rank 0, destroyed on exit: DTensors over a
+    :func:`device_mesh` on it run every op on rank 0's shards and issue
+    the collectives a real mesh would, which move no data
+    (``launch.cost.collective_bytes`` counts them). Raises if a default
+    group exists already, so it never replaces a real one.
+
+    The ``fake`` backend is registered by importing
+    ``torch.testing._internal.distributed.fake_pg`` and by nothing public:
+    ``init_process_group("fake", ...)`` fails ("Unknown c10d backend type")
+    until that module has been imported."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import fake_pg
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            "accounting_group: a default process group exists already "
+            f"(backend {dist.get_backend()!r}, world {dist.get_world_size()}); "
+            "the accounting group never replaces one")
+    dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def device_mesh(mesh: AbstractMesh, device_type: str = "cpu"):
+    """``mesh`` as a ``DeviceMesh`` of ``device_type`` over the default
+    process group: the same axis names and sizes, ranks ``0 ..
+    mesh.size - 1`` in row-major order. ``"cpu"`` under
+    :func:`accounting_group` for accounting; on devices the group's own
+    type (``"cuda"`` for ``make_host_mesh("cuda")`` under a one-rank
+    NCCL group)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs a default process group "
+                           "(accounting_group, or launch.distributed)")
+    if dist.get_world_size() < mesh.size:
+        raise ValueError(f"a {mesh.axis_sizes} mesh needs {mesh.size} ranks; "
+                         f"the default group has {dist.get_world_size()}")
+    ranks = torch.arange(mesh.size).reshape(mesh.axis_sizes)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=mesh.axis_names)

@@ -8,8 +8,8 @@ Usage (any arch of ``configs.ARCH_IDS``):
       --no-reduced --device cuda --batch 4 --prompt-len 2048 --gen 32
 
 The prefill and decode steps come from ``launch.steps.build_prefill_step``
-/ ``build_serve_step``, as the reference's do; one card needs no mesh, so
-they take none. Weights are float32
+/ ``build_serve_step``, as the reference's do, without a mesh: one card
+runs the whole model. Weights are float32
 from ``PRNGKey(0)`` (as the reference's ``serve``), activations in the
 config's type; the prompt is ``synthetic_tokens(0, ...)``. A ``vlm`` model
 gets ``0.1 * normal(PRNGKey(0))`` patch embeddings (B, num_patches, d) in
@@ -51,8 +51,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    prefill_fn, api = build_prefill_step(cfg, dev)
-    serve_fn, _ = build_serve_step(cfg, dev)
+    prefill_fn, api, _ = build_prefill_step(cfg, dev)
+    serve_fn, _, _ = build_serve_step(cfg, dev)
 
     t0 = time.perf_counter()
     params = api.init_params(R.PRNGKey(0))

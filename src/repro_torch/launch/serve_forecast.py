@@ -39,7 +39,7 @@ The server's ``device`` defaults to ``"cuda"`` and raises without a GPU
 unless the caller passes ``device="cpu"``. With ``use_flash_attn=True``
 checkpoints the attention block runs the CUDA flash-attention kernel, one
 launch per bucket forward for LoGTST. Sharding a bucket over several GPUs
-(``shard_batch=True``) is not ported (ROADMAP Queue A 11); across processes,
+(``shard_batch=True``) is not ported (ROADMAP Queue A 11 (b)); across processes,
 ``from_manifest(process_shard=...)`` restores each process's own clusters.
 
 Manifest format: see ``repro_torch.core.tasks.write_routing_manifest``.
@@ -255,7 +255,7 @@ class ForecastServer:
         if shard_batch:
             raise NotImplementedError(
                 "shard_batch=True (a bucket's batch axis over several GPUs in "
-                "one process) is not ported: ROADMAP Queue A 11")
+                "one process) is not ported: ROADMAP Queue A 11 (b)")
         if process_shard is not None:
             idx, cnt = int(process_shard[0]), int(process_shard[1])
             if not (cnt >= 1 and 0 <= idx < cnt):

@@ -3,13 +3,17 @@ optimizer, the train step, the prefill and decode (serve) steps, the
 shardings of params and optimizer state, and the abstract sharded inputs of
 the dry run (``launch.dryrun``).
 
-The reference jits each step with explicit shardings for a mesh. One card
-runs the whole model, so the prefill and decode builders take no mesh: the
-specs of ``sharding.rules`` are recorded (``param_shardings``,
-``sharded_*_inputs``), not applied. Laying them out as DTensor placements
-over a real ``DeviceMesh``, with the reference's ``context_parallel`` and
-rule overrides of the serve step, needs several GPUs in one process
-(ROADMAP Queue A 11).
+The reference jits each step with explicit shardings for a mesh. Here a
+builder given a ``DeviceMesh`` (``launch.mesh.device_mesh``) returns a step
+over DTensors: it takes the inputs that ``sharded_*_inputs`` and
+``launch.api.distribute_structs`` lay out by the rules' specs, runs the
+model's ops under DTensor's sharding rules (a plain tensor meets them as a
+replicated one: ``implicit_replication``, here and nowhere else), and
+issues the collectives they need: on a ``fake`` group they are counted
+(``launch.cost.collective_bytes``), on the card they run. Without a mesh
+each builder returns the one-card step, unchanged. Several GPUs in one
+process are not ported (ROADMAP Queue A 11 (b)): on the card the mesh is
+the ``(1, 1)`` host mesh.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from repro_torch.launch.shapes import InputShape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import spec_num_params
 from repro_torch.optim import Adam, cosine_decay
-from repro_torch.sharding.rules import ShardingRules, logical_to_sharding
+from repro_torch.sharding.rules import (ShardingRules, logical_to_sharding,
+                                        make_rules)
 
 
 def param_shardings(api: ModelApi, rules: ShardingRules):
@@ -45,22 +50,45 @@ def make_optimizer(cfg: ModelConfig, total_steps: int = 10000):
                 moment_dtype=moment_dtype)
 
 
-def build_train_step(cfg: ModelConfig, optimizer=None, device=DEFAULT_DEVICE):
+def _on_mesh(fn, mesh):
+    """``fn`` run under ``implicit_replication`` (for DTensor inputs over
+    ``mesh``), or ``fn`` itself without a mesh."""
+    if mesh is None:
+        return fn
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def on_mesh(*args, **kwargs):
+        with implicit_replication():
+            return fn(*args, **kwargs)
+
+    return on_mesh
+
+
+def build_train_step(cfg: ModelConfig, optimizer=None, device=DEFAULT_DEVICE,
+                     mesh=None):
     """Returns ``(fn, api, optimizer)`` where ``fn(params, opt_state, batch)
     -> (params, opt_state, metrics)`` takes one step: forward, backward and
     the optimizer's update written into ``params`` and ``opt_state`` (the
     reference donates both to its jitted step). ``metrics`` holds the
-    loss function's metrics and ``loss``."""
+    loss function's metrics and ``loss``.
+
+    With ``mesh`` (a ``DeviceMesh``) the arguments are DTensors laid out by
+    the train rules; each gradient is laid out as its parameter (the
+    reduce-scatter or all-reduce of data parallelism) before the update."""
     api = ModelApi(cfg, device)
     optimizer = optimizer or make_optimizer(cfg)
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = pt.value_and_grad(api.loss_fn, params, batch)
+        if mesh is not None:
+            grads = pt.tree_map(lambda g, p: g.redistribute(p.device_mesh,
+                                                            p.placements),
+                                grads, params)
         with record_function("train.optimizer"):
             optimizer.update_(params, grads, opt_state)
         return params, opt_state, dict(metrics, loss=loss)
 
-    return train_step, api, optimizer
+    return _on_mesh(train_step, mesh), api, optimizer
 
 
 def abstract_opt_state(api: ModelApi, optimizer):
@@ -68,19 +96,33 @@ def abstract_opt_state(api: ModelApi, optimizer):
     return optimizer.init(api.abstract_params())
 
 
-def build_prefill_step(cfg: ModelConfig, device=DEFAULT_DEVICE):
-    """Returns ``(fn, api)`` where ``fn(params, batch, cache_len=None) ->
-    (logits of the last position, cache)``."""
+def build_prefill_step(cfg: ModelConfig, device=DEFAULT_DEVICE, mesh=None):
+    """Returns ``(fn, api, rules)`` where ``fn(params, batch, cache_len=None)
+    -> (logits of the last position, cache)``; with ``mesh``, over DTensors
+    laid out by ``rules``, the serve rules on it (None without a mesh)."""
     api = ModelApi(cfg, device)
-    return api.prefill, api
+    return _on_mesh(api.prefill, mesh), api, _serve_rules(mesh)
 
 
-def build_serve_step(cfg: ModelConfig, device=DEFAULT_DEVICE):
-    """Returns ``(fn, api)`` where ``fn(params, cache, token, pos) ->
+def build_serve_step(cfg: ModelConfig, device=DEFAULT_DEVICE, mesh=None):
+    """Returns ``(fn, api, rules)`` where ``fn(params, cache, token, pos) ->
     (logits, cache)`` decodes one token, the cache updated in place (the
-    reference donates it)."""
+    reference donates it); with ``mesh``, over DTensors laid out by
+    ``rules``, the serve rules on it (None without a mesh). Whether the
+    cache splits its batch or its sequence is the inputs' layout, which
+    ``input_specs`` decides from the batch; the step is the same."""
     api = ModelApi(cfg, device)
-    return api.decode_step, api
+    return _on_mesh(api.decode_step, mesh), api, _serve_rules(mesh)
+
+
+def _serve_rules(mesh):
+    """The serve rules on a ``DeviceMesh`` (None without one)."""
+    if mesh is None:
+        return None
+    from repro_torch.launch.mesh import AbstractMesh
+
+    abstract = AbstractMesh(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+    return make_rules(abstract, "serve")
 
 
 def sharded_train_inputs(cfg: ModelConfig, shape: InputShape, rules: ShardingRules,

@@ -37,6 +37,8 @@ latent, the final SSM, mLSTM and sLSTM states by a second scan); here the
 forward returns them (the ssm_scan kernel returns the state with ``y``, the
 xLSTM loops their last carry).
 ``decode_step`` updates the cache in place (see ``layers.decode_attention``).
+Over DTensors each layer's input is held to the tokens' batch layout
+(``layers.to_layout``), so every layer issues the same collectives.
 :func:`params_from_numpy` / :func:`params_to_numpy` carry weights across
 packages: the JAX tree's paths and shapes, unchanged.
 """
@@ -219,8 +221,10 @@ def apply_layer(cfg: ModelConfig, block, p, *args):
 def forward_hidden(cfg: ModelConfig, params, x, positions, attn_impl="auto"):
     """Run the block stack. x: (B,S,d) already embedded."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    layout = L.batch_layout(x)
     for p, flag in zip(_layers(params["blocks"]), _layer_flags(cfg)):
         x, aux = apply_layer(cfg, _block_apply, p, x, positions, flag, attn_impl)
+        x = L.to_layout(x, layout)
         aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return x, aux_total
@@ -255,7 +259,8 @@ def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
 
 
 def forward(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto"):
-    x = embed_inputs(cfg, params, tokens, img_embeds)
+    x = L.to_layout(embed_inputs(cfg, params, tokens, img_embeds),
+                    L.batch_layout(tokens))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux = forward_hidden(cfg, params, x, positions, attn_impl)
     logits = L.head_apply(params.get("head", {}), params["embed"], x, cfg)
@@ -389,11 +394,14 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
     (logits (B,1,V), cache), the cache updated in place (the recurrent
     states, SSM and xLSTM, copied into their layer's slot)."""
     pos = int(pos)
-    x = L.embed_apply(params["embed"], token, cfg.activation_dtype)
+    layout = L.batch_layout(token)
+    x = L.to_layout(L.embed_apply(params["embed"], token, cfg.activation_dtype),
+                    layout)
     for i, (p, flag) in enumerate(zip(_layers(params["blocks"]),
                                       _layer_flags(cfg))):
         layer_cache = pt.tree_map(lambda a: a[i], cache)
         x, new = _block_decode(cfg, p, x, layer_cache, pos, flag)
+        x = L.to_layout(x, layout)
         for name in ("ssm", "mlstm", "slstm"):
             for key, value in new.get(name, {}).items():
                 cache[name][key][i].copy_(value)
@@ -434,7 +442,8 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
     attention, its SSM state from the scan kernel's final state and its
     conv state from the last K-1 inputs, its mLSTM / sLSTM states from the
     cells' last carry."""
-    x = embed_inputs(cfg, params, tokens, img_embeds)
+    layout = L.batch_layout(tokens)
+    x = L.to_layout(embed_inputs(cfg, params, tokens, img_embeds), layout)
     Stot = x.shape[1]
     cache_len = cache_len or Stot
     if cache_len < Stot:
@@ -446,6 +455,7 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None, attn_impl="auto",
     for p, flag in zip(_layers(params["blocks"]), _layer_flags(cfg)):
         x, _, e = _block_apply(cfg, p, x, positions, flag, attn_impl,
                                with_cache=True)
+        x = L.to_layout(x, layout)
         for name, keys in _CACHE_KEYS.items():
             if name in e:
                 arrays, sp = _to_cache_layout(list(e[name]), positions, phys, Stot)

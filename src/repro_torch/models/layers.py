@@ -35,6 +35,18 @@ the embedding table is gathered first and the rows cast, which gives the
 same values without casting the whole table. The xLSTM cells' ``lax.scan``
 over time is a Python loop over positions in torch ops (the reference has
 no kernel for them), and :func:`cross_attention` is dense, as there.
+
+Over DTensors (a step built with a mesh, ``launch.steps``) the same
+functions run the same ops. Where DTensor's own sharding rules would pick
+a layout that a later view cannot take, or have no rule, the layout is
+fixed per mesh dimension and the op runs on each rank's local shards
+(``kernels._sharded``): the head projections and matmuls
+(:func:`proj_heads`, :func:`merge_heads`, :func:`matmul`), the embedding,
+every attention, the MoE routing and experts, the xLSTM recurrences and
+the loss (:func:`_vocab_parallel_nll`); a dimension that must be whole is
+redistributed explicitly (:func:`whole_dims`), so each collective shows in
+``launch.cost.collective_bytes``. On plain tensors every path is the one
+above, op for op.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels._sharded import is_dtensor
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import ArraySpec
 
@@ -113,9 +126,9 @@ def attention_spec(cfg: ModelConfig):
 
 
 def _qkv(params, x, cfg: ModelConfig):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    q = proj_heads(x, params["wq"].to(x.dtype))
+    k = proj_heads(x, params["wk"].to(x.dtype))
+    v = proj_heads(x, params["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -321,6 +334,18 @@ def flash_mha(q, k, v, q_pos, k_pos, causal=True, window=None,
                            block_k)
 
 
+def _attend(fn, q, k, v, *batch_args, whole=()):
+    """``fn(q, k, v, *batch_args, *whole)``, an attention; over DTensors on
+    each rank's shards (``kernels._sharded.attention_local``: the batch or
+    the heads split, anything else made whole first; ``batch_args`` split
+    as q's batch, ``whole`` whole on every rank)."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *batch_args, *whole)
+    from repro_torch.kernels import _sharded
+
+    return _sharded.attention_local(fn, q, k, v, *batch_args, whole=whole)
+
+
 def _long_attention(q, k, v, pos1d, cfg: ModelConfig, causal, window):
     """The reference's path above :data:`CHUNKED_ATTN_THRESHOLD`."""
     if cfg.attn_custom_vjp:
@@ -338,24 +363,28 @@ def self_attention(params, x, positions, cfg: ModelConfig, *, causal=True,
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     S = x.shape[1]
-    # meta tensors (the dry run) take the card's route
-    on_card = x.device.type in ("cuda", "meta")
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     pos1d = positions[0] if positions.dim() == 2 else positions
+
+    def attend(q, k, v):
+        if attn_impl == "chunked" or (attn_impl == "auto"
+                                      and S > CHUNKED_ATTN_THRESHOLD):
+            return _long_attention(q, k, v, pos1d, cfg, causal, window)
+        bias = _mask_bias(pos1d, pos1d, causal, window)[None, None]
+        return gqa_attend(q, k, v, bias)
+
+    # meta tensors (the dry run) take the card's route; the kernel's
+    # wrapper takes DTensors itself
+    on_card = q.device.type in ("cuda", "meta")
     if attn_impl == "pallas" or (attn_impl == "auto" and on_card):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         out = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), causal=causal,
-                                     window=window)
-    elif attn_impl == "chunked" or (attn_impl == "auto"
-                                    and S > CHUNKED_ATTN_THRESHOLD):
-        out = _long_attention(q, k, v, pos1d, cfg, causal, window)
+                                     v.contiguous(), causal=causal, window=window)
     else:
-        bias = _mask_bias(pos1d, pos1d, causal, window)[None, None]
-        out = gqa_attend(q, k, v, bias)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+        out = _attend(attend, q, k, v)
+    out = merge_heads(out, params["wo"].to(x.dtype))
     return (out, k, v) if return_kv else out
 
 
@@ -406,8 +435,9 @@ def decode_attention(params, x, layer_cache, pos: int, cfg: ModelConfig):
     if cfg.attention_window is not None:
         valid = valid & (spos > pos - cfg.attention_window)
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)[None, None, None, :]
-    out = gqa_attend(q, ck, cv, bias)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    out = _attend(lambda q, k, v, b: gqa_attend(q, k, v, b), q, ck, cv,
+                  whole=(bias,))
+    out = merge_heads(out, params["wo"].to(x.dtype))
     return out, layer_cache
 
 
@@ -415,12 +445,15 @@ def cross_attention(params, x, kv_k, kv_v, src_valid, cfg: ModelConfig):
     """The decoder's attention over the frozen encoder K/V (no rope, no
     mask but ``src_valid``). x: (B,S,d); kv_k, kv_v: (B,Ssrc,KV,hd);
     src_valid: (B,Ssrc) bool. Dense on every device, as in the reference."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    q = proj_heads(x, params["wq"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
-    bias = torch.where(src_valid[:, None, None, :], 0.0, NEG_INF).to(torch.float32)
-    out = gqa_attend(q, kv_k, kv_v, bias)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    def attend(q, k, v, valid):
+        bias = torch.where(valid[:, None, None, :], 0.0, NEG_INF).to(torch.float32)
+        return gqa_attend(q, k, v, bias)
+
+    out = _attend(attend, q, kv_k, kv_v, src_valid)
+    return merge_heads(out, params["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -448,13 +481,13 @@ def mlp_spec(d: int, f: int, gated: bool = True):
 
 def mlp_apply(params, x, gated: bool = True):
     if gated:
-        g = F.silu(x @ params["w_gate"].to(x.dtype))
-        u = x @ params["w_up"].to(x.dtype)
-        return (g * u) @ params["w_down"].to(x.dtype)
+        g = F.silu(matmul(x, params["w_gate"].to(x.dtype)))
+        u = matmul(x, params["w_up"].to(x.dtype))
+        return matmul(g * u, params["w_down"].to(x.dtype))
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(x @ params["w_up"].to(x.dtype) + params["b_up"].to(x.dtype),
+    h = F.gelu(matmul(x, params["w_up"].to(x.dtype)) + params["b_up"].to(x.dtype),
                approximate="tanh")
-    return h @ params["w_down"].to(x.dtype) + params["b_down"].to(x.dtype)
+    return matmul(h, params["w_down"].to(x.dtype)) + params["b_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -527,6 +560,77 @@ def moe_route(probs, top_k: int, cap: int, dtype):
             "dispatch": dispatch, "combine": combine}
 
 
+_ROUTE_KEYS = ("gate_idx", "gate_vals", "positions", "keep", "counts",
+               "dispatch", "combine")
+
+
+def _route(probs, top_k: int, cap: int, dtype):
+    """:func:`moe_route`; over a DTensor, on each rank's groups: a group's
+    tokens and the experts made whole (the sort and the queue's cumsum
+    need them), the groups kept split, every output split as they are."""
+    if not is_dtensor(probs):
+        return moe_route(probs, top_k, cap, dtype)
+    from torch.distributed.tensor.experimental import local_map
+
+    probs = whole_dims(probs, [1, 2])
+    pl = list(probs.placements)
+
+    def local(p):
+        r = moe_route(p, top_k, cap, dtype)
+        return tuple(r[k] for k in _ROUTE_KEYS)
+
+    out = local_map(local, out_placements=tuple([pl] * len(_ROUTE_KEYS)),
+                    in_placements=(pl,), device_mesh=probs.device_mesh)(probs)
+    return dict(zip(_ROUTE_KEYS, out))
+
+
+def _experts(xg, dispatch, combine, w_gate, w_up, w_down):
+    """The experts' gated MLPs over their capacity slots: tokens (G,gs,d)
+    dispatched to (G,E,cap,d), through each expert, combined back."""
+    xe = torch.einsum("gsd,gsec->gecd", xg, dispatch)  # (G,E,cap,d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate))
+    u = torch.einsum("gecd,edf->gecf", xe, w_up)
+    ye = torch.einsum("gecf,efd->gecd", h * u, w_down)
+    return torch.einsum("gsec,gecd->gsd", combine, ye)
+
+
+def _experts_sharded(xg, dispatch, combine, w_gate, w_up, w_down):
+    """:func:`_experts` over DTensors, on each rank's groups and experts:
+    per mesh dimension, the groups stay split where the tokens are, the
+    experts where the weights split them (each rank takes its experts'
+    slots of the dispatch, no data moved); the weights' other splits (the
+    FSDP ``embed``) are made whole first. The combine's output is then a
+    pending sum over the expert split, whose reduction DTensor issues
+    where the next op needs it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.kernels import _sharded
+
+    mesh = xg.device_mesh
+    rows = []
+    for i, (xp, wp) in enumerate(zip(xg.placements, w_gate.placements)):
+        if xp.is_shard(0):      # groups: x, dispatch, combine, y; weights' grads summed
+            rows.append((Shard(0), Shard(0), Replicate(), Shard(0),
+                         Shard(0), Partial()))
+        elif wp.is_shard(0):    # experts
+            rows.append((Replicate(), Shard(2), Shard(0), Partial(),
+                         Partial(), Shard(0)))
+        else:
+            rows.append((Replicate(),) * 6)
+    x_in, route_in, w_in, y_out, x_grad, w_grad = (tuple(r[j] for r in rows)
+                                                   for j in range(6))
+    return _sharded.run_local(
+        _experts, mesh, (xg, dispatch, combine, w_gate, w_up, w_down),
+        (x_in, route_in, route_in, w_in, w_in, w_in), y_out,
+        (x_grad, route_in, route_in, w_grad, w_grad, w_grad))
+
+
+def _shards(x, dim: int) -> int:
+    """How many pieces a DTensor's placements cut dimension ``dim`` into."""
+    return math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                     if p.is_shard(dim))
+
+
 def moe_apply(params, x, cfg: ModelConfig):
     """x: (B,S,d) -> (y (B,S,d), aux_loss scalar float32).
 
@@ -541,19 +645,24 @@ def moe_apply(params, x, cfg: ModelConfig):
     gs = min(MOE_GROUP_SIZE, T)
     xt = x.reshape(T, d)
     pad = (-T) % gs
+    if is_dtensor(xt) and (pad or (T + pad) // gs % _shards(xt, 0)):
+        # the groups cut the token axis where its shards do not end
+        xt = whole_dims(xt, [0])
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
     xg = xt.reshape(-1, gs, d)
-    logits = torch.einsum("gsd,de->gse", xg,
-                          params["router"].to(x.dtype)).to(torch.float32)
+    router = params["router"].to(x.dtype)
+    logits = (torch.einsum("gsd,de->gse", xg, router) if not is_dtensor(xg)
+              else matmul(xg, router)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    route = moe_route(probs, m.top_k, moe_capacity(cfg, gs), x.dtype)
+    route = _route(probs, m.top_k, moe_capacity(cfg, gs), x.dtype)
 
-    xe = torch.einsum("gsd,gsec->gecd", xg, route["dispatch"])  # (G,E,cap,d)
-    h = F.silu(torch.einsum("gecd,edf->gecf", xe, params["w_gate"].to(x.dtype)))
-    u = torch.einsum("gecd,edf->gecf", xe, params["w_up"].to(x.dtype))
-    ye = torch.einsum("gecf,efd->gecd", h * u, params["w_down"].to(x.dtype))
-    y = torch.einsum("gsec,gecd->gsd", route["combine"].to(x.dtype), ye)
+    w = tuple(params[k].to(x.dtype) for k in ("w_gate", "w_up", "w_down"))
+    if is_dtensor(xg):
+        y = _experts_sharded(xg, route["dispatch"], route["combine"].to(x.dtype),
+                             *w)
+    else:
+        y = _experts(xg, route["dispatch"], route["combine"].to(x.dtype), *w)
     y = y.reshape(-1, d)[:T].reshape(B, S, d)
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
@@ -594,11 +703,11 @@ def _mla_qkv_latent(params, x, cfg: ModelConfig):
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,S,kv_lora),
     k_rope (B,S,1,rope)), before rope."""
     a = cfg.mla
-    cq = rms_norm(x @ params["wq_a"].to(x.dtype), params["q_norm"]["scale"],
+    cq = rms_norm(matmul(x, params["wq_a"].to(x.dtype)), params["q_norm"]["scale"],
                   cfg.norm_eps)
-    q = torch.einsum("bsl,lhk->bshk", cq, params["wq_b"].to(x.dtype))
+    q = proj_heads(cq, params["wq_b"].to(x.dtype))
     q_nope, q_rope = q[..., :a.nope_head_dim], q[..., a.nope_head_dim:]
-    ckv_full = x @ params["wkv_a"].to(x.dtype)
+    ckv_full = matmul(x, params["wkv_a"].to(x.dtype))
     c_kv = rms_norm(ckv_full[..., :a.kv_lora_rank], params["kv_norm"]["scale"],
                     cfg.norm_eps)
     k_rope = ckv_full[..., a.kv_lora_rank:][:, :, None, :]
@@ -616,19 +725,22 @@ def mla_attention(params, x, positions, cfg: ModelConfig, *, window=None,
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(params, x, cfg)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
-    k_nope = torch.einsum("bsl,lhk->bshk", c_kv, params["wk_b"].to(x.dtype))
-    v = torch.einsum("bsl,lhk->bshk", c_kv, params["wv_b"].to(x.dtype))
+    k_nope = proj_heads(c_kv, params["wk_b"].to(x.dtype))
+    v = proj_heads(c_kv, params["wv_b"].to(x.dtype))
     H = cfg.num_heads
     k_rope_h = k_rope.expand(*k_rope.shape[:2], H, a.rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     pos1d = positions[0] if positions.dim() == 2 else positions
-    if x.shape[1] > CHUNKED_ATTN_THRESHOLD:
-        out = _long_attention(q, k, v, pos1d, cfg, True, window)
-    else:
+
+    def attend(q, k, v):
+        if x.shape[1] > CHUNKED_ATTN_THRESHOLD:
+            return _long_attention(q, k, v, pos1d, cfg, True, window)
         bias = _mask_bias(pos1d, pos1d, True, window)[None, None]
-        out = gqa_attend(q, k, v, bias)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+        return gqa_attend(q, k, v, bias)
+
+    out = _attend(attend, q, k, v)
+    out = merge_heads(out, params["wo"].to(x.dtype))
     return (out, c_kv, k_rope) if return_latent else out
 
 
@@ -716,7 +828,7 @@ def _ssm_inputs(params, x, cfg: ModelConfig):
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     dt_rank = s.dt_rank or max(1, cfg.d_model // 16)
-    xz = x @ params["w_in"].to(x.dtype)
+    xz = matmul(x, params["w_in"].to(x.dtype))
     xs, z = xz[..., :d_inner], xz[..., d_inner:]
     return xs, z, d_inner, dt_rank
 
@@ -724,11 +836,11 @@ def _ssm_inputs(params, x, cfg: ModelConfig):
 def _ssm_gates(params, xs_conv, cfg, dt_rank):
     s = cfg.ssm
     dtype = xs_conv.dtype
-    proj = xs_conv @ params["w_x"].to(dtype)
+    proj = matmul(xs_conv, params["w_x"].to(dtype))
     dt_in = proj[..., :dt_rank]
     Bmat = proj[..., dt_rank: dt_rank + s.state_dim]
     Cmat = proj[..., dt_rank + s.state_dim:]
-    dt = F.softplus(dt_in @ params["w_dt"].to(dtype) + params["b_dt"].to(dtype))
+    dt = F.softplus(matmul(dt_in, params["w_dt"].to(dtype)) + params["b_dt"].to(dtype))
     A = -torch.exp(params["A_log"].to(torch.float32))  # (d_inner, N)
     return dt, Bmat, Cmat, A
 
@@ -786,7 +898,7 @@ def ssm_apply(params, x, cfg: ModelConfig, *, impl: str = "auto",
 
     y = y + xc * params["D"].to(x.dtype)
     y = y * F.silu(z)
-    out = y @ params["w_out"].to(x.dtype)
+    out = matmul(y, params["w_out"].to(x.dtype))
     if return_state:
         return out, {"h": h, "conv": xs[:, -(K - 1):, :]}
     return out
@@ -818,7 +930,7 @@ def ssm_decode(params, x, state, cfg: ModelConfig):
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].to(f32)).to(x.dtype)
     y = y + xc[:, 0] * params["D"].to(x.dtype)
     y = (y * F.silu(z[:, 0]))[:, None, :]
-    out = y @ params["w_out"].to(x.dtype)
+    out = matmul(y, params["w_out"].to(x.dtype))
     return out, {"h": h, "conv": hist[:, 1:, :]}
 
 
@@ -865,16 +977,16 @@ def _mlstm_inputs(params, x, H):
     gate pre-activations are formed in x's type, as in the reference."""
     di = params["w_down"].shape[0]
     dh = di // H
-    up = x @ params["w_up"].to(x.dtype)
+    up = matmul(x, params["w_up"].to(x.dtype))
     xm, z = up[..., :di], up[..., di:]
-    q = torch.einsum("bsd,dhk->bshk", xm, params["wq"].to(x.dtype)) / math.sqrt(dh)
-    k = torch.einsum("bsd,dhk->bshk", xm, params["wk"].to(x.dtype)) / math.sqrt(dh)
-    v = torch.einsum("bsd,dhk->bshk", xm, params["wv"].to(x.dtype))
-    gif = (torch.einsum("bsd,dhg->bshg", xm, params["w_if"].to(x.dtype))
+    q = proj_heads(xm, params["wq"].to(x.dtype)) / math.sqrt(dh)
+    k = proj_heads(xm, params["wk"].to(x.dtype)) / math.sqrt(dh)
+    v = proj_heads(xm, params["wv"].to(x.dtype))
+    gif = (proj_heads(xm, params["w_if"].to(x.dtype))
            + params["b_if"].to(x.dtype))
     f32 = torch.float32
     return (z, q.to(f32), k.to(f32), v.to(f32), gif[..., 0].to(f32),
-            F.logsigmoid(gif[..., 1].to(f32)))
+            pointwise(F.logsigmoid, gif[..., 1].to(f32)))
 
 
 def _mlstm_step(state, q_t, k_t, v_t, i_t, lf_t, one):
@@ -896,7 +1008,7 @@ def _mlstm_step(state, q_t, k_t, v_t, i_t, lf_t, one):
 def _mlstm_out(params, h, z, x):
     """h (B,S,H,dh) float32 -> the block's output (B,S,d) in x's type."""
     h = h.to(x.dtype).reshape(*z.shape)
-    return (h * F.silu(z)) @ params["w_down"].to(x.dtype)
+    return matmul(h * F.silu(z), params["w_down"].to(x.dtype))
 
 
 def mlstm_apply(params, x, cfg: ModelConfig, return_state=False):
@@ -905,20 +1017,34 @@ def mlstm_apply(params, x, cfg: ModelConfig, return_state=False):
     (the reference's prefill gets it from a second scan)."""
     H, _, dh = _mlstm_dims(cfg)
     z, q, k, v, i_pre, lf = _mlstm_inputs(params, x, H)
-    B, dev, f32 = x.shape[0], x.device, torch.float32
+    if is_dtensor(q):
+        from repro_torch.kernels import _sharded
+
+        hs, *state = _sharded.heads_local(_mlstm_scan, (q, k, v, i_pre, lf), (),
+                                          ("bsh", "bh", "bh", "bh"))
+    else:
+        hs, *state = _mlstm_scan(q, k, v, i_pre, lf)
+    out = _mlstm_out(params, hs, z, x)
+    if return_state:
+        return out, dict(zip(("C", "n", "m"), state))
+    return out
+
+
+def _mlstm_scan(q, k, v, i_pre, lf):
+    """The mLSTM over every position from a zero state: (h (B,S,H,dh), C,
+    n, m) float32."""
+    B, _, H, dh = q.shape
+    dev, f32 = q.device, torch.float32
     state = (torch.zeros((B, H, dh, dh), dtype=f32, device=dev),
              torch.zeros((B, H, dh), dtype=f32, device=dev),
              torch.full((B, H), M_INIT, dtype=f32, device=dev))
     one = torch.ones((), dtype=f32, device=dev)
     hs = []
-    for t in range(x.shape[1]):
+    for t in range(q.shape[1]):
         state, h_t = _mlstm_step(state, q[:, t], k[:, t], v[:, t], i_pre[:, t],
                                  lf[:, t], one)
         hs.append(h_t)
-    out = _mlstm_out(params, torch.stack(hs, dim=1), z, x)
-    if return_state:
-        return out, dict(zip(("C", "n", "m"), state))
-    return out
+    return (torch.stack(hs, dim=1), *state)
 
 
 def mlstm_state_shape(cfg: ModelConfig, batch: int):
@@ -967,7 +1093,8 @@ def _slstm_weights(params, x):
 
 def _slstm_gx(wp, x):
     """The input half of every position's gates, (B,S,H,4dh)."""
-    return _promoted_einsum("bsd,dhk->bshk", x, wp["w_gates"]) + wp["b_gates"]
+    dt = torch.promote_types(x.dtype, wp["w_gates"].dtype)
+    return proj_heads(x.to(dt), wp["w_gates"].to(dt)) + wp["b_gates"]
 
 
 def _slstm_step(wp, carry, gx_t, one):
@@ -990,24 +1117,41 @@ def _slstm_step(wp, carry, gx_t, one):
 def slstm_apply(params, x, cfg: ModelConfig, return_state=False):
     """Full-sequence sLSTM. x: (B,S,d) -> (B,S,d); with ``return_state``
     also the final ``{"c", "n", "h", "m"}``."""
-    H = cfg.num_heads
-    dh = cfg.d_model // H
-    B, S, dev, f32 = x.shape[0], x.shape[1], x.device, torch.float32
+    B, S = x.shape[0], x.shape[1]
     wp = _slstm_weights(params, x)
     gx = _slstm_gx(wp, x)
-    carry = (torch.zeros((B, H, dh), dtype=f32, device=dev),
-             torch.zeros((B, H, dh), dtype=f32, device=dev),
-             torch.zeros((B, H, dh), dtype=x.dtype, device=dev),
-             torch.full((B, H, dh), M_INIT, dtype=f32, device=dev))
-    one = torch.ones((), dtype=f32, device=dev)
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(wp, carry, gx[:, t], one)
-        hs.append(carry[2])
-    out = torch.stack(hs, dim=1).reshape(B, S, cfg.d_model) @ params["w_down"].to(x.dtype)
+
+    def scan(gx, r_gates):
+        return _slstm_scan(gx, r_gates, x.dtype)
+
+    if is_dtensor(gx):
+        from repro_torch.kernels import _sharded
+
+        hs, *carry = _sharded.heads_local(scan, (gx,), (wp["r_gates"],),
+                                          ("bsh", "bh", "bh", "bh", "bh"))
+    else:
+        hs, *carry = scan(gx, wp["r_gates"])
+    out = matmul(hs.reshape(B, S, cfg.d_model), params["w_down"].to(x.dtype))
     if return_state:
         return out, dict(zip(("c", "n", "h", "m"), carry))
     return out
+
+
+def _slstm_scan(gx, r_gates, dtype):
+    """The sLSTM over every position from a zero carry: (h (B,S,H,dh) in
+    ``dtype``, c, n, h, m)."""
+    B, _, H, dh4 = gx.shape
+    dh, dev, f32 = dh4 // 4, gx.device, torch.float32
+    carry = (torch.zeros((B, H, dh), dtype=f32, device=dev),
+             torch.zeros((B, H, dh), dtype=f32, device=dev),
+             torch.zeros((B, H, dh), dtype=dtype, device=dev),
+             torch.full((B, H, dh), M_INIT, dtype=f32, device=dev))
+    one = torch.ones((), dtype=f32, device=dev)
+    hs = []
+    for t in range(gx.shape[1]):
+        carry = _slstm_step({"r_gates": r_gates}, carry, gx[:, t], one)
+        hs.append(carry[2])
+    return (torch.stack(hs, dim=1), *carry)
 
 
 def slstm_state_shape(cfg: ModelConfig, batch: int):
@@ -1023,7 +1167,8 @@ def slstm_decode(params, x, state, cfg: ModelConfig):
     one = torch.ones((), dtype=torch.float32, device=x.device)
     carry = _slstm_step(wp, (state["c"], state["n"], state["h"], state["m"]),
                         _slstm_gx(wp, x)[:, 0], one)
-    out = carry[2].reshape(x.shape[0], 1, cfg.d_model) @ params["w_down"].to(x.dtype)
+    out = matmul(carry[2].reshape(x.shape[0], 1, cfg.d_model),
+                 params["w_down"].to(x.dtype))
     return out, dict(zip(("c", "n", "h", "m"), carry))
 
 
@@ -1038,8 +1183,56 @@ def embed_spec(cfg: ModelConfig):
 
 def embed_apply(params, tokens, dtype):
     """Gather the rows, then cast them: the reference casts the whole table
-    first, which gives the same values at a table's cost per call."""
+    first, which gives the same values at a table's cost per call. Over
+    DTensors, :func:`_embed_sharded`."""
+    if is_dtensor(tokens) or is_dtensor(params["embedding"]):
+        return _embed_sharded(params["embedding"], tokens).to(dtype)
     return params["embedding"][tokens.long()].to(dtype)
+
+
+def _embed_sharded(table, tokens):
+    """The row gather on each rank's shards, the layout fixed per mesh
+    dimension: the tokens' batch split stays (the table whole there, an
+    FSDP all-gather if the rules split it; its gradient a sum over the
+    ranks); else a vocab split of the table stays, each rank looking up
+    the tokens in its own rows (a masked local gather, zeros elsewhere: a
+    pending sum, as a vocab-parallel embedding); else a split of the
+    table's features stays; anything else is made whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.kernels import _sharded
+
+    mesh = _sharded.mesh_of(table, tokens)
+    R = Replicate()
+    tpl = tokens.placements if is_dtensor(tokens) else (R,) * mesh.ndim
+    wpl = table.placements if is_dtensor(table) else (R,) * mesh.ndim
+    rows = []    # (tokens, table, out, table's gradient)
+    for tp, wp in zip(tpl, wpl):
+        if tp.is_shard(0):
+            rows.append((Shard(0), R, Shard(0), Partial()))
+        elif wp.is_shard(0):
+            rows.append((R, Shard(0), Partial(), Shard(0)))
+        elif wp.is_shard(1):
+            rows.append((R, Shard(1), Shard(tokens.ndim), Shard(1)))
+        else:
+            rows.append((R,) * 4)
+    t_in, w_in, out, w_grad = (tuple(r[j] for r in rows) for j in range(4))
+    split = any(p.is_shard(0) for p in w_in)
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, w_in)
+    lo = offset[0]
+
+    def lookup(tok, tab):
+        idx = tok.long()
+        if not split:
+            return tab[idx]
+        idx = idx - lo
+        inside = (idx >= 0) & (idx < tab.shape[0])
+        got = tab[torch.where(inside, idx, 0)]
+        return torch.where(inside[..., None], got, 0.0)
+
+    return _sharded.run_local(lookup, mesh, (tokens, table), (t_in, w_in), out,
+                              (t_in, w_grad))
 
 
 def head_spec(cfg: ModelConfig):
@@ -1050,18 +1243,199 @@ def head_spec(cfg: ModelConfig):
 
 def head_apply(params, embed_params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, embed_params["embedding"].to(x.dtype))
-    return x @ params["w"].to(x.dtype)
+        table = embed_params["embedding"].to(x.dtype)
+        if not is_dtensor(x):
+            return torch.einsum("bsd,vd->bsv", x, table)
+        from repro_torch.kernels import _sharded
+
+        return _sharded.local_product(
+            lambda a, b: torch.einsum("bsd,vd->bsv", a, b), x, table,
+            {0: x.ndim - 1}, {1: x.ndim - 1})
+    return matmul(x, params["w"].to(x.dtype))
 
 
 def cross_entropy_loss(logits, labels, mask=None):
     """logits: (B,S,V); labels: (B,S) integer; mask optional (B,S). The
     float32 ``logsumexp`` minus the label's logit, averaged (over the
-    masked positions with ``mask``)."""
+    masked positions with ``mask``). DTensor logits whose vocab dimension
+    is sharded take :func:`_vocab_parallel_nll`."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    if is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
+# DTensor support (the sharded steps of launch.steps with a mesh)
+# ---------------------------------------------------------------------------
+#
+# Over DTensors most ops shard by DTensor's own rules, and a plain tensor
+# (a rope table, a mask) meets them as a replicated one under the step's
+# ``implicit_replication``. Where a dimension must be whole for an op that
+# has no sharding rule, it is redistributed explicitly (:func:`whole_dims`),
+# so the collective shows in ``launch.cost.collective_bytes``.
+
+
+def whole_dims(x, dims):
+    """``x`` with the tensor dimensions ``dims`` unsharded and nothing
+    pending (each ``Shard`` of one of them and each ``Partial`` made
+    ``Replicate``); a plain tensor, or a DTensor already so, as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dims = {d % x.ndim for d in dims}
+    want = tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim in dims)
+                 else p for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; over a DTensor on each rank's
+    shard, for an op DTensor has no rule for (``logsigmoid``'s backward),
+    with a pending sum reduced first."""
+    if not is_dtensor(x):
+        return fn(x)
+    from repro_torch.kernels import _sharded
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return _sharded.run_local(fn, x.device_mesh, (x,), (pl,), pl)
+
+
+def batch_layout(x):
+    """The activations' layout on a mesh, read off a batch-leading DTensor
+    (the tokens): ``Shard(0)`` where ``x`` shards its batch, ``Replicate()``
+    elsewhere (the rules' activation axes: only ``batch`` is sharded). None
+    for a plain tensor."""
+    if not is_dtensor(x):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(0) if p.is_shard(0) else Replicate() for p in x.placements)
+
+
+def to_layout(x, layout):
+    """``x`` redistributed to ``layout`` (from :func:`batch_layout`); a
+    plain tensor, or no layout, as it is. The decoders hold each layer's
+    input to it, so DTensor's choices inside a layer start from the
+    rules' layout instead of drifting from layer to layer."""
+    if layout is None or not is_dtensor(x) or tuple(x.placements) == layout:
+        return x
+    return x.redistribute(x.device_mesh, layout)
+
+
+def proj_heads(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)``: x (B,S,d) into heads through w
+    (d,H,k); over DTensors on each rank's shards
+    (``kernels._sharded.local_product``: the batch or the heads split)."""
+    if not is_dtensor(x) and not is_dtensor(w):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    from repro_torch.kernels import _sharded
+
+    n = x.ndim
+    return _sharded.local_product(
+        lambda a, b: torch.einsum("bsd,dhk->bshk", a, b), x, w,
+        {1: n - 1, 2: n}, {0: n - 1})
+
+
+def merge_heads(x, w):
+    """``einsum("bshk,hkd->bsd", x, w)``: heads x (B,S,H,k) back through w
+    (H,k,d); over DTensors on each rank's shards, a heads split giving a
+    pending sum."""
+    if not is_dtensor(x) and not is_dtensor(w):
+        return torch.einsum("bshk,hkd->bsd", x, w)
+    from repro_torch.kernels import _sharded
+
+    n = x.ndim
+    return _sharded.local_product(
+        lambda a, b: torch.einsum("bshk,hkd->bsd", a, b), x, w,
+        {2: n - 2}, {0: n - 2, 1: n - 1})
+
+
+def matmul(x, w):
+    """``x @ w`` for x (..., d) and w (d, f); over DTensors on each rank's
+    shards (the batch or f split; d split gives a pending sum)."""
+    if not is_dtensor(x) and not is_dtensor(w):
+        return x @ w
+    from repro_torch.kernels import _sharded
+
+    return _sharded.local_product(lambda a, b: a @ b, x, w,
+                                  {1: x.ndim - 1}, {0: x.ndim - 1})
+
+
+def _all_reduce(t, op: str, groups):
+    """``t`` all-reduced (``op``) over each process group of ``groups`` in
+    turn, through the functional collectives."""
+    import torch.distributed._functional_collectives as funcol
+
+    for group in groups:
+        t = funcol.all_reduce(t, op, group)
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _VocabNLL(torch.autograd.Function):
+    """``logsumexp(x) - x[label]`` over a vocab shard ``x`` (..., Vl) whose
+    first index is ``lo``: the max, the sum of exponentials and the label's
+    logit (from the one shard that holds it; 0 elsewhere) all-reduced over
+    ``groups``. It is ``torch.logsumexp``'s arithmetic and the gather's,
+    in their order, forward and backward: over one shard the same bits."""
+
+    @staticmethod
+    def forward(ctx, x, labels, lo, groups):
+        m = torch.amax(x, dim=-1, keepdim=True)
+        m = _all_reduce(m, "max", groups)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        s = _all_reduce(torch.sum(torch.exp(x - m), dim=-1), "sum", groups)
+        lse = torch.log(s) + m[..., 0]
+        idx = labels - lo
+        inside = (idx >= 0) & (idx < x.shape[-1])
+        idx = torch.where(inside, idx, 0)
+        ll = torch.gather(x, -1, idx[..., None])[..., 0]
+        ll = _all_reduce(torch.where(inside, ll, 0.0), "sum", groups)
+        ctx.save_for_backward(x, lse, idx, inside)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, idx, inside = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(x - lse[..., None])
+        grad.scatter_add_(-1, idx[..., None], torch.where(inside, -g, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """Per-position NLL of DTensor ``logits`` (B,S,V) float32 as
+    ``loss_parallel`` computes it: the vocab stays sharded, each rank takes
+    the label's logit from its own shard by a masked local gather, and
+    all-reduces over the vocab's mesh dimensions combine the shards
+    (:class:`_VocabNLL`). ``logits`` is first laid out as ``labels`` on the
+    mesh dimensions that shard the labels, its vocab shards kept elsewhere.
+    Returns a DTensor placed as ``labels``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = logits.device_mesh
+    V = logits.ndim - 1
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = tuple(p if p.is_shard() else Replicate() for p in labels.placements)
+    want = tuple(lp if lp.is_shard() else (xp if xp.is_shard(V) else Replicate())
+                 for lp, xp in zip(lab, logits.placements))
+    logits = logits.redistribute(mesh, want)
+    labels = labels.redistribute(mesh, lab)
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, want)
+    groups = [mesh.get_group(i) for i, p in enumerate(want) if p.is_shard(V)]
+    nll = _VocabNLL.apply(logits.to_local(), labels.to_local().long(),
+                          offset[V], groups)
+    return DTensor.from_local(nll, mesh, lab, run_check=False,
+                              shape=labels.shape, stride=labels.stride())

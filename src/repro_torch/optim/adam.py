@@ -20,15 +20,22 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.common import pytree_utils as pt
+from repro_torch.kernels._sharded import is_dtensor
 
 # elements per slice of an in-place update: a few float32 temporaries of
 # 256 MB each, where qwen2-1.5b's largest leaf (28 x 1536 x 8960) is 1.5 GB
 SLICE = 1 << 26
 
 
+def _local(t):
+    """A DTensor's local shard (a plain tensor as it is)."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def _flat_slices(*tensors):
-    """Matching 1-D slices of equally shaped contiguous tensors."""
-    flats = [t.view(-1) for t in tensors]
+    """Matching 1-D slices of equally shaped contiguous tensors (of their
+    local shards for DTensors laid out alike)."""
+    flats = [_local(t).view(-1) for t in tensors]
     n = flats[0].numel()
     for start in range(0, n, SLICE):
         yield [f[start:start + SLICE] for f in flats]
@@ -106,12 +113,17 @@ class Adam:
     @torch.no_grad()
     def update_(self, params, grads, state):
         """The same step written into ``params`` and ``state`` (``t`` too);
-        returns them."""
+        returns them. DTensor params, moments and gradients laid out alike
+        are updated shard by shard: only the clip's global norm needs their
+        collectives; the scalars are replicated."""
         state["t"].add_(1)
         t = state["t"]
         scale = self._clip_scale(grads)
         lr = _schedule_lr(self.lr, t)
         bc = self._bias_corrections(t)
+        scale, lr = (x if x is None or isinstance(x, float) else _local(x)
+                     for x in (scale, lr))
+        bc = tuple(_local(x) for x in bc)
         for p, g, m, v in zip(pt.leaves(params), pt.leaves(grads),
                               pt.leaves(state["m"]), pt.leaves(state["v"])):
             for ps, gs, ms, vs in _flat_slices(p, g.contiguous(), m, v):

@@ -16,11 +16,12 @@ trimmed. It equals ``tuple()`` of the reference's ``PartitionSpec``, entry
 for entry (which writes a one-name tuple as the name).
 :func:`shard_shape` is the per-device shape it gives.
 
-Not ported: the reference's ``NamedSharding`` (``logical_to_sharding``
-there). PyTorch has none; its counterpart is a DTensor placement over a
-real ``DeviceMesh``, which needs several GPUs in one process (ROADMAP
-Queue A 11). Here :func:`logical_to_sharding` pairs each spec with its
-shard shape, and on one card the specs are recorded, not applied.
+The reference's ``NamedSharding`` (``logical_to_sharding`` there) has no
+PyTorch class; its counterpart is a DTensor placement over a
+``DeviceMesh``. :func:`logical_to_sharding` pairs each spec with its shard
+shape, and :func:`spec_to_placements` turns a spec into one ``Shard(d)`` or
+``Replicate()`` per mesh dimension, which ``launch.api`` lays out over a
+``launch.mesh.device_mesh`` (a fake group for accounting, or the card).
 """
 from __future__ import annotations
 
@@ -209,3 +210,41 @@ def logical_to_sharding(axes_tree, rules: ShardingRules, shapes_tree):
     return pt.tree_map(
         lambda spec, shp: (spec, shard_shape(_shape_of(shp), spec, rules.mesh)),
         specs, shapes_tree, is_leaf=is_spec)
+
+
+def spec_to_placements(spec: tuple, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh`` (a ``DeviceMesh``
+    with axis names, or anything with ``.shape`` / ``.mesh_dim_names``):
+    one per mesh dimension, ``Shard(d)`` for the tensor dimension ``d``
+    whose entry names that axis, else ``Replicate()``.
+
+    A dimension sharded over a tuple of axes (the batch over ``("pod",
+    "data")``) gets ``Shard(d)`` on each; DTensor splits it over those mesh
+    dimensions in mesh order, which is the reference's layout only when the
+    tuple follows the mesh's axis order, so any other order raises. An
+    axis of size 1 splits nothing and stays ``Replicate()`` (DTensor would
+    otherwise refuse views of a dimension it takes for split, on the
+    one-card ``(1, 1)`` mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    sizes = tuple(mesh.shape)
+    out = [Replicate()] * len(names)
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        unknown = [a for a in axes if a not in names]
+        if unknown:
+            raise ValueError(f"spec {spec}: mesh axes {unknown} not in {names}")
+        order = [names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"spec {spec}: dimension {d} is sharded over "
+                             f"{axes}, not in the mesh's axis order {names}")
+        for i in order:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec}: mesh axis {names[i]!r} "
+                                 "shards two dimensions")
+            if sizes[i] > 1:
+                out[i] = Shard(d)
+    return tuple(out)

@@ -36,7 +36,10 @@ def _dense_forward_flops(cfg, B, S, head_positions):
 def test_account_combo_writes_a_record(arch, tmp_path, monkeypatch):
     monkeypatch.setattr(DR, "OUT_DIR", str(tmp_path))
     cfg = get_config(arch).reduced()
-    rec = DR.account_combo(arch, "train_4k", False, cfg_override=cfg, peak=True)
+    # in this process: the collectives (a fake process group of the mesh's
+    # ranks) are counted in a child, tests/test_torch_collectives.py
+    rec = DR.account_combo(arch, "train_4k", False, cfg_override=cfg, peak=True,
+                           collectives=False)
     path = tmp_path / DR.save(rec)
     saved = json.loads(path.read_text())
     assert saved["status"] == "ok" and saved["mesh_shape"] == {"data": 16, "model": 16}

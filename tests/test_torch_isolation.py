@@ -85,7 +85,8 @@ def test_importing_every_module_pulls_in_no_jax():
                  "repro_torch.models.encdec", "repro_torch.common.hw",
                  "repro_torch.launch.shapes", "repro_torch.sharding",
                  "repro_torch.sharding.rules", "repro_torch.launch.cost",
-                 "repro_torch.launch.dryrun"):
+                 "repro_torch.launch.dryrun", "repro_torch.kernels._sharded",
+                 "repro_torch.launch.mesh"):
         assert name in rep["modules"]
     assert rep["bad"] == []
 
@@ -255,6 +256,7 @@ def test_entry_points_demand_the_gpu_by_default(tmp_path):
         lambda: mesh.make_host_mesh(),
         lambda: train_steps.build_prefill_step(qwen2),
         lambda: train_steps.build_serve_step(qwen2),
+        lambda: train_steps.build_train_step(qwen2, mesh=None),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
@@ -291,3 +293,9 @@ def test_dry_run_needs_no_gpu(tmp_path):
     assert rec["status"] == "ok" and rec["cost"]["flops"] > 0
     assert rec["memory"]["argument_bytes_per_device"]["total"] > 0
     assert rec["roofline"]["bound_by"] in ("bytes", "operations")
+    # counted on a fake group of the production mesh's 256 ranks, by this
+    # torch's DTensor (its choice of collectives depends on the version)
+    assert rec["collectives"]["total"] > 0 and rec["collectives"]["count"] > 0
+    import torch
+
+    assert rec["collectives"]["torch"] == torch.__version__
