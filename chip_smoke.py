@@ -3780,9 +3780,19 @@ SHARDED_TRAIN = dict(batch=4, seq=2048, steps=4)
 SHARDED_LOSS_TOL = 1e-5
 # (b) accounted on this machine's CPU in a fake process group: the
 # reference's perf_iters pair B (qwen2-72b on two pods) and the MoE's
-# all-to-all path (phi3.5-moe on one pod), both train_4k at full width;
-# then benchmarks/psgf_dp_comm.py's table, qwen2-1.5b's bf16 param tree on
-# (2, 2, 2) over ("pod", "data", "model"), pods of 4 ranks
+# all-to-all path (phi3.5-moe on one pod), both train_4k at full width,
+# per device; then benchmarks/psgf_dp_comm.py's table, qwen2-1.5b's bf16
+# param tree on (2, 2, 2) over ("pod", "data", "model"), pods of 4 ranks;
+# then (a)'s two steps on a (1, 1) mesh: the SHARDED_TRAIN step and a
+# prefill of the same batch and length, whose per-device peaks (a) holds
+# against the card's
+SHARDED_PREFILL = dict(batch=4, seq=2048)
+# the dry run's peak against the card's (PERF.md section 2): the train
+# step's within 2% (a qwen2-1.5b train step on one card has come within
+# 0.2% of its estimate), the prefill's within 5% (3.9 GB, where the CUDA
+# allocator's 512-byte rounding and cuBLAS's workspace weigh more)
+TRAIN_PEAK_RTOL = 0.02
+PREFILL_PEAK_RTOL = 0.05
 ACCOUNTED = (("qwen2-72b", "train_4k", True),
              ("phi3.5-moe-42b-a6.6b", "train_4k", False))
 PSGF_COMM_SHARES = (0.5, 0.3, 0.2)
@@ -3830,6 +3840,10 @@ def sharded_train_child(workdir: str) -> dict:
     out, finals = {}, {}
     for name, mesh in (("plain", None), ("sharded", dm)):
         free_device_memory()
+        # the step's own peak: less what was allocated before its inputs
+        # were made, from the peak's reset once they are (the init's own
+        # temporaries are not the step's)
+        base = torch.cuda.memory_allocated()
         fn, api, _ = build_train_step(cfg, optimizer, "cuda", mesh=mesh)
         params = api.init_params(R.PRNGKey(0))
         state = optimizer.init(params)
@@ -3839,6 +3853,8 @@ def sharded_train_child(workdir: str) -> dict:
                 optimizer)
             params = distribute_structs(p_st, dm, params)
             state = distribute_structs(o_st, dm, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         flash_ops.reset_launch_counts()
         losses, step_ms, records = [], [], []
         for step in range(steps):
@@ -3848,7 +3864,9 @@ def sharded_train_child(workdir: str) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with cost.counting_collectives() as got:
-                _, _, metrics = fn(params, state, batch)
+                # the metrics alone: the params and moments stay bound to
+                # params and state, and no other name keeps them past the run
+                metrics = fn(params, state, batch)[2]
             loss = metrics["loss"]
             loss = float(loss.full_tensor() if mesh is not None else loss)
             torch.cuda.synchronize()
@@ -3860,7 +3878,8 @@ def sharded_train_child(workdir: str) -> dict:
                      "flash_route_launches": dict(flash_ops.ROUTE_LAUNCHES),
                      "flash_launches": flash_ops.LAUNCHES,
                      "collectives": cost.summarize_collectives(records),
-                     "peak_device_bytes": torch.cuda.max_memory_allocated()}
+                     "base_memory_bytes": base,
+                     "peak_own_bytes": torch.cuda.max_memory_allocated() - base}
         leaves = pt.flatten_with_paths(params)
         if mesh is None:
             finals = {p: x.cpu() for p, x in leaves}
@@ -3869,9 +3888,47 @@ def sharded_train_child(workdir: str) -> dict:
                 float((x.full_tensor() - finals[p].cuda()).abs().max())
                 for p, x in leaves)
         del params, state, leaves
-        torch.cuda.reset_peak_memory_stats()
+    out["prefill"] = sharded_prefill(cfg, host, dm, flash_ops)
     dist.destroy_process_group()
     return out
+
+
+def sharded_prefill(cfg, host, dm, flash_ops) -> dict:
+    """Phase 14 (a)'s prefill: qwen2-1.5b's bf16 params (drawn from
+    ``PRNGKey(0)`` in float32, then cast) and a SHARDED_PREFILL batch of
+    ``make_batch``'s tokens as DTensors on the (1, 1) mesh, laid out by the
+    serve rules; one prefill under ``no_grad``, its own peak measured as
+    the train step's is."""
+    from repro_torch import random as R
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.launch.api import distribute_structs
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_prefill_step, sharded_serve_inputs
+    from repro_torch.launch.train import make_batch
+
+    B, S = SHARDED_PREFILL["batch"], SHARDED_PREFILL["seq"]
+    free_device_memory()
+    base = torch.cuda.memory_allocated()
+    fn, api, rules = build_prefill_step(cfg, "cuda", mesh=dm)
+    params = pt.tree_map(lambda x: x.to(torch.bfloat16), api.init_params(R.PRNGKey(0)))
+    p_st, b_st = sharded_serve_inputs(cfg, InputShape("prefill", S, B, "prefill"), rules)
+    params = distribute_structs(p_st, dm, params)
+    batch = distribute_structs(b_st, dm, {"tokens": make_batch(cfg, 0, B, S, "cuda")["tokens"]})
+    free_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = fn(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    logits = logits.full_tensor()
+    return {"base_memory_bytes": base,
+            "peak_own_bytes": torch.cuda.max_memory_allocated() - base,
+            "ms_first_call": ms, "logits_shape": list(logits.shape),
+            "logits_finite": bool(torch.isfinite(logits).all()),
+            "flash_route_launches": dict(flash_ops.ROUTE_LAUNCHES)}
 
 
 def accounting_child() -> dict:
@@ -3920,12 +3977,13 @@ def accounting_child() -> dict:
         if mine != theirs:
             raise RuntimeError(f"{arch}: {mine} collectives counted at one layer, "
                                f"CommDebugMode saw {theirs}")
+        memory = rec["memory"]
         out["combos"][f"{arch}__{shape}__{rec['mesh']}"] = {
-            "mesh_shape": rec["mesh_shape"],
-            "collectives": {k: v for k, v in coll.items() if k != "extrapolated"},
-            "counted_depths": coll["extrapolated"]["depths"],
+            "mesh_shape": rec["mesh_shape"], "collectives": coll,
             "count_one_layer": mine, "comm_debug_mode_one_layer": theirs,
-            "flops": rec["cost"]["flops"], "seconds": seconds}
+            "memory": {k: v for k, v in memory.items() if k != "argument_bytes"},
+            "cost": rec["cost"], "roofline": rec["roofline"],
+            "extrapolated": "extrapolated" in rec, "seconds": seconds}
 
     t0 = time.perf_counter()
     mesh = AbstractMesh(("pod", "data", "model"), (2, 2, 2))
@@ -3988,6 +4046,81 @@ def accounting_child() -> dict:
                            "forward_ratio": PSGF_COMM_FORWARD, "table": table,
                            "local_step": {**local_step, "config": PSGF_LOCAL_STEP},
                            "seconds": time.perf_counter() - t0}
+    out["one_by_one"] = account_one_by_one(DR, cost)
+    return out
+
+
+def account_one_by_one(DR, cost) -> dict:
+    """Phase 14 (b)'s estimates of (a)'s steps: qwen2-1.5b's SHARDED_TRAIN
+    step (Adam with its 1cycle, float32 moments) and a SHARDED_PREFILL
+    prefill (bf16 params) over DTensors on a (1, 1) mesh of the accounting
+    group, per device; their FLOPs against the global counts (equal on one
+    rank); the plain step's ``one_device_peak`` beside them; the prefill
+    counted once more on fake tensors (the dry run counts on meta ones:
+    equal, on this torch too)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.optim import Adam, one_cycle
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    mesh = AbstractMesh(("data", "model"), (1, 1))
+    shapes = {"train": InputShape("train", SHARDED_TRAIN["seq"], SHARDED_TRAIN["batch"],
+                                  "train"),
+              "prefill": InputShape("prefill", SHARDED_PREFILL["seq"],
+                                    SHARDED_PREFILL["batch"], "prefill")}
+    optimizer = Adam(lr=one_cycle(3e-4, SHARDED_TRAIN["steps"]))
+    out = {}
+    for kind, shape in shapes.items():
+        rec = DR.account_step(cfg, shape, mesh, optimizer=optimizer)
+        if "error" in rec["memory"]:
+            raise RuntimeError(f"(1, 1) {kind}: {rec['memory']['error']}")
+        if rec["cost"]["flops"] != rec["cost"]["flops_global"]:
+            raise RuntimeError(f"(1, 1) {kind}: {rec['cost']['flops']} FLOPs a device, "
+                               f"{rec['cost']['flops_global']} in all")
+        out[kind] = {"memory": {k: v for k, v in rec["memory"].items()
+                                if k != "argument_bytes"},
+                     "cost": rec["cost"], "roofline": rec["roofline"]}
+    out["train"]["one_device_peak"] = DR.one_device_peak(
+        cfg, SHARDED_TRAIN["batch"], SHARDED_TRAIN["seq"])["peak_bytes"]
+    fn, args = DR.step_inputs(cfg, shapes["prefill"], mesh)
+    with torch.no_grad():
+        counts = [cost.account(fn, *args, fake=fake) for fake in (True, False)]
+    if counts[0] != counts[1]:
+        raise RuntimeError("the prefill's counts on fake and on meta tensors differ: "
+                           f"{counts[0]['peak_bytes']} / {counts[1]['peak_bytes']}")
+    out["fake_equals_meta"] = True
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_peaks(card: dict, estimates: dict) -> dict:
+    """(a)'s peaks on the card against (b)'s per-device estimates: one
+    line each (estimate, measured, ratio, the card's name and power limit);
+    fails the phase where the train step's or the prefill's estimate is
+    off by more than TRAIN_PEAK_RTOL / PREFILL_PEAK_RTOL of the measured
+    peak. The plain step is reported beside ``one_device_peak``."""
+    info = card_info()
+    rows = {"sharded_train": (card["sharded"], estimates["train"]["memory"]["peak_bytes"],
+                              TRAIN_PEAK_RTOL),
+            "prefill": (card["prefill"], estimates["prefill"]["memory"]["peak_bytes"],
+                        PREFILL_PEAK_RTOL),
+            "plain_train": (card["plain"], estimates["train"]["one_device_peak"], None)}
+    out, off = {}, []
+    for name, (run, estimate, rtol) in rows.items():
+        measured = run["peak_own_bytes"]
+        ratio = estimate / measured
+        log(f"phase 14 peak {name}: estimate {estimate / 1e9:.4f} GB, measured "
+            f"{measured / 1e9:.4f} GB, estimate / measured {ratio:.5f} ({info}; "
+            f"{run['base_memory_bytes'] / 1e9:.4f} GB allocated before)")
+        out[name] = {"estimate_bytes": estimate, "measured_bytes": measured,
+                     "estimate_over_measured": ratio, "rtol": rtol}
+        if rtol is not None and abs(ratio - 1) > rtol:
+            off.append(f"{name}: estimate {estimate} B against {measured} B "
+                       f"measured, beyond {rtol}")
+    if off:
+        raise RuntimeError("phase 14 peaks: " + "; ".join(off))
     return out
 
 
@@ -4042,6 +4175,11 @@ def drive_collectives() -> dict:
         raise RuntimeError(f"the (1, 1) mesh's step sent bytes: "
                            f"{sharded['collectives']}")
     card["max_abs_loss_delta"] = delta
+    prefill = card["prefill"]
+    if not prefill["logits_finite"] or prefill["flash_route_launches"] != {
+            "scalar": 0, "short": 0, "tensor_core": cfg.num_layers}:
+        raise RuntimeError(f"the (1, 1) prefill: {prefill}")
+    card["peaks"] = check_peaks(card, reports["accounting"]["one_by_one"])
     return {"card": card_info(), "sharded_train": card,
             "accounting": reports["accounting"],
             "flash_launches": sharded["flash_launches"],

@@ -39,6 +39,25 @@ def mesh_of(*tensors):
     return meshes.pop()
 
 
+def shard_offset(size: int, mesh, placements, dim: int) -> int:
+    """The global index, along ``dim`` of ``size`` elements, of this
+    rank's first element under ``placements``: DTensor's even chunks
+    (``ceil(size / n)``, the last ones short or empty), the mesh dimensions
+    that shard ``dim`` taken left to right. In Python ints, so it holds
+    under a ``FakeTensorMode`` (the dry run's), where DTensor's own
+    ``compute_local_shape_and_global_offset`` makes a tensor of the
+    offsets and cannot read it back."""
+    coordinate = mesh.get_coordinate()
+    offset = 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(i))
+            start = min(chunk * coordinate[i], size)
+            offset += start
+            size = min(chunk, size - start)
+    return offset
+
+
 def run_local(fn, mesh, args, in_placements, out_placements,
               in_grad_placements=None):
     """``fn`` on the local shards of ``args``: each tensor of ``args`` laid

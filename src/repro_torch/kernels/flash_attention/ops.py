@@ -18,8 +18,9 @@
     Anything the kernels do not take RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`), the same
     function computed densely; ``meta`` tensors (the dry run's,
-    ``launch.dryrun``) run it on shapes alone under the kernel's autograd,
-    and nothing launches;
+    ``launch.dryrun``) get the kernel's output alone under the kernel's
+    autograd (``kernels._meta``: no score tensor, the plain version's
+    FLOPs by formula), and nothing launches;
   * DTensors (a step over a mesh, ``launch.steps``) run one of the above on
     each rank's local shards when the batch, or the heads (q heads and kv
     heads alike, or one kv head for all), are what is sharded; a sharded
@@ -51,7 +52,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build, _sharded
+from repro_torch.kernels import _build, _meta, _sharded
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_ref_backward)
 
@@ -177,11 +178,12 @@ def _launch(q, k, v, causal, window, kv_len, route=None):
     if len(devices) != 1:
         raise ValueError(f"q, k, v on different devices: {devices}")
     if q.device.type == "meta":
-        # the dry run (launch.dryrun): the plain version's arithmetic on
-        # shapes alone, under the kernel's autograd (its saved tensors and
-        # plain backward); nothing launches
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_len=kv_len)
+        # the dry run (launch.dryrun): the kernel's output alone, its cost
+        # by formula (kernels._meta), under the kernel's autograd (its
+        # saved tensors and plain backward); nothing launches
+        return _meta.flash_attention(q, k, v, bool(causal),
+                                     None if window is None else int(window),
+                                     None if kv_len is None else int(kv_len))
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes float32 or bfloat16, the "
                         f"same for q, k, v; got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -8,8 +8,9 @@ count.
   * CUDA tensors launch the hand-written kernel
     (``repro_torch/csrc/psgf_mix.cu``, built at first use): float32,
     contiguous, one device. Anything else RAISES — there is no fallback;
-  * CPU tensors run the plain PyTorch version (:mod:`.ref`), and so do
-    ``meta`` tensors (the dry run's, ``launch.dryrun``: shapes alone);
+  * CPU tensors run the plain PyTorch version (:mod:`.ref`); ``meta``
+    tensors (the dry run's, ``launch.dryrun``) get the kernel's outputs
+    alone (``kernels._meta``), or under autograd the plain version;
   * DTensors run one of the above on each rank's shards when the rows or
     D are split (the count then a pending sum over those mesh dimensions);
     any other split is made whole first (``kernels._sharded``).
@@ -47,7 +48,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build, _sharded
+from repro_torch.kernels import _build, _meta, _sharded
 from repro_torch.kernels.psgf_mix.ref import psgf_mix_batch_ref, psgf_mix_ref
 
 LAUNCHES = 0
@@ -144,7 +145,14 @@ def _dispatch(w_global, w_clients, mask, ref):
     if len(devices) != 1:
         raise ValueError(f"psgf_mix: tensors on different devices: {devices}")
     device = devices.pop()
-    if device.type in ("cpu", "meta"):    # meta: the dry run's shapes alone
+    if device.type == "meta" and not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (w_global, w_clients, mask))):
+        # the dry run (launch.dryrun): the kernel's outputs alone
+        # (kernels._meta); under autograd the plain version, which has one
+        mixed, count = _meta.psgf_mix(w_global, w_clients.reshape(-1, w_global.shape[0]),
+                                      mask.reshape(-1, w_global.shape[0]))
+        return mixed.reshape(w_clients.shape), count
+    if device.type in ("cpu", "meta"):
         return ref(w_global, w_clients, mask)
     if device.type != "cuda":
         raise ValueError(f"psgf_mix runs on CUDA, CPU or meta tensors, not {device}")

@@ -10,8 +10,10 @@ SSM heads.
     float32 or bfloat16 (one type), A float32, contiguous, one device, N in
     :data:`STATE_DIMS`. Anything else RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`); ``meta``
-    tensors (the dry run's, ``launch.dryrun``) run it on shapes alone under
-    the kernel's autograd, and nothing launches.
+    tensors (the dry run's, ``launch.dryrun``) get the kernel's output and
+    state alone under the kernel's autograd (``kernels._meta``: no
+    per-position temporaries, the exponentials by formula), and nothing
+    launches.
 
 Unlike the reference's wrapper there is no ``chunk`` or ``d_block``: the
 kernel walks S and D as they are (ragged edges by loop bounds), so nothing
@@ -40,7 +42,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build, _sharded
+from repro_torch.kernels import _build, _meta, _sharded
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref, ssm_scan_ref_backward
 
 STATE_DIMS = (4, 8, 16, 32, 64)
@@ -80,9 +82,11 @@ def _launch(x, dt, Bm, Cm, A, return_state):
     """Checks, then one kernel launch on the current stream."""
     global LAUNCHES
     if x.device.type == "meta":
-        # the dry run (launch.dryrun): the plain version on shapes alone,
-        # under the kernel's autograd; nothing launches
-        return ssm_scan_ref(x, dt, Bm, Cm, A, return_state=return_state)
+        # the dry run (launch.dryrun): the kernel's output and state alone,
+        # its cost by formula (kernels._meta), under the kernel's autograd;
+        # nothing launches
+        out = _meta.ssm_scan(x, dt, Bm, Cm, A, bool(return_state))
+        return tuple(out) if return_state else out[0]
     tensors = (x, dt, Bm, Cm, A)
     if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in (dt, Bm, Cm)):
         raise TypeError("ssm_scan kernel takes float32 or bfloat16 x, dt, Bm, Cm "

@@ -74,21 +74,48 @@ def build_train_step(cfg: ModelConfig, optimizer=None, device=DEFAULT_DEVICE,
 
     With ``mesh`` (a ``DeviceMesh``) the arguments are DTensors laid out by
     the train rules; each gradient is laid out as its parameter (the
-    reduce-scatter or all-reduce of data parallelism) before the update."""
+    reduce-scatter or all-reduce of data parallelism) before the update.
+
+    ``fn`` is the composition of its two halves, which it carries as
+    attributes for the dry run (``launch.dryrun``) to count apart:
+    ``fn.gradients(params, batch) -> (grads, metrics)`` (``metrics`` with
+    ``loss``) and ``fn.apply_gradients(params, grads, opt_state) ->
+    (params, opt_state)``, which lays each gradient out as its parameter in
+    ``grads`` itself, leaf by leaf (the old layout freed as it goes), then
+    updates in place."""
     api = ModelApi(cfg, device)
     optimizer = optimizer or make_optimizer(cfg)
 
-    def train_step(params, opt_state, batch):
+    def gradients(params, batch):
         (loss, metrics), grads = pt.value_and_grad(api.loss_fn, params, batch)
+        return grads, dict(metrics, loss=loss)
+
+    def apply_gradients(params, grads, opt_state):
         if mesh is not None:
-            grads = pt.tree_map(lambda g, p: g.redistribute(p.device_mesh,
-                                                            p.placements),
-                                grads, params)
+            _lay_out_as(grads, params)
         with record_function("train.optimizer"):
             optimizer.update_(params, grads, opt_state)
-        return params, opt_state, dict(metrics, loss=loss)
+        return params, opt_state
 
-    return _on_mesh(train_step, mesh), api, optimizer
+    def train_step(params, opt_state, batch):
+        grads, metrics = gradients(params, batch)
+        apply_gradients(params, grads, opt_state)
+        return params, opt_state, metrics
+
+    fn = _on_mesh(train_step, mesh)
+    fn.gradients = _on_mesh(gradients, mesh)
+    fn.apply_gradients = _on_mesh(apply_gradients, mesh)
+    return fn, api, optimizer
+
+
+def _lay_out_as(grads, params):
+    """Each DTensor gradient of the (nested dict) tree ``grads`` laid out
+    as its parameter, replaced in ``grads`` one leaf at a time."""
+    for key, g in grads.items():
+        if isinstance(g, dict):
+            _lay_out_as(g, params[key])
+        else:
+            grads[key] = g.redistribute(params[key].device_mesh, params[key].placements)
 
 
 def abstract_opt_state(api: ModelApi, optimizer):

@@ -415,10 +415,13 @@ def _to_cache_layout(seq_arrays, slot_pos, phys_target: int, Stot: int):
     (the ring-buffer invariant decode_attention relies on). seq_arrays:
     tensors with the sequence on dim 1; slot_pos: (Stot,) absolute positions.
 
-    If phys_target >= Stot: identity layout + right-padding (slot_pos=-1).
-    Else: keep the last phys_target positions, rolled by Stot % phys_target.
+    If phys_target >= Stot: identity layout + right-padding (slot_pos=-1;
+    none, and no copy, when they are equal). Else: keep the last
+    phys_target positions, rolled by Stot % phys_target.
     """
-    if phys_target >= Stot:
+    if phys_target == Stot:
+        return list(seq_arrays), slot_pos
+    if phys_target > Stot:
         pad = phys_target - Stot
         out = [F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in seq_arrays]
         sp = F.pad(slot_pos, (0, pad), value=-1)

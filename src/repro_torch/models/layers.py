@@ -1199,7 +1199,6 @@ def _embed_sharded(table, tokens):
     pending sum, as a vocab-parallel embedding); else a split of the
     table's features stays; anything else is made whole."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     from repro_torch.kernels import _sharded
 
@@ -1219,8 +1218,7 @@ def _embed_sharded(table, tokens):
             rows.append((R,) * 4)
     t_in, w_in, out, w_grad = (tuple(r[j] for r in rows) for j in range(4))
     split = any(p.is_shard(0) for p in w_in)
-    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, w_in)
-    lo = offset[0]
+    lo = _sharded.shard_offset(table.shape[0], mesh, w_in, 0)
 
     def lookup(tok, tab):
         idx = tok.long()
@@ -1421,7 +1419,8 @@ def _vocab_parallel_nll(logits, labels):
     mesh dimensions that shard the labels, its vocab shards kept elsewhere.
     Returns a DTensor placed as ``labels``."""
     from torch.distributed.tensor import DTensor, Replicate
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.kernels import _sharded
 
     mesh = logits.device_mesh
     V = logits.ndim - 1
@@ -1433,9 +1432,9 @@ def _vocab_parallel_nll(logits, labels):
                  for lp, xp in zip(lab, logits.placements))
     logits = logits.redistribute(mesh, want)
     labels = labels.redistribute(mesh, lab)
-    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, want)
+    offset = _sharded.shard_offset(logits.shape[V], mesh, want, V)
     groups = [mesh.get_group(i) for i, p in enumerate(want) if p.is_shard(V)]
     nll = _VocabNLL.apply(logits.to_local(), labels.to_local().long(),
-                          offset[V], groups)
+                          offset, groups)
     return DTensor.from_local(nll, mesh, lab, run_check=False,
                               shape=labels.shape, stride=labels.stride())

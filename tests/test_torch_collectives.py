@@ -7,12 +7,14 @@ Every case that opens a process group does so in a child process, so that
 no default group is left in the test worker: the children start together
 at the first test that needs one (a ``fake`` group of the production
 meshes' 512 ranks for the accounting cases, one for the model steps on a
-(2, 2, 2) mesh, a real one-rank gloo group on the CPU, and a real gloo
-group of four ranks, a (2, 2) mesh on which every shard holds data, for
-the sharded arithmetic), and each prints one JSON report (the four ranks'
-group through rank 0). The bytes model and the cross-pod classifier are
-held against the reference's own parser (``repro.launch.hlo_analysis``) on the
-HLO lines the same collectives would be.
+(2, 2, 2) mesh, a real one-rank gloo group on the CPU, a real gloo group
+of four ranks, a (2, 2) mesh on which every shard holds data, for the
+sharded arithmetic and its peak, and the reference on 8 XLA host
+devices), and each prints one JSON report (the four ranks' group through
+rank 0). The bytes model and the cross-pod classifier are held against the
+reference's own parser (``repro.launch.hlo_analysis``) on the HLO lines
+the same collectives would be, and the per-device counts of single ops
+against its ``cost_summary`` and ``memory_summary``.
 """
 import json
 import subprocess
@@ -146,7 +148,58 @@ with M.accounting_group(512):
                            M.AbstractMesh(("pod", "data", "model"), (2, 2, 2)), "serve").table,
                        "total": got["total"]}
     out["serve"] = serve
+
+    # single ops over DTensors on the (2, 2, 2) mesh, per device, beside the
+    # reference's summaries of the same ops on 8 XLA host devices
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    def laid(shape, placements):
+        local, _ = compute_local_shape_and_global_offset(shape, dm, placements)
+        return DTensor.from_local(meta(local, torch.float32), dm, placements,
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    rows, cols = (R_, Shard(0), R_), (R_, R_, Shard(1))
+    single = {
+        "dot_rows": (lambda x, w: x @ w, laid((64, 32), rows), laid((32, 48), (R_,) * 3)),
+        "dot_contract": (lambda x, w: (x @ w).redistribute(dm, (R_,) * 3),
+                         laid((64, 32), cols), laid((32, 48), (R_, R_, Shard(0)))),
+        "exp": (torch.exp, laid((64, 32), (R_, Shard(0), Shard(1)))),
+        "tanh": (torch.tanh, laid((64, 32), (R_, Shard(0), Shard(1)))),
+        "row_sum": (lambda x: x.sum(dim=1), laid((64, 32), rows)),
+    }
+    out["single_ops"] = {}
+    for name, (fn, *args) in single.items():
+        with torch.no_grad():
+            got = cost.account(fn, *args, pod_size=4)
+        out["single_ops"][name] = {k: got[k] for k in (
+            "flops", "bytes_accessed", "transcendentals", "argument_bytes",
+            "output_bytes", "alias_bytes")}
+
 out["after"] = torch.distributed.is_initialized()
+# the dry run's own accounting group from here on (one per process)
+# reduced qwen2's train step on a (1, 1) mesh: the one-device step
+import dataclasses
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.shapes import InputShape
+small = get_config("qwen2-1.5b").reduced()
+shape = InputShape("x", 32, 2, "train")
+one = DR.count_step(small, shape, M.AbstractMesh(("data", "model"), (1, 1)))
+out["one_by_one"] = {"flops": one["flops"],
+                     "flops_global": DR.count_flops(small, shape)["flops"],
+                     "peak": one["peak_bytes"],
+                     "one_device_peak": DR.one_device_peak(small, 2, 32)["peak_bytes"]}
+# a whole record on the production mesh
+out["record"] = DR.account_combo("qwen2-1.5b", "train_4k", True, cfg_override=small)
+# the estimates of the four gloo ranks' steps (the same optimizer's
+# memory: Adam with float32 moments)
+four = M.AbstractMesh(("data", "model"), (2, 2))
+out["four_rank_estimates"] = {}
+for arch in ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b"):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    got = DR.count_step(cfg, InputShape("x", 16, 4, "train"), four,
+                        Adam(lr=lambda t: 1e-3, eps=1.0))
+    out["four_rank_estimates"][arch] = got["peak_bytes"]
 print(json.dumps(out))
 """
 
@@ -161,9 +214,10 @@ mesh = AbstractMesh(("pod", "data", "model"), (2, 2, 2))
 shape = InputShape("t", 16, 8, "train")
 out = {}
 for arch in ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b"):
-    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=3)
-    fit = DR.count_collectives(cfg, shape, mesh)
-    out[arch] = {"fit": fit, "direct": DR.step_collectives(cfg, shape, mesh)}
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=4)
+    fit = DR.count_step(cfg, shape, mesh, extrapolate=True)
+    direct = DR.count_step(cfg, shape, mesh, extrapolate=False)
+    out[arch] = {"fit": fit, "direct": direct}
     # torch's own counter over the same step
     from torch.distributed.tensor.debug import CommDebugMode
     with CommDebugMode() as comm:
@@ -255,7 +309,7 @@ print(json.dumps(out))
 """
 
 _FOUR_RANKS_CHILD = r"""
-import dataclasses, json, sys
+import contextlib, dataclasses, json, sys
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -274,6 +328,7 @@ from repro_torch.launch.steps import build_train_step, sharded_train_inputs
 from repro_torch.launch.train import make_batch
 from repro_torch.optim import Adam
 from repro_torch.sharding.rules import make_rules
+from torch.distributed._tools.mem_tracker import MemTracker
 
 store, rank = sys.argv[1], int(sys.argv[2])
 torch.set_num_threads(1)
@@ -282,7 +337,7 @@ dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
 am = M.AbstractMesh(("data", "model"), (2, 2))
 dm = M.device_mesh(am, "cpu")
 R_ = Replicate()
-out = {"train": {}, "kernels": {}}
+out = {"train": {}, "kernels": {}, "peaks": {}}
 
 def err(got, want):
     got = got.full_tensor() if hasattr(got, "full_tensor") else got
@@ -308,8 +363,19 @@ for arch in ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b"):
     for step in range(2):
         batch = make_batch(cfg, step, B, S, "cpu")
         _, _, m0 = fn0(p0, o0, batch)
-        with cost.counting_collectives() as recs:
-            _, _, m1 = fn1(p1, o1, distribute_structs(bs, dm, batch))
+        laid = distribute_structs(bs, dm, batch)
+        with contextlib.ExitStack() as stack:
+            if step == 0:
+                # rank 0's peak on its real shards, the step's arguments
+                # counted from the start
+                tracker = MemTracker()
+                tracker.track_external(p1, o1, laid)
+                stack.enter_context(tracker)
+            recs = stack.enter_context(cost.counting_collectives())
+            _, _, m1 = fn1(p1, o1, laid)
+        if step == 0:
+            out["peaks"][arch] = sum(
+                dev["Total"] for dev in tracker.get_tracker_snapshot("peak").values())
         steps.append({
             "loss": [float(m0["loss"]), float(m1["loss"].full_tensor())],
             "param_err": max(err(b, a) for a, b in zip(pt.leaves(p0), pt.leaves(p1))),
@@ -370,8 +436,37 @@ if rank == 0:
     print(json.dumps(out))
 """
 
+# the reference's summaries of the accounting child's single ops: each op
+# jitted with the same layouts on a (2, 2, 2) mesh of 8 XLA host devices, as
+# ``repro.launch.dryrun`` compiles for its 512
+_REFERENCE_CHILD = r"""
+import json
+import jax, jax.numpy as jnp
+import numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.launch import hlo_analysis
+
+mesh = Mesh(np.array(jax.devices()).reshape(2, 2, 2), ("pod", "data", "model"))
+sh = lambda *spec: NamedSharding(mesh, P(*spec))
+cases = {
+    "dot_rows": (lambda x, w: x @ w, [((64, 32), sh("data")), ((32, 48), sh())], sh("data")),
+    "dot_contract": (lambda x, w: x @ w, [((64, 32), sh(None, "model")),
+                                          ((32, 48), sh("model"))], sh()),
+    "exp": (jnp.exp, [((64, 32), sh("data", "model"))], sh("data", "model")),
+    "tanh": (jnp.tanh, [((64, 32), sh("data", "model"))], sh("data", "model")),
+    "row_sum": (lambda x: x.sum(axis=1), [((64, 32), sh("data"))], sh("data")),
+}
+out = {}
+for name, (fn, ins, out_sharding) in cases.items():
+    args = [jax.ShapeDtypeStruct(shape, jnp.float32, sharding=s) for shape, s in ins]
+    compiled = jax.jit(fn, out_shardings=out_sharding).lower(*args).compile()
+    out[name] = {"cost": hlo_analysis.cost_summary(compiled),
+                 "memory": hlo_analysis.memory_summary(compiled)}
+print(json.dumps(out))
+"""
+
 _CHILDREN = {"accounting": _ACCOUNTING_CHILD, "steps": _STEPS_CHILD,
-             "one_rank": _ONE_RANK_CHILD}
+             "one_rank": _ONE_RANK_CHILD, "reference": _REFERENCE_CHILD}
 FOUR_RANKS = 4
 _REPORTS = {}
 
@@ -387,9 +482,13 @@ def reports(tmp_path_factory):
                 for name, code in _CHILDREN.items()}
         argv.update({f"four_ranks/{r}": [_FOUR_RANKS_CHILD, str(tmp / "store4"), str(r)]
                      for r in range(FOUR_RANKS)})
+        reference_env = dict(env, JAX_PLATFORMS="cpu",
+                             XLA_FLAGS="--xla_force_host_platform_device_count=8")
         procs = {name: subprocess.Popen(
-            [sys.executable, "-c"] + args, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for name, args in argv.items()}
+            [sys.executable, "-c"] + args,
+            env=reference_env if name == "reference" else env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name, args in argv.items()}
         try:
             for name, proc in procs.items():
                 out, err = proc.communicate(timeout=600)
@@ -497,18 +596,33 @@ def test_every_shard_shape_is_the_structs(reports):
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "phi3.5-moe-42b-a6.6b"])
 def test_sharded_train_step_count_fits_over_depth(reports, arch):
-    """Reduced qwen2 and phi3.5-moe train steps over a (2, 2, 2) fake mesh:
-    the dry run's dict has the reference's keys, and its fit from depths 1
-    and 2, evaluated at depth 3, equals a direct count at depth 3."""
+    """Reduced qwen2 and phi3.5-moe train steps over a (2, 2, 2) fake mesh
+    at depth 4: the dry run's fit from depths 2 and 3 (the forward and
+    backward fitted, each phase's peak on its own, the update counted at
+    depth 4) equals the direct count of the whole step in FLOPs, bytes
+    accessed, transcendentals, argument / output / alias bytes, the
+    forward's and the update's peaks, the step's peak, and the
+    collectives' dict, which has the reference's keys. The backward's peak
+    is the largest of the peaks of ops whose live bytes grow with the depth
+    at different rates, so a fit through two depths is at most the count
+    (the largest of affine functions is convex): at depth 4 reduced qwen2's
+    backward already peaks in another op than at depths 2 and 3."""
     rep = reports["steps"][arch]
     fit, direct = rep["fit"], rep["direct"]
-    assert set(fit) - {"extrapolated"} <= REFERENCE_KEYS
-    assert set(direct) <= REFERENCE_KEYS
-    assert [p["depths"]["num_layers"] for p in fit["extrapolated"]["points"]] == [1, 2]
-    assert {k: v for k, v in fit.items() if k != "extrapolated"} == {
-        k: int(v) for k, v in direct.items()}
-    assert 0 < fit["cross_pod"] < fit["total"]
-    assert fit["all-gather"] > 0 and fit["all-reduce"] > 0
+    assert [p["depths"]["num_layers"] for p in fit["extrapolated"]["points"]] == [2, 3]
+    assert "extrapolated" not in direct
+    fit_peaks, direct_peaks = fit.pop("peak_by_phase"), direct.pop("peak_by_phase")
+    assert {k: v for k, v in fit.items() if k != "extrapolated"} == direct
+    assert fit_peaks["forward"] == direct_peaks["forward"]
+    assert fit_peaks["after"] == direct_peaks["after"] == direct["peak_bytes"]
+    assert fit_peaks["backward"] <= direct_peaks["backward"]
+    coll = direct["collectives"]
+    assert set(coll) <= REFERENCE_KEYS
+    assert 0 < coll["cross_pod"] < coll["total"]
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+    assert set(direct_peaks) == {"forward", "backward", "after"}
+    assert direct["peak_bytes"] == max(direct_peaks.values())
+    assert direct["alias_bytes"] > 0 and direct["bytes_accessed"] > direct["peak_bytes"]
     # as many collectives as torch's CommDebugMode sees in the same step
     assert rep["depth1"] == rep["comm_debug_depth1"] > 0
 
@@ -682,3 +796,84 @@ def test_spec_to_placements():
         spec_to_placements(("clients",), mesh)
     one_card = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
     assert spec_to_placements(("data", "model"), one_card) == (Replicate(),) * 2
+
+
+# where the reference's counts differ from the port's by definition: XLA
+# counts a flop for each element an all-reduce or a reduction adds (the
+# contracting split's all-reduce of the 64 x 48 result; the row sum's 31
+# adds per row of 32, 32 rows a device), where the port counts matmul FLOPs
+# only; and XLA's reduce reads its 4-byte init value as an operand
+XLA_ELEMENTWISE_FLOPS = {"dot_contract": 64 * 48, "row_sum": 32 * 31}
+XLA_REDUCE_INIT_BYTES = {"row_sum": 4}
+
+
+@pytest.mark.parametrize("case", ["dot_rows", "dot_contract", "exp", "tanh", "row_sum"])
+def test_single_op_counts_equal_the_reference_summaries(reports, case):
+    """One op over DTensors on a (2, 2, 2) fake mesh against the
+    reference's ``cost_summary`` and ``memory_summary`` of the same op,
+    jitted with the same layouts on 8 XLA host devices: flops,
+    transcendentals, bytes accessed (a dot, its all-reduce, elementwise
+    ops, a reduction: nothing XLA fuses or re-lays out), argument and
+    output bytes per device, no alias; the differences by definition are
+    the named constants above."""
+    mine = reports["accounting"]["single_ops"][case]
+    ref = reports["reference"][case]
+    assert mine["flops"] + XLA_ELEMENTWISE_FLOPS.get(case, 0) == ref["cost"].get("flops", 0)
+    assert mine["transcendentals"] == ref["cost"].get("transcendentals", 0)
+    assert mine["bytes_accessed"] + XLA_REDUCE_INIT_BYTES.get(case, 0) == (
+        ref["cost"]["bytes_accessed"])
+    assert mine["argument_bytes"] == ref["memory"]["argument_size_in_bytes"]
+    assert mine["output_bytes"] == ref["memory"]["output_size_in_bytes"]
+    assert mine["alias_bytes"] == ref["memory"]["alias_size_in_bytes"] == 0
+
+
+def test_one_by_one_mesh_counts_are_the_one_device_step(reports):
+    """Reduced qwen2's train step over DTensors on a (1, 1) mesh: its
+    per-device FLOPs are the global count exactly, and its per-device
+    peak is within 1% of ``one_device_peak`` of the same step (equal at
+    this size)."""
+    one = reports["accounting"]["one_by_one"]
+    assert one["flops"] == one["flops_global"] > 0
+    assert abs(one["peak"] - one["one_device_peak"]) <= 0.01 * one["one_device_peak"]
+
+
+def test_record_holds_the_reference_summaries_per_device(reports):
+    """A whole record on 2 x 16 x 16 (reduced qwen2, train_4k): memory and
+    cost in the reference's keys, per device; the roofline from the
+    counted FLOPs and bytes accessed."""
+    from repro_torch.common import hw
+
+    rec = reports["accounting"]["record"]
+    memory, counted, roof = rec["memory"], rec["cost"], rec["roofline"]
+    args = memory["argument_size_in_bytes"]
+    assert args == memory["argument_bytes"]["total"] > 0
+    assert memory["temp_size_in_bytes"] == memory["peak_bytes"] - args > 0
+    assert memory["peak_bytes"] == max(memory["peak_by_phase"].values())
+    # the params and moments are updated in place: outputs that are arguments
+    assert 0 < memory["alias_size_in_bytes"] < memory["output_size_in_bytes"]
+    assert memory["alias_size_in_bytes"] == (memory["argument_bytes"]["params"]
+                                             + memory["argument_bytes"]["opt_state"])
+    assert memory["fits_hbm"] == (memory["peak_bytes"] <= hw.HBM_BYTES)
+    assert counted["flops"] > 0 and counted["transcendentals"] > 0
+    assert counted["bytes_accessed"] > memory["peak_bytes"]
+    assert "flops_per_device_ideal" not in counted and counted["flops_global"] > 0
+    assert roof["compute_s"] == pytest.approx(counted["flops"] / hw.BF16_FLOP_PER_S)
+    assert roof["memory_s"] == pytest.approx(counted["bytes_accessed"] / hw.HBM_BYTES_PER_S)
+    assert rec["collectives"]["cross_pod"] > 0
+
+
+# the fake-group estimate against rank 0's MemTracker peak on its real
+# shards: the same ops on the same shard shapes; MemTracker counts each
+# CPU storage's bytes as the counter does
+FOUR_RANK_PEAK_RTOL = 0.01
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "phi3.5-moe-42b-a6.6b"])
+def test_four_rank_peak_matches_the_fake_group_estimate(reports, arch):
+    """Reduced qwen2 and phi3.5-moe (float32) on the (2, 2) mesh: rank 0's
+    peak while its first sharded step runs on four gloo ranks with real
+    tensors (``MemTracker``, arguments counted from the start) against the
+    dry run's per-device peak of the same step on the fake group."""
+    measured = reports["four_ranks"]["peaks"][arch]
+    estimate = reports["accounting"]["four_rank_estimates"][arch]
+    assert abs(measured - estimate) <= FOUR_RANK_PEAK_RTOL * measured, (measured, estimate)

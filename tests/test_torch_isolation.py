@@ -283,7 +283,8 @@ def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):
 
 def test_dry_run_needs_no_gpu(tmp_path):
     """The dry run is the one entry point on ``meta``: it runs here, and its
-    record holds the argument bytes, FLOPs and H100 roofline."""
+    record holds the per-device memory and cost (argument bytes, peak,
+    FLOPs, bytes accessed) and the H100 roofline."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                DRYRUN_OUT=str(tmp_path), CUDA_VISIBLE_DEVICES="")
     subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -291,7 +292,9 @@ def test_dry_run_needs_no_gpu(tmp_path):
                    capture_output=True, text=True, timeout=120)
     rec = json.loads((tmp_path / "qwen2-1.5b__decode_32k__single.json").read_text())
     assert rec["status"] == "ok" and rec["cost"]["flops"] > 0
-    assert rec["memory"]["argument_bytes_per_device"]["total"] > 0
+    assert rec["cost"]["bytes_accessed"] > 0
+    assert rec["memory"]["argument_bytes"]["total"] > 0
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_size_in_bytes"]
     assert rec["roofline"]["bound_by"] in ("bytes", "operations")
     # counted on a fake group of the production mesh's 256 ranks, by this
     # torch's DTensor (its choice of collectives depends on the version)
