@@ -19,7 +19,10 @@ Phases, each of which raises (exit code != 0) on failure:
      against dense attention; the scalar kernel at long sequences and fp32
      at hd 64 / 128; the tensor-core kernel, bf16 at hd 64 and 128, within
      its relative bound on GQA, windowed, ragged, padded, empty and
-     past-the-grid cases, each call on the route it should take; psgf_mix
+     past-the-grid cases, fewer work tiles than SMs and many more, G = 5, 6
+     and 130, causal with Sq != Skv, each call on the route it should take,
+     repeated and graph-replayed calls bitwise equal, and its ``-Xptxas -v``
+     registers and spills per head dim (none may spill); psgf_mix
      bitwise at K = 21 / 27 / 10 clients of D = 273,284, a ragged D, a
      non-binary mask and the K = 1 case, its count across CUDA-graph
      replays, one kernel per call), and time the kernel, the plain version
@@ -374,7 +377,31 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
              BF16_TOL),
             (f"tc_batch70000_hd{hd}", (70_000, 15, 15, 2, 1, hd), False, None,
              None, bf16, BF16_TOL),
+            # the persistent grid and its row blocks: fewer work tiles than
+            # SMs; G = 5 and 6 (12 and 10 positions a row block, so blocks
+            # end inside no position and rows 60-63 are padding); G above 64
+            # (head chunks of one position); causal with Sq != Skv both
+            # ways; a ragged kv_len; a window without causal
+            (f"tc_few_tiles_hd{hd}", (1, 64, 64, 8, 8, hd), False, None, None,
+             bf16, BF16_TOL),
+            (f"tc_g5_hd{hd}", (2, 100, 100, 10, 2, hd), True, None, None, bf16,
+             BF16_TOL),
+            (f"tc_g6_window17_hd{hd}", (2, 70, 70, 12, 2, hd), True, 17, None,
+             bf16, BF16_TOL),
+            (f"tc_g130_hd{hd}", (1, 40, 40, 130, 1, hd), True, None, None, bf16,
+             BF16_TOL),
+            (f"tc_causal_sq_lt_skv_hd{hd}", (2, 100, 300, 8, 2, hd), True, None,
+             None, bf16, BF16_TOL),
+            (f"tc_causal_sq_gt_skv_hd{hd}", (2, 300, 100, 8, 2, hd), True, None,
+             None, bf16, BF16_TOL),
+            (f"tc_causal_kv_len77_hd{hd}", (2, 200, 200, 6, 3, hd), True, None,
+             77, bf16, BF16_TOL),
+            (f"tc_window50_bidir_hd{hd}", (1, 300, 300, 4, 2, hd), False, 50,
+             None, bf16, BF16_TOL),
         ]
+    # more work tiles (8,192) than the grid's blocks take in one round
+    cases.append(("tc_many_tiles_hd128", (64, 512, 512, 32, 8, 128), True, None,
+                  None, bf16, BF16_TOL))
     errs, ratios, routes = {}, {}, {}
     for name, shape, causal, window, kv_len, dtype, tol in cases:
         q, k, v = attention_inputs(gen, *shape, dtype)
@@ -433,9 +460,11 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
                            for a, b in zip(leaves, plain))
     if not errs["backward"] <= 2e-5:
         raise RuntimeError(f"backward: max |grad err| {errs['backward']}")
+    repeats = check_tensor_core_repeats(ops, gen)
     log(json.dumps({"kernel_cases": {"flash_attention": errs,
                                      "flash_attention_bf16_bound_ratio": ratios,
-                                     "flash_attention_routes": routes}}))
+                                     "flash_attention_routes": routes,
+                                     "tensor_core_repeats": repeats}}))
 
     # times at the serving bucket and at training's K x 32 rows: the short
     # route, the scalar kernel on the same inputs (its route forced), the
@@ -500,6 +529,59 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
         "training_shape": times["training"],
         "serving_63_tokens_shape": times["serving_63_tokens"],
     }
+
+
+# the tensor-core kernel's design, for the kernels line (its source note
+# says why)
+TENSOR_CORE_DESIGN = (
+    "warp-specialised: 1 producer warpgroup (setmaxnreg 40; one thread issues "
+    "every TMA load of Q and the K/V ring) + 2 consumer warpgroups (232), "
+    "ping-pong on named barriers, S_j with P_{j-1}.V_{j-1} in flight "
+    "(wait_group 1), Q double-buffered and O stored by TMA; persistent grid "
+    "min(SMs, work tiles), longest-first snake schedule; 128-key tiles at hd "
+    "64, 64-key at hd 128, 4 stages")
+
+
+def tensor_core_ptxas(build) -> dict:
+    """``-Xptxas -v``'s registers and spills of the tensor-core kernel per
+    head dim; raises if either spills."""
+    report = build.parse_ptxas(build.build_log("flash_attention_tc"))
+    out = {f"hd{hd}": entry for name, entry in report.items()
+           for hd in (64, 128) if f"ILi{hd}E" in name}
+    if sorted(out) != ["hd128", "hd64"] or any(
+            e.get("spill_stores", 1) or e.get("spill_loads", 1) for e in out.values()):
+        raise RuntimeError(f"tensor-core kernel's ptxas report: {out}")
+    log(json.dumps({"tensor_core_ptxas": out}))
+    return out
+
+
+def check_tensor_core_repeats(ops, gen) -> dict:
+    """The tensor-core kernel's static schedule: two eager calls, and a call
+    captured in a CUDA graph and replayed, bitwise equal to the first eager
+    call, at hd 64 and 128 (phi3.5-moe's PSGF shape and seamless's training
+    shape, causal)."""
+    out = {}
+    for shape in ((4, 512, 512, 32, 8, 128), (4, 512, 512, 16, 16, 64)):
+        q, k, v = attention_inputs(gen, *shape, torch.bfloat16)
+        eager = ops.flash_attention(q, k, v, causal=True)
+        again = ops.flash_attention(q, k, v, causal=True)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ops.flash_attention(q, k, v, causal=True)
+        graph.replay()
+        torch.cuda.synchronize()
+        key = f"hd{shape[-1]}"
+        out[key] = {"eager_bitwise": bool(torch.equal(eager, again)),
+                    "graph_bitwise": bool(torch.equal(eager, captured))}
+        if not all(out[key].values()):
+            raise RuntimeError(f"tensor-core kernel at {shape}: repeated calls "
+                               f"differ {out[key]}")
+    return out
 
 
 # LocalUpdate's vmap(grad_and_value) through the kernel against the dense
@@ -1771,27 +1853,55 @@ def check_flash_hymba(ops, ref) -> dict:
             "max_abs_err_float32": errs["float32"], **record}
 
 
-def tensor_core_times(ops, ref, q, k, v, window, causal=True) -> dict:
-    """The tensor-core route's call on bf16 ``q, k, v`` timed beside its
-    plain version and ``scaled_dot_product_attention`` under the same mask,
-    with the bound (``flash_bound_ms``)."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    mask = ref.attention_mask(S, S, causal=causal, window=window, kv_len=None,
-                              device="cuda")
+def sdpa_calls(ref, q, k, v, window, causal):
+    """``{name: (fn, backend)}`` of the ``scaled_dot_product_attention``
+    calls that compute what the flash call computes, on K/V expanded to the
+    query heads: with the mask as a tensor (which keeps SDPA off its fused
+    backends) and, where no window cuts the keys and Sq == Skv, without one
+    (``is_causal=causal``); ``backend`` is the one the dispatcher picks for
+    the call (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = ref.attention_mask(Sq, Skv, causal=causal, window=window,
+                              kv_len=None, device=q.device)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
               for t in (k, v))
+
+    def backend(attn_mask, is_causal):
+        return SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, attn_mask, 0.0, is_causal)).name.lower()
+
+    calls = {"scaled_dot_product_attention(attn_mask=the same mask)":
+             (lambda: sdpa(qt, kt, vt, attn_mask=mask), backend(mask, False))}
+    if window is None and Sq == Skv:
+        calls[f"scaled_dot_product_attention(is_causal={causal})"] = (
+            lambda: sdpa(qt, kt, vt, is_causal=causal), backend(None, causal))
+    return calls
+
+
+def tensor_core_times(ops, ref, q, k, v, window, causal=True) -> dict:
+    """The tensor-core route's call on bf16 ``q, k, v`` timed beside its
+    plain version and the ``scaled_dot_product_attention`` calls of
+    ``sdpa_calls``, with the bound (``flash_bound_ms``). ``library_ms`` is
+    the faster SDPA call, named in ``library_call``; each call's time and
+    backend are in ``library_ms_by_call`` and ``library_backend_by_call``."""
     kernel_ms = timed_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                      window=window), calls=5)
     plain_ms = timed_ms(lambda: ref.flash_attention_ref(
         q, k, v, causal=causal, window=window), calls=2, reps=3)
-    library_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), calls=5)
+    calls = sdpa_calls(ref, q, k, v, window, causal)
+    by_call = {name: timed_ms(fn, calls=5) for name, (fn, _) in calls.items()}
+    library_call = min(by_call, key=by_call.get)
     bound, by, nbytes, flops, pairs = flash_bound_ms(ref, q, k, v, causal, window)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": library_ms,
-            "library_call": "scaled_dot_product_attention(attn_mask=the same mask)",
+            "bound_by": by, "library_ms": by_call[library_call],
+            "library_call": library_call, "library_ms_by_call": by_call,
+            "library_backend_by_call": {name: backend for name, (_, backend)
+                                        in calls.items()},
             "bytes": nbytes, "flops": flops, "pairs": pairs}
 
 
@@ -4231,6 +4341,7 @@ def main() -> int:
                 log(f"  {name}: {line.split(chr(39))[1]}")
             elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    tc_ptxas = tensor_core_ptxas(_build)
 
     # 3. kernels against their plain versions
     record = check_flash_attention(ops, ref, FLASH_ATTN_TOL)
@@ -4346,7 +4457,8 @@ def main() -> int:
                    "plain_ms": record["plain_ms"],
                    "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
                    "library_ms": record["library_ms"]},
-        "tensor_core": {"source": tc["source"], "launches": tc["launches"],
+        "tensor_core": {"source": tc["source"], "design": TENSOR_CORE_DESIGN,
+                        "ptxas": tc_ptxas, "launches": tc["launches"],
                         "launches_zoo_training": record["launches_zoo_training"],
                         "ms": tc["ms"], "max_abs_err": tc["max_abs_err"],
                         "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -61,6 +62,37 @@ def build_log(name: str) -> str:
     spills per kernel) from the build of ``name``'s current library."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """``-Xptxas -v`` output -> ``{entry function: {"registers", "stack_bytes",
+    "spill_stores", "spill_loads"}}``, each line read for the entry function
+    whose compilation it follows."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            out[entry].update(stack_bytes=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def _build_locked(names: Sequence[str]) -> Dict[str, str]:

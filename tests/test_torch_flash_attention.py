@@ -167,6 +167,29 @@ def test_build_names_library_by_source_hash(monkeypatch):
         _build.find_nvcc()
 
 
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z15flash_tc_kernelILi128EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z15flash_tc_kernelILi128EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z15flash_tc_kernelILi64EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z15flash_tc_kernelILi64EEv
+    32 bytes stack frame, 32 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 128 registers, used 16 barriers, 32 bytes cumulative stack size
+"""
+
+
+def test_parse_ptxas_reads_registers_and_spills_per_entry():
+    report = _build.parse_ptxas(PTXAS_LOG)
+    assert report == {
+        "_Z15flash_tc_kernelILi128EEv": dict(registers=168, stack_bytes=0,
+                                            spill_stores=0, spill_loads=0),
+        "_Z15flash_tc_kernelILi64EEv": dict(registers=128, stack_bytes=32,
+                                           spill_stores=32, spill_loads=24)}
+    assert _build.parse_ptxas("") == {}
+
+
 @pytest.mark.parametrize("case", [
     # B, Sq, Skv, H, KV, hd, causal, window, kv_len
     (2, 15, 15, 4, 4, 8, False, None, None),      # the forecaster's shape

@@ -76,6 +76,14 @@ TC_CASES = [
     (3, 63, 63, 2, 1, False, None, None),        # Sq not a multiple of 64
     (1, 130, 130, 8, 8, True, None, None),
     (70_000, 15, 15, 2, 1, False, None, None),   # B past gridDim.z
+    (1, 64, 64, 8, 8, False, None, None),        # fewer work tiles than SMs
+    (2, 100, 100, 10, 2, True, None, None),      # G = 5: 12 positions a block
+    (2, 70, 70, 12, 2, True, 17, None),          # G = 6 with a window
+    (1, 40, 40, 130, 1, True, None, None),       # G > 64: head chunks
+    (2, 100, 300, 8, 2, True, None, None),       # causal, Sq < Skv
+    (2, 300, 100, 8, 2, True, None, None),       # causal, Sq > Skv
+    (2, 200, 200, 6, 3, True, None, 77),         # causal, ragged kv_len
+    (1, 300, 300, 4, 2, False, 50, None),        # window without causal
 ]
 
 
@@ -106,6 +114,35 @@ def test_flash_tensor_core_kernel_matches_plain(cuda, case, hd):
     got = _check_tensor_core_call(q, k, v, causal, window, kv_len)
     if kv_len == 0:
         assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_more_work_tiles_than_blocks(cuda):
+    """8,192 work tiles (64 x 8 kv heads x 16 row blocks), dealt to the
+    persistent grid's blocks over many rounds."""
+    q, k, v = _inputs(13, 64, 512, 512, 32, 8, 128, cuda, torch.bfloat16)
+    _check_tensor_core_call(q, k, v, True, None, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tensor_core_repeats_and_graph_replay_are_bitwise(cuda, hd):
+    """The static schedule computes each row in one order: two eager calls,
+    and a call captured in a CUDA graph and replayed, are bitwise equal."""
+    q, k, v = _inputs(14, 4, 512, 512, 32, 8, hd, cuda, torch.bfloat16)
+    eager = flash_attention(q, k, v, causal=True)
+    assert torch.equal(eager, flash_attention(q, k, v, causal=True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention(q, k, v, causal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash_attention(q, k, v, causal=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, captured)
 
 
 @pytest.mark.cuda
