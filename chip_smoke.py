@@ -177,12 +177,26 @@ Phases, each of which raises (exit code != 0) on failure:
      ``psgf_sync_static`` at share 0.5 / 0.3 / 0.2: each exactly twice its
      shared leaves' bytes, all across pods) and PSGF-DP's local step (no
      collective). Its wall seconds are printed.
+ 15. a local mesh, several shards of this process: phase 10's nn5 cell
+     with ``client_mesh=Mesh("clients", (cuda:0, cuda:0))`` (two shards of
+     the card, each on its own stream, exchanging by device copies),
+     ``driver="scan"`` and ``"while"`` (each shard's segments captured on
+     its stream), each run twice, every run bitwise phase 10's one-process
+     scan run; ms a round beside that run's, exchange bytes and seconds,
+     graphs and replays, peak memory, the launches of psgf_mix_batch and
+     the short flash route; then phase 5's generation-0 manifest served by
+     ``ForecastServer(shard_batch=True)`` over the same two shards beside
+     the plain server: each block of a full bucket bitwise the plain
+     server's forward of that block, the bucket within ``SERVE_TOL``,
+     forecasts/s and p50/p99 of both under the same traffic, one
+     ``reload``. Where the machine has two GPUs, all of it again over
+     ``(cuda:0, cuda:1)``; otherwise a line says that no such run was made.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
 ...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``,
 ``{"zoo_last_families": ...}``, ``{"zoo_moe_vlm_training": ...}``,
-``{"collectives": ...}``, one ``{"kernels": [...]}`` line (flash
+``{"collectives": ...}``, ``{"local_mesh": ...}``, one ``{"kernels": [...]}`` line (flash
 attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
 the standard library and ``repro_torch`` (from ``src/`` beside this file)
@@ -3024,6 +3038,7 @@ def drive_distributed(mix_ops, flash_ops, host_digest) -> dict:
                        "device": r["device"]} for r in reports],
         "bitwise": same,
         "one_process_scan": {k: v for k, v in scan.items() if k != "digest"},
+        "one_process_scan_digest": scan["digest"],
         "runs": runs, "spawn_s": spawn_s,
         "serving": [r["serving"] for r in reports],
         "launches": {name: {k: [r["runs"][name]["launches"][k] for r in reports]
@@ -4296,6 +4311,208 @@ def drive_collectives() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: a local mesh, several shards of one process
+# ---------------------------------------------------------------------------
+
+LOCAL_SERVE_REQUESTS = 256  # phase 15 (2): as phase 4, 3 channels each
+
+
+def local_mesh_fl(E, R, mix_ops, flash_ops, devices, want) -> dict:
+    """Phase 15 (1) over ``devices``: phase 10's nn5 cell (its inputs from
+    phase 10's workdir) with ``client_mesh=Mesh("clients", devices)``, the
+    ``scan`` and the ``while`` driver, each run twice (the second warm),
+    every kernel count set to 0 just before each run and read after it (a
+    while run's launches are each captured segment's calls times its
+    replays, plus the eager first round); each run's digest must equal
+    ``want`` (phase 10's one-process scan run) bit for bit."""
+    from repro_torch.core.fl.partition import MeshRun
+    from repro_torch.launch.distributed import block_range
+    from repro_torch.launch.mesh import Mesh
+
+    _, model, _, _, fl, kw = host_cell(E, data=False)
+    z = np.load(os.path.join(ROOT, "build", "chip_smoke_distributed",
+                             "inputs.npz"))
+    tr, te = z["train"], z["test"]
+    blocks = [block_range(HOST_K, i, DIST_PROCESSES)
+              for i in range(DIST_PROCESSES)]
+    mesh = Mesh("clients", devices)
+    cards = sorted(set(devices), key=str)
+    counts = lambda: {"psgf_mix_batch": mix_ops.LAUNCHES,  # noqa: E731
+                      "flash_short": flash_ops.ROUTE_LAUNCHES["short"]}
+    out = {}
+    for driver in ("scan", "while"):
+        runs = []
+        for _ in range(2):
+            free_device_memory()
+            for d in cards:
+                torch.cuda.synchronize(d)
+                torch.cuda.reset_peak_memory_stats(d)
+            mix_ops.LAUNCHES = 0               # every kernel count, just before
+            flash_ops.reset_launch_counts()
+            with counting_captures(E, counts) as captured:
+                t0 = time.perf_counter()
+                h = E.run_fl(model.cfg, fl, tr, te, R.PRNGKey(SEED),
+                             driver=driver, device=devices[0],
+                             client_mesh=mesh, **kw)
+                wall = time.perf_counter() - t0
+            launches = counts()                # ... and just after
+            run = h["mesh_run"]
+            segments = MeshRun.SEGMENTS
+            for i, (_, calls) in enumerate(captured):
+                name = segments[i % len(segments)]
+                for k in launches:
+                    launches[k] += calls[k] * (run["replays"][name] - 1)
+            digest = run_digest(h, blocks)
+            same = {k: digest[k] == want[k] for k in want}
+            if not all(same.values()):
+                raise RuntimeError(f"local mesh {driver} over {devices} != "
+                                   f"the one-process scan run: {same}")
+            if not (run["sharded"] and run["shards"] == len(devices)):
+                raise RuntimeError(f"local mesh {driver}: {run}")
+            if not all(launches.values()):
+                raise RuntimeError(f"local mesh {driver}: a kernel never "
+                                   f"launched: {launches}")
+            ex, rounds = h["exchange"], h["rounds_run"]
+            runs.append({
+                "run_s": wall, "ms_per_round": 1e3 * wall / rounds,
+                "rounds": rounds, "warmup_s": run["warmup_s"],
+                "capture_s": run["capture_s"],
+                # a while run's rounds after its eager first one and the
+                # capture (the end-of-chunk evaluations included)
+                "ms_per_replayed_round": (
+                    1e3 * (run["run_s"] - run["warmup_s"] - run["capture_s"])
+                    / (rounds - 1) if run["graphs"] else None),
+                "graphs_per_shard": run["graphs"], "replays": run["replays"],
+                "peak_device_bytes": max(torch.cuda.max_memory_allocated(d)
+                                         for d in cards),
+                "launches": launches,
+                "merge": {"bytes": ex["merge"]["bytes"], "s": ex["merge"]["s"]},
+                "gather": {"bytes": ex["gather"]["bytes"],
+                           "s": ex["gather"]["s"]}})
+            del h
+        out[driver] = {"cold": runs[0], "warm": runs[1], "bitwise": same}
+        log(f"phase 15 {driver} over {[str(d) for d in devices]}: "
+            f"{runs[1]['ms_per_round']:.1f} ms a round of the warm run "
+            f"({runs[1]['ms_per_replayed_round']} replayed), launches "
+            f"{runs[1]['launches']}")
+    return out
+
+
+def local_mesh_serving(flash_ops, devices) -> dict:
+    """Phase 15 (2) over ``devices``: phase 5's generation-0 manifest served
+    by a plain server and by ``shard_batch=True`` over a batch mesh of
+    ``devices`` (``launch.mesh.make_batch_mesh`` patched): a full bucket of
+    each cluster, each block bitwise the plain server's forward of that
+    block and the bucket within ``SERVE_TOL`` of the plain server's; the
+    same traffic through both servers' queues; one ``reload``."""
+    from repro_torch.core.tasks import (read_routing_manifest,
+                                        update_routing_manifest)
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve_forecast import (ForecastServer,
+                                                   serve_requests)
+
+    root = os.path.join(ROOT, "build", "chip_smoke_local_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "build", "chip_smoke_train"), root)
+    kw = dict(denormalize=True, device=devices[0], max_batch=32)
+    plain = ForecastServer.from_manifest(root, **kw)
+    with patched(M, "make_batch_mesh",
+                 lambda axis="batch", device=None: M.Mesh(axis, devices)):
+        sharded = ForecastServer.from_manifest(root, shard_batch=True, **kw)
+    n = len(devices)
+
+    def check_bucket(x, cluster, plain_cluster):
+        got = sharded.predict(x, cluster=cluster)
+        want = plain.predict(x, cluster=plain_cluster)
+        block = x.shape[0] // n
+        blocks = [bool(np.array_equal(
+            got[i * block:(i + 1) * block],
+            plain.predict(x[i * block:(i + 1) * block], cluster=plain_cluster)))
+            for i in range(n)]
+        err = float(np.max(np.abs(got - want)))
+        if not (all(blocks) and np.isfinite(got).all()
+                and np.allclose(got, want, atol=SERVE_TOL, rtol=SERVE_TOL)):
+            raise RuntimeError(f"sharded bucket of cluster {cluster}: blocks "
+                               f"{blocks}, max |err| {err}")
+        return {"blocks_bitwise": blocks, "max_abs_err": err,
+                "bucket_bitwise": bool(np.array_equal(got, want))}
+
+    L = plain.forecaster.cfg.look_back
+    x = np.random.default_rng(SEED).standard_normal(
+        (32, 3, L)).astype(np.float32)
+    buckets = {c: check_bucket(x, c, c) for c in sorted(plain.engines)}
+    if not np.array_equal(sharded.predict(x[:1], cluster=0),
+                          plain.predict(x[:1], cluster=0)):
+        raise RuntimeError("a bucket of 1 on the sharded server differs")
+    traffic = {}
+    for name, server in (("plain", plain), ("sharded", sharded)):
+        server.warmup(channels=3)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        flash_ops.reset_launch_counts()        # every kernel count, just before
+        rep = serve_requests(server, LOCAL_SERVE_REQUESTS, 3,
+                             stations=server.routable_stations())
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        launches = flash_ops.ROUTE_LAUNCHES["short"]   # ... and just after
+        if launches < rep["batches"] or flash_ops.LAUNCHES != launches:
+            raise RuntimeError(f"{name} server: {flash_ops.ROUTE_LAUNCHES} "
+                               f"flash launches for {rep['batches']} batches")
+        latency = latency_quantiles(server)
+        traffic[name] = {"forecasts_per_sec": rep["forecasts_per_sec"],
+                         "latency_s_p50": latency[0.5],
+                         "latency_s_p99": latency[0.99],
+                         "batches": rep["batches"], "flash_short": launches}
+    policy, mapping = next(iter(read_routing_manifest(root)[1]["policies"]
+                                .items()))
+    gen, _ = update_routing_manifest(root, policy, {0: mapping["1"]})
+    if not sharded.reload() or sharded.generation != gen:
+        raise RuntimeError("the sharded server did not reload")
+    engine = sharded.engines[0]
+    shards_built = sorted({k[2] if len(k) == 3 else 0 for k in engine._free})
+    if len(engine.shards) != n or shards_built != list(range(n)):
+        raise RuntimeError(f"reload built shards {shards_built} of {n}")
+    reloaded = check_bucket(x, 0, 1)           # cluster 1's checkpoint now
+    for server in (plain, sharded):
+        server.close()
+    return {"devices": [str(d) for d in devices], "buckets": buckets,
+            "traffic": traffic, "reload": {"generation": gen,
+                                           "shards_built": shards_built,
+                                           **reloaded}}
+
+
+def drive_local_mesh(mix_ops, flash_ops, want, one_process) -> dict:
+    """Phase 15: the client axis and serving's batch axis over a local mesh
+    of two shards of ``cuda:0`` (each on its own stream), then over
+    ``cuda:0`` and ``cuda:1`` where the machine has two GPUs. ``want`` and
+    ``one_process`` are phase 10's one-process scan run's digest and
+    record."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+
+    t0 = time.perf_counter()
+    card = torch.device("cuda", 0)
+    meshes = [(card, card)]
+    if torch.cuda.device_count() > 1:
+        meshes.append((card, torch.device("cuda", 1)))
+    else:
+        log("phase 15: no run across distinct GPUs was made: "
+            f"torch.cuda.device_count() = {torch.cuda.device_count()}")
+    out = {"card": card_info(), "runs": [],
+           "one_process_scan_ms_per_round":
+               1e3 * one_process["run_s"] / HOST_ROUNDS}
+    for devices in meshes:
+        free_device_memory()
+        out["runs"].append({"devices": [str(d) for d in devices],
+                            "fl": local_mesh_fl(E, R, mix_ops, flash_ops,
+                                                devices, want),
+                            "serving": local_mesh_serving(flash_ops, devices)})
+    out["distinct_gpus"] = len(meshes) > 1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4399,6 +4616,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     distributed = drive_distributed(
         mix_ops, ops, drivers["host_vs_loop"]["host_digest"])
+    scan_digest = distributed.pop("one_process_scan_digest")
     log(json.dumps({"distributed": distributed}))
     record["launches_distributed"] = {
         run: n["flash_short"] for run, n in distributed["launches"].items()}
@@ -4432,6 +4650,25 @@ def main() -> int:
     log(f"phase 14: {collectives['seconds']:.1f} s")
     record["launches_zoo_sharded_training"] = collectives["flash_launches"]
 
+    # 15. a local mesh: the client axis and serving's batch axis over shards
+    # of this process
+    free_device_memory()
+    local = drive_local_mesh(mix_ops, ops, scan_digest,
+                             distributed["one_process_scan"])
+    log(json.dumps({"local_mesh": local}))
+    log(f"phase 15: {local['seconds']:.1f} s")
+    record["launches_local_mesh"] = [
+        {"devices": r["devices"],
+         **{d: r["fl"][d]["warm"]["launches"]["flash_short"]
+            for d in ("scan", "while")},
+         "serving": r["serving"]["traffic"]["sharded"]["flash_short"]}
+        for r in local["runs"]]
+    mix_record["launches_local_mesh"] = [
+        {"devices": r["devices"],
+         **{d: r["fl"][d]["warm"]["launches"]["psgf_mix_batch"]
+            for d in ("scan", "while")}}
+        for r in local["runs"]]
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -4445,6 +4682,7 @@ def main() -> int:
                   "launches_host": record["launches_host"],
                   "launches_flywheel": record["launches_flywheel"],
                   "launches_distributed": record["launches_distributed"],
+                  "launches_local_mesh": record["launches_local_mesh"],
                   "ms": record["ms"],
                   "ms_training_shape": record["training_shape"]["ms"]},
         "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",

@@ -22,3 +22,10 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
             f"device {str(dev)!r} requested but no CUDA GPU is available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def normalized(dev: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:{current device}``; other devices as they are."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -52,9 +52,13 @@ client_mesh=launch.mesh.make_client_mesh(multi_host=True))`` holds only this
 process's block of the client rows on its device, and ``driver="host"``
 under an initialized group partitions the host store; both run the
 partitioned round of :mod:`repro_torch.core.fl.partition` and equal the
-one-process run bit for bit. ``shard_clients=True`` and a one-process mesh
-on one device are the unsharded run; several GPUs in one process are not
-ported (ROADMAP Queue A 11 (b)) and raise.
+one-process run bit for bit. Over a local mesh (``shard_clients=True``:
+every local GPU; or a ``client_mesh`` of several devices of this process,
+which may repeat one device) the same partitioned round runs in one
+process, one shard a device of the mesh, each on its own CUDA stream, and
+the whole client axis comes back on the mesh's first device; a client axis
+the shards do not divide stays unsharded, as the reference leaves such
+leaves replicated. On one device either is the unsharded run.
 
 :func:`sync_round` is the train-free gate/aggregate/distribute cycle over
 client-stacked trees that ``core.psgf_dp`` syncs its pods with, under the
@@ -75,7 +79,8 @@ from torch.profiler import record_function
 from repro_torch import random as R
 from repro_torch.checkpoint.checkpoint import int8_roundtrip
 from repro_torch.common import pytree_utils as pt
-from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.common.device import (DEFAULT_DEVICE, normalized,
+                                       resolve_device)
 from repro_torch.core import forecast
 from repro_torch.core.fl import masks as M
 from repro_torch.core.fl import policies as pol
@@ -939,9 +944,18 @@ def run_fl(
     holds its block of the client rows on its device
     (:func:`repro_torch.core.fl.partition.run_fl_mesh`: ``state`` holds
     those rows, ``history["owned_rows"]`` says which, ``history
-    ["exchange"]`` the bytes and seconds of each exchange); on one process
-    and one device it is the unsharded run, as is ``shard_clients=True``.
-    Several local GPUs in one process raise (ROADMAP Queue A 11 (b)).
+    ["exchange"]`` the bytes and seconds of each exchange). A mesh of
+    several devices of this process (``shard_clients=True``: every local
+    GPU; a device may repeat) runs one shard a device, each on its own
+    stream, in this process: ``state`` holds the whole client axis on the
+    mesh's first device (``device`` must be that device), ``history
+    ["mesh_run"]`` the shards, their devices and ``sharded``: False when
+    the shards do not divide K or the cohort, and the run is then the
+    unsharded one there (the reference's replicated leaves). Bit for bit
+    the unsharded run under ``partition.validate_partition``; otherwise
+    (``client_chunk``) its RMSE within the reference's ``rtol=1e-5``. On
+    one device either is the unsharded run. Several devices in each of
+    several processes raise (ROADMAP Queue A 12).
 
     ``init_params`` warm-starts from a params tree. ``checkpoint_dir`` saves
     the final global model with ``save_forecaster`` (process 0 alone across
@@ -967,29 +981,39 @@ def run_fl(
                            init_params=init_params, device=device)
     dev = resolve_device(device)
     _check_layout(model_cfg, fl_cfg, train_data, test_data)
+    mesh_record = None
     if shard_clients or client_mesh is not None:
         from repro_torch.launch.mesh import make_client_mesh
 
         mesh = client_mesh if client_mesh is not None else make_client_mesh(
             device=dev)
-        if len(mesh.devices) > 1:
+        n = len(mesh.devices)
+        if mesh.count > 1 and n > 1:
             raise NotImplementedError(
-                f"the client axis over {len(mesh.devices)} local GPUs in one "
-                f"process is not ported (ROADMAP Queue A 11 (b)); run one "
-                f"process per GPU with launch.distributed and "
-                f"make_client_mesh(multi_host=True)")
-        if mesh.count > 1:
-            if _normalized(dev) != _normalized(mesh.device):
-                raise ValueError(f"run_fl(device={device!r}) but this "
-                                 f"process's mesh device is {mesh.device}")
-            from repro_torch.core.fl.partition import run_fl_mesh
+                f"a client mesh across processes with {n} devices in each "
+                f"is not ported (ROADMAP Queue A 12: one process per GPU)")
+        if mesh.count > 1 or n > 1:
+            if normalized(dev) != normalized(mesh.device):
+                raise ValueError(f"run_fl(device={device!r}) but the mesh's "
+                                 f"first device is {mesh.device}")
+            K, S = fl_cfg.num_clients, fl_cfg.participation_size()
+            if mesh.count > 1 or not (K % n or S % n):
+                from repro_torch.core.fl.partition import run_fl_mesh
 
-            return run_fl_mesh(model_cfg, fl_cfg, train_data, test_data, key,
-                               mesh, driver=driver, max_rounds=max_rounds,
-                               patience=patience, eval_every=eval_every,
-                               verbose=verbose, policy=policy,
-                               checkpoint_dir=checkpoint_dir,
-                               init_params=init_params)
+                return run_fl_mesh(model_cfg, fl_cfg, train_data, test_data,
+                                   key, mesh, driver=driver,
+                                   max_rounds=max_rounds, patience=patience,
+                                   eval_every=eval_every, verbose=verbose,
+                                   policy=policy,
+                                   checkpoint_dir=checkpoint_dir,
+                                   init_params=init_params)
+            # the reference's rule (client_state_shardings): a client axis
+            # that the devices do not divide stays replicated, which is the
+            # unsharded run below on the mesh's first device
+            mesh_record = {"processes": 1, "shards": n, "sharded": False,
+                           "device": str(mesh.device),
+                           "devices": [str(d) for d in mesh.devices]}
+            dev = mesh.device
         # one process on one device: the unsharded run below, bit for bit
     train_data = _as_device(train_data, dev, torch.float32)
     test_data = _as_device(test_data, dev, torch.float32)
@@ -1059,6 +1083,8 @@ def run_fl(
         final_rmse = history["rmse"][-1][1]
     else:
         final_rmse = rmse_now()
+    if mesh_record is not None:
+        history["mesh_run"] = mesh_record
     return _finalize_history(history, state, meta, model_cfg, fl_cfg,
                              final_rmse, comm_total, checkpoint_dir)
 
@@ -1081,13 +1107,6 @@ def _check_layout(model_cfg, fl_cfg, train_data, test_data):
             raise ValueError(
                 f"raw series slices too short for look_back+horizon={W}: "
                 f"train T={train_data.shape[1]}, test T={test_data.shape[1]}")
-
-
-def _normalized(dev: torch.device) -> torch.device:
-    """``cuda`` as ``cuda:{current device}``; other devices as they are."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _finalize_history(history, state, meta, model_cfg, fl_cfg, final_rmse,

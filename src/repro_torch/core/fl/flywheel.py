@@ -26,9 +26,12 @@ same card serves on its own stream meanwhile (``repro_torch.launch.
 serve_forecast``), also while the ``while`` driver captures its CUDA graphs
 (in ``thread_local`` mode). Retrains never overlap on one device: each
 takes its controller's lock (the drift path and the timer share it) and
-then the device's lock, which every controller on that device shares. The
-second keeps two runs of the psgf_mix kernel, whose ticket counter is one
-per device, from running at once on two controllers' streams.
+then the lock of every device it runs on (its device, or with
+``spec.shard_clients`` every device of the client mesh), which every
+controller on that device shares. These keep two runs of the psgf_mix
+kernel apart: its ticket counter is one per stream, a CUDA graph holds the
+counter of the stream it was captured on, and torch hands out streams from
+a pool, so two controllers' streams may be one.
 
 Usage::
 
@@ -58,14 +61,26 @@ _DEVICE_LOCKS: Dict[tuple, threading.Lock] = {}
 _DEVICE_LOCKS_GUARD = threading.Lock()
 
 
-def _device_lock(dev: torch.device) -> threading.Lock:
-    """The lock that every controller's retrains on ``dev`` take (``cuda``
-    and ``cuda:<current device>`` are one device)."""
+def _device_key(dev: torch.device) -> tuple:
+    """``cuda`` and ``cuda:<current device>`` are one device."""
     index = dev.index
     if index is None and dev.type == "cuda":
         index = torch.cuda.current_device()
+    return dev.type, -1 if index is None else index
+
+
+@contextlib.contextmanager
+def _device_lock(*devices: torch.device):
+    """Hold the lock that every controller's retrains on each of ``devices``
+    take, taken in one order so that two retrains never wait on each other
+    crosswise."""
     with _DEVICE_LOCKS_GUARD:
-        return _DEVICE_LOCKS.setdefault((dev.type, index), threading.Lock())
+        locks = [_DEVICE_LOCKS.setdefault(key, threading.Lock())
+                 for key in sorted({_device_key(d) for d in devices})]
+    with contextlib.ExitStack() as stack:
+        for lock in locks:
+            stack.enter_context(lock)
+        yield
 
 
 class DriftDetector:
@@ -242,13 +257,16 @@ class RetrainController:
         from repro_torch.core.tasks import (read_routing_manifest,
                                             update_routing_manifest)
         from repro_torch.data.windowing import series_norm_stats
+        from repro_torch.launch.mesh import make_client_mesh
 
         if not clusters:
             raise ValueError("no clusters to retrain")
         dev = resolve_device(self.device)
         spec, task = self.spec, self.spec.task
         policy_name, overrides = self._grid_entry
-        with self._lock, _device_lock(dev):
+        devices = (make_client_mesh(device=dev).devices
+                   if spec.shard_clients else (dev,))
+        with self._lock, _device_lock(*devices):
             series = self.series
             current_gen, manifest = read_routing_manifest(self.checkpoint_root)
             generation = current_gen + 1

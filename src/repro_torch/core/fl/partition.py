@@ -38,9 +38,17 @@ payload from every process (three ``(S, D)`` float32 leaves, the step counts
 and the ``(S, ...)`` train rows), the gather a block of ``S / count`` rows of
 each. Under gloo the transport buffers are host memory (one block pinned
 with ``cudaHostRegister`` when the device is CUDA), under NCCL device memory.
+
+The same cycle runs over a LOCAL mesh: ``count`` shards of one process, each
+a block of the client axis on one of the mesh's devices (one device may hold
+several shards, as the reference's virtual host devices do) with its own
+CUDA stream, and a :class:`LocalExchange` in place of the process group: the
+merge and the gather are device-to-device copies of bits between the shards,
+ordered after the stages that fill them by events on the shards' streams.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Optional
@@ -153,21 +161,23 @@ class Exchange:
         self.index, self.count = index, count
         self.backend = backend or "gloo"
         self.device = device
-        self.on_host = self.backend != "nccl"
+        self.on_host = self.backend == "gloo"
         self.pinned = self.on_host and device.type == "cuda"
         self._slots = {}         # name -> [tensors, registered base or None]
         self.stats = {"backend": self.backend, "processes": count,
                       **{k: {"bytes": [], "s": []}
                          for k in ("merge", "gather", "rmse")}}
 
-    def buffers(self, name: str, specs) -> list:
-        """The transport tensors of ``name``, allocated at the first call."""
+    def buffers(self, name: str, specs, device=None) -> list:
+        """The transport tensors of ``name``, allocated at the first call
+        (on ``device``, default this exchange's, when not on the host)."""
         slot = self._slots.get(name)
         if slot is None:
             if self.on_host:
                 tensors, base = _host_block(specs, self.pinned)
             else:
-                tensors, base = [torch.empty(s, dtype=d, device=self.device)
+                tensors, base = [torch.empty(s, dtype=d,
+                                             device=device or self.device)
                                  for s, d in specs], None
             slot = self._slots[name] = [tensors, base]
         return slot[0]
@@ -210,6 +220,122 @@ class Exchange:
             if slot[1] is not None:
                 torch.cuda.cudart().cudaHostUnregister(slot[1])
                 slot[1] = None
+
+
+def _on(device, stream):
+    """``device`` and ``stream`` current (CUDA), or nothing (the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+class LocalExchange(Exchange):
+    """The exchanges of a local mesh: ``count`` shards of this process, shard
+    ``i`` on ``devices[i]`` (a device may repeat) with its own CUDA stream
+    ``streams[i]`` (None on the CPU). Both exchanges are device-to-device
+    copies of bits, each ordered after the stage that filled its source by
+    an event recorded on the source shard's stream, never by a host wait or
+    a device-wide sync:
+
+      * :meth:`merge`: every other shard's payload is copied next to each
+        shard's own, and once every shard has copied, each adds the copies
+        to its own payload as int32 words in place (disjoint supports: bit
+        transport, ``-0.0`` survives, as ``distributed.merge_disjoint``);
+      * :meth:`gather`: every shard's block is copied into each shard's
+        ``(S, ...)`` rows, in shard order.
+
+    A shard writes its transport tensors again only after its next merge
+    has waited for every shard's copies of that merge, which each shard
+    makes after its reads of the previous gather. :attr:`stats` are
+    :class:`Exchange`'s: per call the bytes each shard hands over, and the
+    host seconds the call takes (to enqueue, on the card)."""
+
+    def __init__(self, devices, streams):
+        super().__init__(0, len(devices), "local", devices[0])
+        self.devices, self.streams = list(devices), list(streams)
+        self.stats.update(processes=1, shards=len(devices))
+
+    def port(self, index: int) -> "_Port":
+        return _Port(self, index)
+
+    def _mark(self, i: int):
+        """An event after the work queued so far on shard ``i``'s stream."""
+        if self.streams[i] is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self.streams[i])
+        return event
+
+    def _after(self, j: int, event) -> None:
+        if event is not None:
+            self.streams[j].wait_event(event)
+
+    def _copy(self, dst, src, j: int, i: int) -> None:
+        """``dst`` (shard ``j``'s) <- ``src`` (shard ``i``'s) on shard ``j``'s
+        stream; between two devices torch copies on the source's current
+        stream (here shard ``i``'s) behind a barrier with the destination's."""
+        with _on(self.devices[i], self.streams[i]), \
+                _on(self.devices[j], self.streams[j]):
+            dst.copy_(src, non_blocking=True)
+
+    def merge(self, bufs) -> None:
+        """Stage 2's exchange, in place on each shard's transport tensors
+        ``bufs[i]`` (:func:`merge_specs`)."""
+        n = self.count
+
+        def run():
+            ready = [self._mark(i) for i in range(n)]
+            recv = []
+            for j in range(n):
+                others = [i for i in range(n) if i != j]
+                rx = self.buffers(f"merge_rx/{j}", [
+                    (tuple(b.shape), b.dtype) for b in bufs[j]] * len(others),
+                    self.devices[j])
+                for k, i in enumerate(others):
+                    self._after(j, ready[i])
+                    for dst, src in zip(rx[k * len(bufs[i]):], bufs[i]):
+                        self._copy(dst, src, j, i)
+                recv.append(rx)
+            copied = [self._mark(j) for j in range(n)]
+            for j in range(n):
+                for i in range(n):
+                    if i != j:
+                        self._after(j, copied[i])
+                with _on(self.devices[j], self.streams[j]):
+                    for k, src in enumerate(recv[j]):
+                        D._bits(bufs[j][k % len(bufs[j])]).add_(D._bits(src))
+        self._timed("merge", sum(b.nbytes for b in bufs[0]), run)
+
+    def gather(self, blocks, outs) -> None:
+        """Stage 4's exchange: ``outs[j][t]`` <- every shard's
+        ``blocks[i][t]`` in shard order, for every shard ``j``."""
+        n = self.count
+
+        def run():
+            ready = [self._mark(i) for i in range(n)]
+            for j in range(n):
+                for i in range(n):
+                    self._after(j, ready[i])
+                    for src, out in zip(blocks[i], outs[j]):
+                        rows = src.shape[0]
+                        self._copy(out[i * rows:(i + 1) * rows], src, j, i)
+        self._timed("gather", sum(b.nbytes for b in blocks[0]), run)
+
+
+class _Port:
+    """Shard ``index``'s side of a :class:`LocalExchange`: what
+    :class:`PartitionedRound` reads of an exchange (its index, the count,
+    transport tensors, here on the shard's device)."""
+
+    def __init__(self, ex: LocalExchange, index: int):
+        self.ex, self.index, self.count = ex, index, ex.count
+
+    def buffers(self, name: str, specs) -> list:
+        return self.ex.buffers(f"{name}/{self.index}", specs,
+                               self.ex.devices[self.index])
 
 
 def draw_round(key, K: int, S: int):
@@ -373,61 +499,40 @@ class PartitionedRound:
         step("up")
 
 
-class MeshRun:
-    """``run_fl(client_mesh=...)`` across processes: the rows of this
-    process's block on its device, the test series, the server state and
-    the key chain replicated, the patience state, counters and history
-    buffers on the device as in ``engine._WhileRun``. Each round runs the
-    segments ``payload``, ``local`` and ``up`` (the stages of
-    :class:`PartitionedRound`; ``up`` also runs the patience test and
-    writes the loss and comm at the round counter), each chunk of
-    ``eval_every`` rounds ends with ``end_chunk`` (the RMSE written at the
-    chunk counter), and the host reads the stop flag after it, as the scan
-    driver stops.
+class _MeshShard:
+    """One block ``[lo, hi)`` of the client axis on one device (this
+    process's block across processes; one of a local mesh's shards): its
+    rows with their scratch row, and its own copies of the server state, the
+    test series and the while driver's flags (key chain, patience state,
+    counters, history buffers), its cycle (:class:`PartitionedRound` over
+    its side of the exchange), and on the card its own CUDA stream, on which
+    every segment runs, eagerly or as the graph captured there. Each segment
+    reads and writes only these static tensors and the transport buffers."""
 
-    ``driver="scan"`` (and every driver on the CPU) runs the segments
-    eagerly. ``driver="while"`` on the card runs the first round eagerly on
-    a side stream (it builds the kernels and allocates psgf_mix's ticket
-    counter, which no capture may do), then captures each segment as a CUDA
-    graph
-    (``engine._capture_graph``: its own stream, ``thread_local`` mode, one
-    memory pool; the segments read and write only static tensors and
-    transport buffers, so they may replay in any order) and replays them
-    around the host exchanges, each of which waits until the segment that
-    fills its buffers has landed. A failed capture raises."""
-
-    SEGMENTS = ("payload", "local", "up", "end_chunk")
-
-    def __init__(self, mesh, model_cfg, fl_cfg, train_data, test_data, key,
-                 policy, max_rounds: int, eval_every: int, patience: int,
-                 init_params=None, graphs: bool = False):
-        dev = mesh.device
-        K, S = fl_cfg.num_clients, fl_cfg.participation_size()
-        validate_partition(K, S, mesh.count, fl_cfg.client_chunk)
-        self.mesh, self.model_cfg, self.fl_cfg = mesh, model_cfg, fl_cfg
-        self.patience = patience
-        self.lo, self.hi = mesh.rows(K)
-        key = E._as_device(key, dev, torch.int64)
-        key, init_key = R.split(key).unbind(0)
-        vec, self.meta = E._init_vector(model_cfg, init_key, init_params, dev)
-        self.server = E._server_state(vec, fl_cfg)
-        train = E._as_device(train_data[self.lo:self.hi], dev, _F32)
+    def __init__(self, run: "MeshRun", index: int, count: int, device,
+                 stream, ex, vec, key, train_data, test_data, policy):
+        K = run.fl_cfg.num_clients
+        self.run, self.device, self.stream = run, device, stream
+        self.lo, self.hi = D.block_range(K, index, count)
+        vec = vec.to(device, copy=True)
+        self.server = E._server_state(vec, run.fl_cfg)
+        train = E._as_device(train_data[self.lo:self.hi], device, _F32)
         train = torch.cat([train, train.new_zeros((1,) + tuple(train.shape[1:]))])
         self.rows = OwnedRows(E._client_rows(vec, self.hi - self.lo + 1),
                               train, self.lo, self.hi)
-        self.test = E._as_device(test_data, dev, _F32)
-        full, rem = divmod(max_rounds, eval_every)
-        self.lengths = [eval_every] * full + ([rem] if rem else [])
-        self.flags = E._while_flags(key, len(self.lengths), eval_every)
-        self.ex = Exchange(mesh.index, mesh.count, mesh.backend, dev)
-        self.cycle = PartitionedRound(self.rows, self.ex, self.server,
-                                      self.flags["key"], model_cfg, fl_cfg,
-                                      self.meta, policy)
-        self.cuda = dev.type == "cuda"
-        self.want_graphs = graphs and self.cuda
+        self.test = E._as_device(test_data, device, _F32)
+        self.flags = E._while_flags(key.to(device), len(run.lengths),
+                                    run.eval_every)
+        self.cycle = PartitionedRound(self.rows, ex, self.server,
+                                      self.flags["key"], run.model_cfg,
+                                      run.fl_cfg, run.meta, policy)
         self.graphs = {}
-        self.replays = {name: 0 for name in self.SEGMENTS}
-        self.capture_s = self.run_s = 0.0
+        self.replays = {name: 0 for name in MeshRun.SEGMENTS}
+        if stream is not None:       # the set-up above ran on the current one
+            stream.wait_stream(torch.cuda.current_stream(device))
+
+    def on(self):
+        return _on(self.device, self.stream)
 
     # --- the segments: static tensors in, static tensors out -------------
     def _seg_payload(self):
@@ -443,103 +548,222 @@ class MeshRun:
         f["loss_buf"].index_copy_(0, r, loss.reshape(1))
         f["comm_buf"].index_copy_(0, r, metrics["comm_total"].reshape(1))
         patience = E._patience_step(f["best"], f["stall"], f["stop"], loss,
-                                    self.patience)
+                                    self.run.patience)
         for k, v in zip(("best", "stall", "stop"), patience):
             f[k].copy_(v)
         f["r"].add_(1)
 
-    def _rmse(self):
-        return E._rmse_device(self.model_cfg, self.server["w_global"],
-                              self.meta, self.test, self.fl_cfg.client_chunk)
+    def rmse(self):
+        return E._rmse_device(self.run.model_cfg, self.server["w_global"],
+                              self.run.meta, self.test,
+                              self.run.fl_cfg.client_chunk)
 
     def _seg_end_chunk(self):
         f = self.flags
-        f["rmse_buf"].index_copy_(0, f["c"].reshape(1), self._rmse().reshape(1))
+        f["rmse_buf"].index_copy_(0, f["c"].reshape(1), self.rmse().reshape(1))
         f["c"].add_(1)
 
-    # --- driving them ------------------------------------------------------
-    def _step(self, name: str):
-        graph = self.graphs.get(name)
-        if graph is None:
-            getattr(self, "_seg_" + name)()
+    def step(self, name: str):
+        """Segment ``name`` on this shard's device and stream: its graph's
+        replay once captured, else the segment itself."""
+        with self.on():
+            graph = self.graphs.get(name)
+            if graph is None:
+                getattr(self, "_seg_" + name)()
+            else:
+                graph.replay()
+                self.replays[name] += 1
+
+    def capture(self):
+        """Capture each segment as a CUDA graph on this shard's stream
+        (``engine._capture_graph``: ``thread_local`` mode, one memory pool
+        for the four, which replay in turn, never at once)."""
+        pool = None
+        with torch.cuda.device(self.device):
+            for name in MeshRun.SEGMENTS:
+                graph = torch.cuda.CUDAGraph()
+                with E._capture_graph(graph, pool, self.stream):
+                    getattr(self, "_seg_" + name)()
+                pool = graph.pool()
+                self.graphs[name] = graph
+
+
+class MeshRun:
+    """``run_fl(client_mesh=...)`` over the mesh's shards (:class:`_MeshShard`):
+    across processes, this process's one block on its device with an
+    :class:`Exchange` over the process group; over a local mesh
+    (``mesh.count == 1``, several devices), one shard per device of the mesh
+    with a :class:`LocalExchange`, all driven from this thread. Each round
+    runs the segments ``payload``, ``local`` and ``up`` on every shard (the
+    stages of :class:`PartitionedRound`; ``up`` also runs the patience test
+    and writes the loss and comm at the round counter) with the merge after
+    the first and the gather after the second, each chunk of ``eval_every``
+    rounds ends with ``end_chunk`` (the RMSE written at the chunk counter),
+    and the host reads the first shard's stop flag after it, as the scan
+    driver stops. Across processes the host waits for each stage's stream
+    before the exchange; a local mesh's exchanges wait for nothing on the
+    host.
+
+    ``driver="scan"`` (and every driver on the CPU) runs the segments
+    eagerly. ``driver="while"`` on the card runs the first round eagerly (it
+    builds the kernels and allocates psgf_mix's ticket counters, which no
+    capture may do), then captures each shard's segments as CUDA graphs on
+    its stream (:meth:`_MeshShard.capture`) and replays them around the
+    exchanges. A failed capture raises. At the end the host waits for every
+    shard's stream (the run's graphs and their memory go with it)."""
+
+    SEGMENTS = ("payload", "local", "up", "end_chunk")
+
+    def __init__(self, mesh, model_cfg, fl_cfg, train_data, test_data, key,
+                 policy, max_rounds: int, eval_every: int, patience: int,
+                 init_params=None, graphs: bool = False):
+        dev = mesh.device
+        self.local = mesh.count == 1
+        count = len(mesh.devices) if self.local else mesh.count
+        if not self.local:
+            validate_partition(fl_cfg.num_clients, fl_cfg.participation_size(),
+                               count, fl_cfg.client_chunk)
+        self.mesh, self.model_cfg, self.fl_cfg = mesh, model_cfg, fl_cfg
+        self.patience, self.eval_every = patience, eval_every
+        key = E._as_device(key, dev, torch.int64)
+        key, init_key = R.split(key).unbind(0)
+        vec, self.meta = E._init_vector(model_cfg, init_key, init_params, dev)
+        full, rem = divmod(max_rounds, eval_every)
+        self.lengths = [eval_every] * full + ([rem] if rem else [])
+        devices = mesh.devices if self.local else (dev,)
+        streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                   for d in devices]
+        if self.local:
+            self.ex = LocalExchange(devices, streams)
+            places = [(i, self.ex.port(i)) for i in range(count)]
         else:
-            graph.replay()
-            self.replays[name] += 1
+            self.ex = Exchange(mesh.index, count, mesh.backend, dev)
+            places = [(mesh.index, self.ex)]
+        self.shards = [
+            _MeshShard(self, i, count, devices[k], streams[k], ex, vec, key,
+                       train_data, test_data, policy)
+            for k, (i, ex) in enumerate(places)]
+        self.want_graphs = graphs and dev.type == "cuda"
+        self.warmup_s = self.capture_s = self.run_s = 0.0
 
     def _round(self):
-        self.cycle.run(self._step)
+        shards = self.shards
+        if not self.local:      # the host waits on and exchanges from its stream
+            with shards[0].on():
+                shards[0].cycle.run(shards[0].step)
+            return
+        cycles = [s.cycle for s in shards]
+        for shard in shards:
+            shard.step("payload")
+        self.ex.merge([c.tb for c in cycles])
+        for shard in shards:
+            shard.step("local")
+        self.ex.gather([c.gb for c in cycles], [c.go for c in cycles])
+        for shard in shards:
+            shard.step("up")
 
     def _warm_round_and_capture(self):
-        """Round 1 eagerly on a side stream (with ``end_chunk``'s RMSE
-        forward, its result dropped), then the capture: no kernel is built
+        """Round 1 eagerly (with ``end_chunk``'s RMSE forward on every shard,
+        its result dropped), then every shard's capture: no kernel is built
         and no counter allocated under capture."""
-        dev = self.mesh.device
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._round()
-            self._rmse()
         t0 = time.perf_counter()
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(side)
-        pool = None
-        for name in self.SEGMENTS:
-            graph = torch.cuda.CUDAGraph()
-            with E._capture_graph(graph, pool, stream):
-                getattr(self, "_seg_" + name)()
-            pool = graph.pool()
-            self.graphs[name] = graph
-        current.wait_stream(stream)
-        self.capture_s = time.perf_counter() - t0
+        self._round()
+        for shard in self.shards:
+            with shard.on():
+                shard.rmse()
+        self.finish()
+        t1 = time.perf_counter()
+        for shard in self.shards:
+            shard.capture()
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+    def _stopped(self) -> bool:
+        first = self.shards[0]
+        with first.on():
+            return bool(first.flags["stop"])
 
     def run(self):
         """Every chunk until ``max_rounds`` or the stop flag."""
         t0 = time.perf_counter()
-        for length in self.lengths:
-            for _ in range(length):
-                if self.want_graphs and not self.graphs:
-                    self._warm_round_and_capture()
-                else:
-                    self._round()
-            self._step("end_chunk")
-            if bool(self.flags["stop"]):
-                break
+        try:
+            for length in self.lengths:
+                for _ in range(length):
+                    if self.want_graphs and not self.shards[0].graphs:
+                        self._warm_round_and_capture()
+                    else:
+                        self._round()
+                for shard in self.shards:
+                    shard.step("end_chunk")
+                if self._stopped():
+                    break
+        finally:
+            self.finish()
         self.run_s = time.perf_counter() - t0
+
+    def finish(self):
+        """Wait (host) for every shard's stream: nothing of the run is in
+        flight once it returns."""
+        for shard in self.shards:
+            if shard.stream is not None:
+                shard.stream.synchronize()
+
+    def take_state(self) -> dict:
+        """The run's final state: the first shard's server state and the
+        client rows, this process's block across processes, and over a
+        local mesh every shard's block in order on the mesh's first device
+        (the reference's global array; each leaf's blocks are dropped once
+        joined)."""
+        first = self.shards[0]
+        if len(self.shards) == 1:
+            return {**first.server, **first.rows.state()}
+        rows = {}
+        for k in _ROWS:
+            rows[k] = torch.cat([s.rows.state()[k].to(first.device)
+                                 for s in self.shards])
+            for s in self.shards:
+                del s.rows.rows[k]
+        return {**first.server, **rows}
 
 
 def run_fl_mesh(model_cfg, fl_cfg, train_data, test_data, key, mesh, *,
                 driver: str, max_rounds: int, patience: int, eval_every: int,
                 verbose: bool = False, policy=None,
                 checkpoint_dir: Optional[str] = None, init_params=None) -> dict:
-    """``run_fl(driver="scan"|"while", client_mesh=mesh)`` over the
-    processes of ``mesh`` (see :class:`MeshRun`). Returns ``run_fl``'s
-    history, whose ``state`` holds this process's rows of the client axis
-    (``history["owned_rows"]``), plus ``history["exchange"]``
-    (:attr:`Exchange.stats`) and ``history["mesh_run"]`` (processes, backend,
-    graphs, their replays, capture and run seconds). Process 0 alone writes
-    the checkpoint."""
+    """``run_fl(driver="scan"|"while", client_mesh=mesh)`` over the shards of
+    ``mesh`` (see :class:`MeshRun`). Returns ``run_fl``'s history plus
+    ``history["exchange"]`` (:attr:`Exchange.stats`) and
+    ``history["mesh_run"]`` (processes, shards, devices, backend, graphs per
+    shard, their replays; the eager first round's, the capture's and the
+    run's seconds). Across processes
+    ``state`` holds this process's rows of the client axis
+    (``history["owned_rows"]``) and process 0 alone writes the checkpoint;
+    over a local mesh it holds the whole client axis on the mesh's first
+    device."""
     from repro_torch.core.fl import policies as pol
 
     policy = pol.from_config(fl_cfg) if policy is None else policy
     run = MeshRun(mesh, model_cfg, fl_cfg, train_data, test_data, key, policy,
                   max_rounds, eval_every, patience, init_params=init_params,
                   graphs=driver == "while")
+    first = run.shards[0]
     try:
         run.run()
-        rounds, _, losses, comms, rmses = E._read_while(run.flags)
+        rounds, _, losses, comms, rmses = E._read_while(first.flags)
     finally:
         run.ex.close()
     history = E._chunk_history(rounds, losses, comms, rmses, eval_every,
                                max_rounds, verbose)
     history["exchange"] = run.ex.stats
-    history["owned_rows"] = (run.lo, run.hi)
+    history["owned_rows"] = (first.lo, run.shards[-1].hi)
     history["mesh_run"] = {
         "processes": mesh.count, "index": mesh.index, "backend": run.ex.backend,
-        "device": str(mesh.device), "graphs": list(run.graphs),
-        "replays": dict(run.replays), "capture_s": run.capture_s,
-        "run_s": run.run_s}
-    state = {**run.server, **run.rows.state()}
+        "shards": len(run.shards), "sharded": True,
+        "device": str(mesh.device),
+        "devices": [str(s.device) for s in run.shards],
+        "graphs": list(first.graphs),
+        "replays": dict(first.replays), "warmup_s": run.warmup_s,
+        "capture_s": run.capture_s, "run_s": run.run_s}
+    state = run.take_state()
     if mesh.index != 0:
         checkpoint_dir = None          # process 0 owns the checkpoint write
     return E._finalize_history(history, state, run.meta, model_cfg, fl_cfg,

@@ -152,8 +152,8 @@ class ExperimentSpec:
     ``"scan"`` (default), ``"loop"``, ``"while"`` (CUDA-graph chunks with
     the stop on the device) or ``"host"`` (the client state in pinned host
     memory; needs ``streaming_windows``). ``shard_clients`` passes through
-    to ``run_fl``: on one device it is the unsharded run, several local GPUs
-    in one process raise (ROADMAP Queue A 11 (b))."""
+    to ``run_fl``: the client axis over every local GPU of this process (a
+    local mesh, one shard a GPU), the unsharded run on one device."""
 
     task: ForecastTask
     model: Forecaster

@@ -28,11 +28,15 @@ that the last block to finish sums in index order into the count: one
 launch per call, no float atomics (see the source's header).
 
 The last block finds itself by a ticket counter: one zeroed 32-bit word per
-device, allocated by the first call on that device and reset by every
-launch when it ends. Calls must not run on two streams of one device at the
-same time, nor may two CUDA graphs that hold this kernel replay at the same
-time: they would share the counter. Make the first call on a device outside
-any CUDA graph capture (the counter cannot be allocated during one).
+stream, reset by every launch when it ends. The words of a device are one
+block of :data:`TICKET_WORDS` allocated by the first call on that device,
+and each stream takes the next free word at its first call, so calls on two
+streams of one device may run at once (the shards of a local mesh do). A
+CUDA graph holds the word of the stream it was captured on: it must not
+replay at the same time as calls on that stream or another graph captured
+there. Make the first call on a device outside any CUDA graph capture (the
+block cannot be allocated during one); a stream's first call may be
+captured.
 
 ``LAUNCHES`` counts the kernel launches of ``psgf_mix_batch`` and
 ``LAUNCHES_SINGLE`` those of ``psgf_mix`` (and nothing else), so a run can
@@ -56,7 +60,9 @@ LAUNCHES_SINGLE = 0
 _COUNT_LOCK = threading.Lock()
 _CAPTURED = threading.local()
 _FNS = None
-_TICKETS = {}                # device index -> zeroed int32 ticket counter
+TICKET_WORDS = 1024          # ticket counters (streams) a device may have
+_TICKETS = {}                # device index -> zeroed int32 ticket words
+_TICKET_SLOTS = {}           # (device index, stream handle) -> its word
 
 
 def _kernel_fns():
@@ -74,21 +80,29 @@ def _kernel_fns():
     return _FNS
 
 
-def _ticket_counter(device):
-    """The device's ticket counter (see the module's docstring)."""
-    counter = _TICKETS.get(device.index)
-    if counter is None:
-        with _COUNT_LOCK:
-            counter = _TICKETS.get(device.index)
-            if counter is None:
-                if torch.cuda.is_current_stream_capturing():
-                    raise RuntimeError(
-                        "psgf_mix: the first call on a device allocates its "
-                        "ticket counter and cannot be captured in a CUDA "
-                        "graph; call it once before capturing")
-                counter = torch.zeros(1, dtype=torch.int32, device=device)
-                _TICKETS[device.index] = counter
-    return counter
+def _ticket_counter(device, stream: int) -> int:
+    """The address of the ticket counter of ``stream`` (a CUDA stream
+    handle) on ``device`` (see the module's docstring)."""
+    key = (device.index, stream)
+    with _COUNT_LOCK:
+        words = _TICKETS.get(device.index)
+        if words is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "psgf_mix: the first call on a device allocates its "
+                    "ticket counters and cannot be captured in a CUDA "
+                    "graph; call it once before capturing")
+            words = torch.zeros(TICKET_WORDS, dtype=torch.int32,
+                                device=device)
+            _TICKETS[device.index] = words
+        slot = _TICKET_SLOTS.get(key)
+        if slot is None:
+            slot = sum(1 for d, _ in _TICKET_SLOTS if d == device.index)
+            if slot >= TICKET_WORDS:
+                raise RuntimeError(f"psgf_mix: more than {TICKET_WORDS} "
+                                   f"streams on {device}")
+            _TICKET_SLOTS[key] = slot
+    return words.data_ptr() + 4 * slot
 
 
 def captured_calls() -> int:
@@ -118,13 +132,13 @@ def _launch(w_global, w_clients, mask, single=False):
     vector = int(D % 4 == 0 and all(t.data_ptr() % 16 == 0
                                     for t in (*tensors, out)))
     with torch.cuda.device(out.device):
-        counter = _ticket_counter(out.device)
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        counter = _ticket_counter(out.device, stream)
         partials = torch.empty(blocks(D, K), dtype=torch.float32,
                                device=out.device)
-        stream = torch.cuda.current_stream(out.device).cuda_stream
         err = fwd(w_global.data_ptr(), w_clients.data_ptr(), mask.data_ptr(),
                   out.data_ptr(), partials.data_ptr(), count.data_ptr(),
-                  counter.data_ptr(), D, K, vector, stream)
+                  counter, D, K, vector, stream)
         capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"psgf_mix kernel launch failed: CUDA error {err}")

@@ -12,9 +12,12 @@ ownership along the axis is ``launch.distributed.block_range``.
     block of the client rows;
   * :func:`make_batch_mesh` — serving's batch axis over the local devices.
 
-On one local device either is the unsharded path, as in the reference.
-Several GPUs in one process are not ported (ROADMAP Queue A 11 (b):
-``run_fl`` and ``ForecastServer(shard_batch=True)`` raise).
+On one local device either is the unsharded path, as in the reference. A
+mesh of one process may hold several local devices and may name one device
+more than once (``Mesh("clients", (d, d))``: two shards of one device, the
+counterpart of the reference's virtual host devices), which is what
+``run_fl(client_mesh=...)`` and ``ForecastServer(shard_batch=True)`` run
+over in one process, one shard a device of the mesh.
 
 The zoo's meshes are :class:`AbstractMesh`es: named axes and their sizes,
 all that ``sharding.rules`` reads.
@@ -24,8 +27,9 @@ all that ``sharding.rules`` reads.
     over ``("pod", "data", "model")`` on two, with no devices behind them:
     the dry run (``launch.dryrun``) accounts specs and bytes on them, so
     that the rules and the accounting agree with the reference's;
-  * :func:`make_host_mesh` — the same over this process's local devices,
-    ``(1, 1)`` on one card, where every shard shape is the whole shape.
+  * :func:`make_host_mesh` — the same over this process's one local
+    device, ``(1, 1)``, where every shard shape is the whole shape (more
+    devices need one process a device: ROADMAP Queue A 12).
 
 :func:`device_mesh` lays an :class:`AbstractMesh` out as a
 ``torch.distributed`` ``DeviceMesh`` with the same axis names and sizes,
@@ -54,9 +58,9 @@ from repro_torch.launch import distributed as D
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """One axis across processes: this process is ``index`` of ``count``
-    and computes on ``devices`` (its own devices on the axis); collectives
-    run in the default process group over ``backend`` (None in one
-    process)."""
+    and computes on ``devices`` (its own devices on the axis, one shard
+    each; a device may repeat); collectives run in the default process
+    group over ``backend`` (None in one process)."""
 
     axis: str
     devices: Tuple[torch.device, ...]
@@ -100,10 +104,17 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 
 
 def make_host_mesh(device=DEFAULT_DEVICE) -> AbstractMesh:
-    """``(n, 1)`` over ``("data", "model")`` for this process's ``n`` local
-    devices (every GPU for ``"cuda"``; raises without one)."""
+    """``(1, 1)`` over ``("data", "model")`` on this process's one local
+    device (the GPU for ``"cuda"``; raises without one). Several raise: a
+    ``DeviceMesh`` takes one rank a device, so the zoo's steps across GPUs
+    need one process a GPU (ROADMAP Queue A 12)."""
     devices = _local_devices(device)
-    return AbstractMesh(("data", "model"), (len(devices), 1), devices)
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"a host mesh over {len(devices)} local devices is not ported: "
+            f"the zoo's DTensor steps take one process a GPU (ROADMAP "
+            f"Queue A 12)")
+    return AbstractMesh(("data", "model"), (1, 1), devices)
 
 
 def _local_devices(device) -> Tuple[torch.device, ...]:

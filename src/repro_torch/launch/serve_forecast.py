@@ -38,9 +38,13 @@ plus the routing manifest into a batched, routed inference endpoint:
 The server's ``device`` defaults to ``"cuda"`` and raises without a GPU
 unless the caller passes ``device="cpu"``. With ``use_flash_attn=True``
 checkpoints the attention block runs the CUDA flash-attention kernel, one
-launch per bucket forward for LoGTST. Sharding a bucket over several GPUs
-(``shard_batch=True``) is not ported (ROADMAP Queue A 11 (b)); across processes,
-``from_manifest(process_shard=...)`` restores each process's own clusters.
+launch per bucket forward for LoGTST. ``shard_batch=True`` splits each
+bucket that the batch mesh's shards divide
+(``repro_torch.launch.mesh.make_batch_mesh``: every local GPU) into equal
+blocks, one a shard, each on its shard's device and stream; other buckets
+run whole on the first shard; on one device it is the unsharded server.
+Across processes, ``from_manifest(process_shard=...)`` restores each
+process's own clusters.
 
 Manifest format: see ``repro_torch.core.tasks.write_routing_manifest``.
 
@@ -67,7 +71,8 @@ import torch
 
 from repro_torch.checkpoint.checkpoint import atomic_write_bytes
 from repro_torch.common import pytree_utils as pt
-from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.common.device import (DEFAULT_DEVICE, normalized,
+                                       resolve_device)
 from repro_torch.core.forecast import forward_multivariate
 from repro_torch.core.forecaster import Forecaster, load_forecaster
 from repro_torch.launch.metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
@@ -134,30 +139,77 @@ class _ClusterEngine:
     queues behind nor synchronizes with work that another thread has put on
     the card (training, a CUDA-graph capture in ``thread_local`` mode), and
     makes no pageable copy and no allocation of its own for a warmed
-    shape."""
+    shape.
+
+    Over a batch mesh (``shards``: ``(device, stream)`` of each shard, the
+    first the server's own) the params are on every shard's device, once a
+    device, and a bucket that the shards divide runs as equal blocks, block
+    ``i`` on shard ``i``'s device and stream through its own buffers; the
+    host waits on every shard's event. Any other bucket runs whole on the
+    first shard."""
 
     def __init__(self, forecaster: Forecaster, params, device: torch.device,
-                 stream: Optional["torch.cuda.Stream"] = None):
+                 stream: Optional["torch.cuda.Stream"] = None, shards=None):
         self.forecaster = forecaster
         self.device = device
         self.stream = stream
-        self.params = pt.tree_map(lambda t: t.to(device), params)
-        if stream is not None:
-            # the params were written on this thread's current stream
-            stream.wait_stream(torch.cuda.current_stream(device))
-        # (bucket, channels) -> free buffers, taken out while a step uses them
-        self._free: Dict[Tuple[int, int], list] = {}
+        self.shards = tuple(shards) if shards else ((device, stream),)
+        on_device, self._params = {}, []
+        for dev, s in self.shards:
+            key = str(normalized(dev))
+            if key not in on_device:
+                on_device[key] = pt.tree_map(lambda t: t.to(dev), params)
+            self._params.append(on_device[key])
+            if s is not None:
+                # the params were written on this thread's current stream
+                s.wait_stream(torch.cuda.current_stream(dev))
+        self.params = self._params[0]
+        # (rows, channels) on the first shard, (rows, channels, shard) on
+        # the others -> free buffers, taken out while a step uses them
+        self._free: Dict[tuple, list] = {}
 
-    def _take(self, key, x_shape):
+    def _take(self, shard: int, key, x_shape):
         try:
             return self._free.setdefault(key, []).pop()
         except IndexError:    # first step of this shape, or one in flight
-            bucket, M, L = x_shape
+            rows, M, L = x_shape
             H = self.forecaster.cfg.horizon
-            if self.device.type == "cuda":
-                with _on(self.stream):
-                    return _Slot(bucket, M, L, H, self.device)
-            return torch.empty((bucket, M, H), dtype=torch.float32)
+            device, stream = self.shards[shard]
+            if device.type == "cuda":
+                with torch.cuda.device(device), _on(stream):
+                    return _Slot(rows, M, L, H, device)
+            return torch.empty((rows, M, H), dtype=torch.float32)
+
+    def _enqueue(self, shard: int, x: np.ndarray):
+        """The forward of ``x`` on ``shard`` into its buffers (enqueued on
+        its stream on the card, done on the CPU). Returns ``(key, buffers)``
+        for :meth:`_collect`."""
+        key = (x.shape[0], x.shape[1]) + ((shard,) if shard else ())
+        slot = self._take(shard, key, x.shape)
+        cfg, params = self.forecaster.cfg, self._params[shard]
+        device, stream = self.shards[shard]
+        if device.type != "cuda":
+            slot.copy_(forward_multivariate(
+                cfg, params, torch.from_numpy(np.asarray(x, np.float32))))
+            return key, slot
+        slot.host_in.numpy()[...] = x
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            slot.dev_in.copy_(slot.host_in, non_blocking=True)
+            slot.dev_out.copy_(forward_multivariate(cfg, params, slot.dev_in))
+            slot.host_out.copy_(slot.dev_out, non_blocking=True)
+            slot.done.record(stream)
+        return key, slot
+
+    def _collect(self, key, slot, rows: int) -> np.ndarray:
+        """The first ``rows`` rows of a forward :meth:`_enqueue` started,
+        copied to the host before its buffers are put back."""
+        if isinstance(slot, _Slot):
+            slot.done.synchronize()
+            result = slot.host_out[:rows].numpy().copy()
+        else:
+            result = slot[:rows].numpy().copy()
+        self._free[key].append(slot)
+        return result
 
     def run_padded(self, x: np.ndarray, rows: int) -> np.ndarray:
         """x: (bucket, M, L) already padded to a bucket size. Fills this
@@ -167,26 +219,15 @@ class _ClusterEngine:
         another thread) could take and overwrite them. Inference mode and
         the current stream are thread-local, so both are entered here, per
         call."""
-        key = (x.shape[0], x.shape[1])
-        slot = self._take(key, x.shape)
-        cfg = self.forecaster.cfg
+        n = len(self.shards)
         with torch.inference_mode():
-            if self.device.type != "cuda":
-                slot.copy_(forward_multivariate(
-                    cfg, self.params, torch.from_numpy(np.asarray(x, np.float32))))
-                result = slot[:rows].numpy().copy()
-            else:
-                slot.host_in.numpy()[...] = x
-                with torch.cuda.stream(self.stream):
-                    slot.dev_in.copy_(slot.host_in, non_blocking=True)
-                    slot.dev_out.copy_(forward_multivariate(cfg, self.params,
-                                                            slot.dev_in))
-                    slot.host_out.copy_(slot.dev_out, non_blocking=True)
-                    slot.done.record(self.stream)
-                slot.done.synchronize()
-                result = slot.host_out[:rows].numpy().copy()
-        self._free[key].append(slot)
-        return result
+            if n > 1 and x.shape[0] % n == 0:
+                block = x.shape[0] // n
+                started = [self._enqueue(i, x[i * block:(i + 1) * block])
+                           for i in range(n)]
+                return np.concatenate([self._collect(key, slot, block)
+                                       for key, slot in started])[:rows]
+            return self._collect(*self._enqueue(0, x), rows)
 
 
 def _on(stream):
@@ -252,10 +293,17 @@ class ForecastServer:
                  process_shard: Optional[Tuple[int, int]] = None,
                  device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
+        self.batch_mesh = None
         if shard_batch:
-            raise NotImplementedError(
-                "shard_batch=True (a bucket's batch axis over several GPUs in "
-                "one process) is not ported: ROADMAP Queue A 11 (b)")
+            from repro_torch.launch import mesh as mesh_lib
+
+            mesh = mesh_lib.make_batch_mesh(device=self.device)
+            if len(mesh.devices) > 1:
+                if normalized(mesh.device) != normalized(self.device):
+                    raise ValueError(f"ForecastServer(device={device!r}) but "
+                                     f"the batch mesh's first device is "
+                                     f"{mesh.device}")
+                self.batch_mesh = mesh
         if process_shard is not None:
             idx, cnt = int(process_shard[0]), int(process_shard[1])
             if not (cnt >= 1 and 0 <= idx < cnt):
@@ -275,9 +323,17 @@ class ForecastServer:
         # (see _ClusterEngine), whichever thread calls it
         self._stream = (torch.cuda.Stream(self.device, priority=-1)
                         if self.device.type == "cuda" else None)
+        # the batch mesh's shards: the server's device and stream first, a
+        # high-priority stream of its own for each other shard
+        self._shards = None
+        if self.batch_mesh is not None:
+            self._shards = [(self.device, self._stream)] + [
+                (d, torch.cuda.Stream(d, priority=-1)
+                 if d.type == "cuda" else None)
+                for d in self.batch_mesh.devices[1:]]
         self._gen = _Generation(
             generation,
-            {c: _ClusterEngine(fc, p, self.device, self._stream)
+            {c: _ClusterEngine(fc, p, self.device, self._stream, self._shards)
              for c, (fc, p) in models.items()},
             station_cluster=station_cluster, station_norm=station_norm)
         self._manifest_source: Optional[dict] = None  # set by from_manifest
@@ -547,7 +603,7 @@ class ForecastServer:
             process_shard=self.process_shard)
         engines = {c: (v if isinstance(v, _ClusterEngine)
                        else _ClusterEngine(v[0], v[1], self.device,
-                                           self._stream))
+                                           self._stream, self._shards))
                    for c, v in restored.items()}
         station_norm = None
         if src["denormalize"]:

@@ -11,9 +11,9 @@ model's ops under DTensor's sharding rules (a plain tensor meets them as a
 replicated one: ``implicit_replication``, here and nowhere else), and
 issues the collectives they need: on a ``fake`` group they are counted
 (``launch.cost.collective_bytes``), on the card they run. Without a mesh
-each builder returns the one-card step, unchanged. Several GPUs in one
-process are not ported (ROADMAP Queue A 11 (b)): on the card the mesh is
-the ``(1, 1)`` host mesh.
+each builder returns the one-card step, unchanged. A ``DeviceMesh`` takes
+one process a device, so the steps across GPUs wait for one process a GPU
+(ROADMAP Queue A 12): on the card the mesh is the ``(1, 1)`` host mesh.
 """
 from __future__ import annotations
 

@@ -63,12 +63,11 @@ def test_run_fl_refuses_what_is_not_ported(data):
 
     tr, te = data[False]
     _, tfl = configs(tr.shape[0])
-    two_gpus = Mesh("clients", (torch.device("cpu"), torch.device("cpu")))
-    for kw, match in ((dict(shard_clients=True, client_mesh=two_gpus),
-                       "Queue A 11"),
-                      (dict(driver="loop", client_mesh=two_gpus), "client_mesh"),
+    two_shards = Mesh("clients", (torch.device("cpu"), torch.device("cpu")))
+    for kw, match in ((dict(driver="loop", client_mesh=two_shards),
+                       "client_mesh"),
                       (dict(driver="bogus"), "unknown driver")):
-        with pytest.raises((NotImplementedError, ValueError), match=match):
+        with pytest.raises(ValueError, match=match):
             TE.run_fl(TCFG, tfl, tr, te, R.PRNGKey(0), device="cpu", **kw)
     with pytest.raises(ValueError, match="streaming_windows"):
         TE.run_fl(TCFG, tfl, data[True][0], data[True][1], R.PRNGKey(0),

@@ -1337,3 +1337,105 @@ def test_client_grads_depend_on_the_vmap_width_on_the_card(cuda):
         chunked, _ = E._client_grads(cfg, meta, w, x, y, 64)
     assert not torch.equal(whole, halves)
     assert torch.equal(chunked, halves)
+
+
+# ---------------------------------------------------------------------------
+# a local mesh: two shards of one card, each on its own stream
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_psgf_mix_on_two_streams_of_one_device_at_once(cuda):
+    """Two streams of one device launch psgf_mix_batch at once, 20 calls
+    each with no host wait between them (a local mesh's two shards of one
+    card): each stream counts on its own ticket counter, so every call's
+    mix and count equal the plain version's bit for bit, and each call
+    counts one launch."""
+    ins = [_mix_inputs(11 + i, 27, 273_284, "binary", cuda) for i in range(2)]
+    want = [psgf_mix_batch_ref(*a) for a in ins]
+    streams = [torch.cuda.Stream(cuda) for _ in ins]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    before = mix_ops.LAUNCHES
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(mix_ops.psgf_mix_batch(*ins[i]))
+    torch.cuda.synchronize()
+    assert mix_ops.LAUNCHES - before == 40
+    index = torch.cuda.current_device()
+    assert len({mix_ops._TICKET_SLOTS[(index, s.cuda_stream)]
+                for s in streams}) == 2
+    for i, calls in enumerate(outs):
+        for mixed, count in calls:
+            assert torch.equal(mixed, want[i][0])
+            assert torch.equal(count, want[i][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["scan", "while"])
+def test_local_mesh_on_one_card_equals_the_unsharded_run(cuda, driver):
+    """``run_fl(client_mesh=Mesh("clients", (cuda:0, cuda:0)))``: two shards
+    of the card, each on its own stream (``while``: each shard's four
+    segments captured on its stream), bitwise the unsharded scan run on the
+    card (losses, comm, RMSE, every state leaf of the whole client axis), as
+    ``chip_smoke.py`` phase 15 also holds at full width."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.data.synthetic import nn5_synthetic
+    from repro_torch.data.windowing import client_series_datasets
+    from repro_torch.launch.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = F.logtst_config(look_back=16, horizon=2, d_model=16, num_heads=2,
+                          d_ff=32, patch_len=8, stride=4, use_flash_attn=True)
+    fl = E.FLConfig(policy="psgf", num_clients=12, local_steps=2,
+                    batch_size=8, streaming_windows=True, participation=8,
+                    client_chunk=2, use_pallas_mix=True)
+    tr, _, te, _ = client_series_datasets(
+        nn5_synthetic(seed=0, num_clients=12, num_days=120), 16, 2)
+    kw = dict(max_rounds=4, patience=99, eval_every=2, device="cuda")
+    want = E.run_fl(cfg, fl, tr, te, R.PRNGKey(2), driver="scan", **kw)
+    card = torch.device("cuda", torch.cuda.current_device())
+    got = E.run_fl(cfg, fl, tr, te, R.PRNGKey(2), driver=driver,
+                   client_mesh=Mesh("clients", (card, card)), **kw)
+    for k in ("rounds_run", "train_loss", "comm", "rmse", "final_rmse"):
+        assert got[k] == want[k], k
+    for k, v in want["state"].items():
+        assert torch.equal(got["state"][k], v), k
+    run = got["mesh_run"]
+    assert (run["shards"], run["sharded"], run["backend"]) == (2, True, "local")
+    if driver == "while":
+        assert run["graphs"] == ["payload", "local", "up", "end_chunk"]
+        assert run["replays"] == {"payload": 3, "local": 3, "up": 3,
+                                  "end_chunk": 2}
+
+
+@pytest.mark.cuda
+def test_shard_batch_on_one_card(cuda, monkeypatch):
+    """``ForecastServer(shard_batch=True)`` over two shards of the card:
+    each block of a bucket of 8 bitwise the plain server's forward of that
+    block, the bucket within the served tolerance of the plain server's
+    (cuBLAS picks its kernels by M), a bucket of 1 bitwise."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve_forecast import ForecastServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fc = get_forecaster("logtst", look_back=16, horizon=2, d_model=16,
+                        num_heads=2, d_ff=16, patch_len=8, stride=4,
+                        use_flash_attn=True)
+    params = fc.init_params(torch.Generator().manual_seed(0), device="cuda")
+    plain = ForecastServer(fc, params, max_batch=8, device="cuda")
+    card = torch.device("cuda", torch.cuda.current_device())
+    monkeypatch.setattr(M, "make_batch_mesh",
+                        lambda axis="batch", device=None: M.Mesh(axis, (card, card)))
+    shard = ForecastServer(fc, params, max_batch=8, device="cuda",
+                           shard_batch=True)
+    x = np.random.default_rng(0).standard_normal((8, 3, 16)).astype(np.float32)
+    got = shard.predict(x)
+    for i in range(2):
+        np.testing.assert_array_equal(got[4 * i:4 * (i + 1)],
+                                      plain.predict(x[4 * i:4 * (i + 1)]))
+    np.testing.assert_allclose(got, plain.predict(x), atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(shard.predict(x[:1]), plain.predict(x[:1]))

@@ -254,5 +254,10 @@ def test_cli_and_unported_options(routed, capsys):
              "8", "--channels", "1", "--max-batch", "4"])
     out = capsys.readouterr().out
     assert "restored 2 cluster models" in out and "8 requests" in out
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        _port(routed["root"], shard_batch=True)
+    # shard_batch=True on one device is the unsharded server (the
+    # reference's test_shard_batch_single_device_noop)
+    x = np.random.default_rng(2).standard_normal((3, 2, 16)).astype(np.float32)
+    one = _port(routed["root"], shard_batch=True)
+    assert one.batch_mesh is None
+    np.testing.assert_array_equal(one.predict(x, cluster=0),
+                                  _port(routed["root"]).predict(x, cluster=0))
