@@ -160,7 +160,7 @@ Phases, each of which raises (exit code != 0) on failure:
  14. the sharded steps' collectives, in two fresh interpreters of this
      script, one after the other (``--collectives-child``), so that no
      process group meets another and (a) is timed alone, (b) first: (a)
-     on the card, a one-rank NCCL group and ``make_host_mesh("cuda")`` as
+     on the card, a one-rank NCCL group and ``make_host_mesh(device="cuda")`` as
      a (1, 1) ``DeviceMesh``: qwen2-1.5b's ``train`` step at full width
      (4 x 2,048, 4 steps) over DTensors laid out by the train rules (the
      flash wrapper taking them itself) beside the plain step from the
@@ -191,17 +191,41 @@ Phases, each of which raises (exit code != 0) on failure:
      forecasts/s and p50/p99 of both under the same traffic, one
      ``reload``. Where the machine has two GPUs, all of it again over
      ``(cuda:0, cuda:1)``; otherwise a line says that no such run was made.
+ 16. one process a GPU: (a) ``launch.train.train`` of qwen2-1.5b at
+     published widths and full depth (4 x 2,048, 3 steps) and (b)
+     ``launch.serve.serve`` (batch 4, prompt 2,048, 16 tokens), plain in
+     this process, then as ``--processes 1`` runs them:
+     ``distributed.launch_processes`` starts a child of this script
+     (``python -m chip_smoke --host-mesh-child PART DIR``) that runs
+     ``launch.train.main`` / ``launch.serve.main``, which join a one-rank
+     NCCL group and run on its (1, 1) host mesh over DTensors: the losses,
+     the tokens and the logits of the prefill and of every decode step
+     bitwise the plain run's, flash all tensor-core and as many launches,
+     ms a step and peak of both; (c) phase 10's cell over two gloo
+     processes each with a client mesh of two shards of ``cuda:0``
+     (``--hybrid-child``), ``scan`` and ``while``, bitwise phase 10's
+     one-process scan, ms a round, peak per process, merge and gather
+     bytes and host seconds at both levels; (d) ``python -m
+     repro_torch.launch.distributed --smoke --num-processes 1 --device
+     cuda`` (one NCCL rank: the exchange's NCCL transport and barrier).
+     Where the machine has two GPUs, (a), (b) and (c) again with one
+     process a GPU over NCCL (the first loss and the prefill's logits
+     within what splitting the batch moves them on one card, every rank
+     the same); otherwise a line says that no such run was made.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
 ...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``,
 ``{"zoo_last_families": ...}``, ``{"zoo_moe_vlm_training": ...}``,
-``{"collectives": ...}``, ``{"local_mesh": ...}``, one ``{"kernels": [...]}`` line (flash
+``{"collectives": ...}``, ``{"local_mesh": ...}``, ``{"host_mesh": ...}``,
+one ``{"kernels": [...]}`` line (flash
 attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
 the standard library and ``repro_torch`` (from ``src/`` beside this file)
 only. With ``--distributed-child DIR`` it is one of phase 10's processes,
-with ``--collectives-child card|accounting DIR`` one of phase 14's.
+with ``--collectives-child card|accounting DIR`` one of phase 14's, with
+``--host-mesh-child PART DIR`` or ``--hybrid-child DIR DEVICE`` one of
+phase 16's.
 """
 from __future__ import annotations
 
@@ -2976,14 +3000,11 @@ def drive_distributed(mix_ops, flash_ops, host_digest) -> dict:
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     np.savez(os.path.join(workdir, "inputs.npz"), train=tr, test=te)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     t0 = time.perf_counter()
     procs = D.spawn_processes(
         DIST_PROCESSES,
         [sys.executable, os.path.abspath(__file__), "--distributed-child",
-         workdir], env=env, timeout=DIST_TIMEOUT_S,
+         workdir], env=D.child_env(), timeout=DIST_TIMEOUT_S,
         coordinator="file://" + os.path.join(workdir, "store"))
     spawn_s = time.perf_counter() - t0
     reports = []
@@ -3929,7 +3950,7 @@ COLLECTIVES_TIMEOUT_S = 900
 
 def sharded_train_child(workdir: str) -> dict:
     """Phase 14 (a), ``chip_smoke.py --collectives-child card DIR``: a real
-    one-rank NCCL group on ``cuda:0`` and ``make_host_mesh("cuda")`` as a
+    one-rank NCCL group on ``cuda:0`` and ``make_host_mesh(device="cuda")`` as a
     (1, 1) ``DeviceMesh``; qwen2-1.5b's plain ``train`` step and the same
     step built with ``mesh=`` over DTensors laid out by the train rules,
     each ``SHARDED_TRAIN["steps"]`` steps from params drawn from
@@ -3959,7 +3980,7 @@ def sharded_train_child(workdir: str) -> dict:
         workdir, "store"), rank=0, world_size=1)
     cfg = get_config("qwen2-1.5b")
     B, S, steps = (SHARDED_TRAIN[k] for k in ("batch", "seq", "steps"))
-    host = M.make_host_mesh("cuda")
+    host = M.make_host_mesh(device="cuda")
     dm = M.device_mesh(host, "cuda")
     optimizer = Adam(lr=one_cycle(3e-4, steps))
     out, finals = {}, {}
@@ -4318,6 +4339,22 @@ def drive_collectives() -> dict:
 LOCAL_SERVE_REQUESTS = 256  # phase 15 (2): as phase 4, 3 channels each
 
 
+def mesh_launches(launches, captured, run) -> dict:
+    """A ``MeshRun``'s kernel launches: the counts read after it
+    (``launches``, every eager call) plus, for a while run, each captured
+    segment's calls (``counting_captures``: every shard's four segments in
+    order) times its replays past the capture."""
+    from repro_torch.core.fl.partition import MeshRun
+
+    segments = MeshRun.SEGMENTS
+    launches = dict(launches)
+    for i, (_, calls) in enumerate(captured):
+        name = segments[i % len(segments)]
+        for k in launches:
+            launches[k] += calls[k] * (run["replays"][name] - 1)
+    return launches
+
+
 def local_mesh_fl(E, R, mix_ops, flash_ops, devices, want) -> dict:
     """Phase 15 (1) over ``devices``: phase 10's nn5 cell (its inputs from
     phase 10's workdir) with ``client_mesh=Mesh("clients", devices)``, the
@@ -4326,7 +4363,6 @@ def local_mesh_fl(E, R, mix_ops, flash_ops, devices, want) -> dict:
     while run's launches are each captured segment's calls times its
     replays, plus the eager first round); each run's digest must equal
     ``want`` (phase 10's one-process scan run) bit for bit."""
-    from repro_torch.core.fl.partition import MeshRun
     from repro_torch.launch.distributed import block_range
     from repro_torch.launch.mesh import Mesh
 
@@ -4356,13 +4392,8 @@ def local_mesh_fl(E, R, mix_ops, flash_ops, devices, want) -> dict:
                              driver=driver, device=devices[0],
                              client_mesh=mesh, **kw)
                 wall = time.perf_counter() - t0
-            launches = counts()                # ... and just after
             run = h["mesh_run"]
-            segments = MeshRun.SEGMENTS
-            for i, (_, calls) in enumerate(captured):
-                name = segments[i % len(segments)]
-                for k in launches:
-                    launches[k] += calls[k] * (run["replays"][name] - 1)
+            launches = mesh_launches(counts(), captured, run)   # ... and after
             digest = run_digest(h, blocks)
             same = {k: digest[k] == want[k] for k in want}
             if not all(same.values()):
@@ -4513,12 +4544,447 @@ def drive_local_mesh(mix_ops, flash_ops, want, one_process) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: one process a GPU
+# ---------------------------------------------------------------------------
+
+# (a) / (b): qwen2-1.5b at published widths and full depth (28 layers), the
+# plain trainer and server in this process against ``launch.train`` /
+# ``launch.serve``'s ``main`` in the children that ``--processes N`` starts
+# (``distributed.launch_processes``): each joins its NCCL group, one GPU a
+# rank, and runs on the host mesh over it
+HOST_MESH_TRAIN = dict(steps=3, batch=4, seq=2048)
+HOST_MESH_SERVE = dict(batch=4, prompt_len=2048, gen=16)
+HOST_MESH_ARGV = {
+    "train": ["--arch", "qwen2-1.5b", "--full", "--device", "cuda",
+              "--steps", "3", "--batch", "4", "--seq", "2048"],
+    "serve": ["--arch", "qwen2-1.5b", "--no-reduced", "--device", "cuda",
+              "--batch", "4", "--prompt-len", "2048", "--gen", "16"]}
+# (c): phase 10's nn5 cell over two gloo processes on this card, each with a
+# client mesh of two shards of cuda:0 (four shards of 64 cohort rows, the
+# client chunk). Memory, reckoned first: two shards of one process peaked at
+# 22.81 GB with all 2,048 rows (PR 26); a process here holds half of them
+# (3.4 GB less of w, m and v) and its process-level transport in host
+# memory, so two processes take ~39 GB of the 80 beside this one's
+# leftovers: K stays 2,048, no cut beyond phase 10's
+HYBRID_PROCESSES, HYBRID_SHARDS = 2, 2
+# where the machine has several GPUs: (a), (b) and (c) once more, one
+# process a GPU over NCCL
+HOST_MESH_GPUS = 2
+HOST_MESH_TIMEOUT_S = 600
+# across GPUs the batch is split over "data": the first step's loss and the
+# prefill's logits are held to the plain run's within what splitting the
+# batch in two moves them on this card (split_readings), plus the two-rank
+# CPU test's 1e-6 relative for the order of the mean
+SPLIT_RTOL = 1e-6
+
+
+def spawn_children(D, n, args, workdir) -> list:
+    """``n`` fresh interpreters of this script with ``args``, one group
+    (a file store in ``workdir``); their JSON reports (last stdout line)."""
+    procs = D.spawn_processes(
+        n, [sys.executable, os.path.abspath(__file__), *args],
+        env=D.child_env(), timeout=HOST_MESH_TIMEOUT_S,
+        coordinator="file://" + os.path.join(workdir, f"store_{time.time_ns()}"))
+    reports = []
+    for i, r in enumerate(procs):
+        if r.returncode != 0:
+            at = max(r.stderr.rfind("Traceback"), 0)    # an error's message
+            log(f"--- {args[0]} child {i} stderr ---\n{r.stderr[at:at + 4000]}"  # may be long
+                f"\n...\n{r.stderr[-2000:]}")
+            raise RuntimeError(f"{args[0]} child {i} exited {r.returncode}")
+        reports.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    return reports
+
+
+def zoo_part(part: str, call, flash_ops) -> dict:
+    """``call(history)``, ``launch.train.train`` or ``launch.serve.serve``
+    of qwen2-1.5b at full width (``part``), with flash's counts set to 0
+    just before and read just after; its own peak (less what was allocated
+    before it) and times; a serve's ``logits`` stay a tensor."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    free_device_memory()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    flash_ops.reset_launch_counts()
+    hist = {}
+    t0 = time.perf_counter()
+    got = call(hist)
+    torch.cuda.synchronize(dev)
+    out = {"wall_s": time.perf_counter() - t0,
+           "peak_own_bytes": torch.cuda.max_memory_allocated(dev) - base,
+           "base_memory_bytes": base, "flash_launches": flash_ops.LAUNCHES,
+           "flash_route_launches": dict(flash_ops.ROUTE_LAUNCHES)}
+    if part == "train":
+        # finite; not "falling" as check_losses asks: over 3 steps the 1cycle
+        # schedule peaks at step 2, where the loss rises (phase 9's step 2
+        # too); what this phase holds is the mesh run's losses equal to the
+        # plain one's
+        if not all(math.isfinite(x) for x in got):
+            raise RuntimeError(f"phase 16 train: losses {got} not finite")
+        out.update(losses=got, ms_per_step=[1e3 * x for x in hist["step_s"]],
+                   warm_ms_per_step=1e3 * statistics.median(hist["step_s"][1:]))
+    else:
+        out.update(tokens=got["tokens"].tolist(), logits=got["logits"],
+                   **{k: got[k] for k in ("init_s", "prefill_ms",
+                                          "decode_ms_per_token")})
+    free_device_memory()
+    return out
+
+
+def host_mesh_child(part: str, workdir: str) -> None:
+    """Phase 16 (a) or (b) in one child of ``--processes N`` (``python -m
+    chip_smoke --host-mesh-child PART DIR``, started by
+    ``distributed.launch_processes``): ``launch.train.main`` or
+    ``launch.serve.main`` with the phase's flags, which joins the group
+    (NCCL, one GPU a rank) and runs on the host mesh over it. The entry
+    point that ``main`` calls is measured where it is called, inside the
+    group (``zoo_part``). Writes ``PART_RANK.json`` and a serve's logits
+    (``logits_RANK.pt``) into ``DIR``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    module = TR if part == "train" else SV
+    entry, report = getattr(module, part), {}
+
+    def measured(*args, **kw):
+        got = []
+
+        def call(hist):
+            if part == "train":
+                kw["history"] = hist
+            got.append(entry(*args, **kw))
+            return got[0]
+        report.update(zoo_part(part, call, flash_ops),
+                      process=D.process_index(), processes=D.process_count(),
+                      backend=D.backend(), device=str(D.device()),
+                      mesh=list(make_host_mesh(device="cuda").axis_sizes))
+        return got[0]
+
+    setattr(module, part, measured)
+    module.main(HOST_MESH_ARGV[part])
+    rank = report["process"]
+    if part == "serve":
+        torch.save(report.pop("logits"),
+                   os.path.join(workdir, f"logits_{rank}.pt"))
+    with open(os.path.join(workdir, f"{part}_{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def launch_zoo(D, n: int, workdir: str) -> list:
+    """(a) and (b) as ``--processes n`` runs them: ``launch_processes``
+    starts ``n`` children of this script (``host_mesh_child``), each part
+    in a group of its own; every rank's ``{"train", "serve"}``."""
+    os.chdir(ROOT)                        # python -m chip_smoke
+    workdir = os.path.join(workdir, f"zoo_{n}")
+    os.makedirs(workdir)
+    for part in ("train", "serve"):
+        code = D.launch_processes(n, "chip_smoke",
+                                  ["--host-mesh-child", part, workdir], "cuda")
+        if code:
+            raise RuntimeError(f"phase 16 {part} over {n} process(es) "
+                               f"exited {code}")
+    ranks = []
+    for i in range(n):
+        rank = {}
+        for part in ("train", "serve"):
+            with open(os.path.join(workdir, f"{part}_{i}.json")) as f:
+                rank[part] = json.load(f)
+            got = [rank[part][k] for k in ("backend", "processes", "process", "mesh")]
+            if got != ["nccl", n, i, [n, 1]]:
+                raise RuntimeError(f"phase 16 {part} rank {i}: backend, "
+                                   f"processes, rank, mesh {got}")
+        rank["serve"]["logits"] = torch.load(
+            os.path.join(workdir, f"logits_{i}.pt"))
+        ranks.append(rank)
+    return ranks
+
+
+def split_readings(TR) -> dict:
+    """What splitting the batch in two moves on this card, in the plain
+    steps at phase 16's shapes and weights (``PRNGKey(0)``): the first
+    step's loss (whole batch against the mean of its halves') and the
+    prefill's last-position logits (max abs)."""
+    from repro_torch import random as R
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.launch.steps import build_prefill_step, build_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = TR._config("qwen2-1.5b", reduced=False)
+    fn, api, _ = build_train_step(cfg, None, dev)
+    params = api.init_params(R.PRNGKey(0))
+    batch = TR.make_batch(cfg, 0, HOST_MESH_TRAIN["batch"],
+                          HOST_MESH_TRAIN["seq"], dev)
+    half = HOST_MESH_TRAIN["batch"] // 2
+
+    def loss(rows):
+        return float(fn.gradients(params, {k: v[rows] for k, v in batch.items()})[1]["loss"])
+    whole = loss(slice(None))
+    split = (loss(slice(0, half)) + loss(slice(half, None))) / 2
+    prefill, _, _ = build_prefill_step(cfg, dev)
+    B, P, G = (HOST_MESH_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    toks = torch.from_numpy(synthetic_tokens(0, B, P, cfg.vocab_size)).to(dev)
+    with torch.inference_mode():
+        def last(rows):
+            return prefill(params, {"tokens": toks[rows]},
+                           cache_len=P + G)[0][:, -1].float()
+        gap = torch.cat([last(slice(0, half)), last(slice(half, None))]) - last(slice(None))
+    out = {"loss": abs(split - whole), "prefill_logits": float(gap.abs().max())}
+    del params, batch
+    free_device_memory()
+    return out
+
+
+def check_zoo_same(plain, ranks, readings=None) -> dict:
+    """The mesh runs (``ranks``, one report each) against the plain run's,
+    flash all tensor-core. Every rank returns the same global losses,
+    tokens and logits. On one rank (no ``readings``) they equal the plain
+    run's bit for bit, the logits of the prefill and of every decode step
+    too, with as many launches. Across GPUs (the batch split over
+    ``"data"``, bf16 activations) the first step's loss and the prefill's
+    logits lie within ``readings`` (``split_readings``) plus SPLIT_RTOL of
+    the plain run's; the later steps and the decode, which compound the
+    split, are held across the ranks alone."""
+    mesh = ranks[0]
+    lp, lm = plain["train"]["losses"], mesh["train"]["losses"]
+    gp, gm = plain["serve"]["logits"], mesh["serve"]["logits"]
+    checks = {"ranks_agree": all(
+        r["train"]["losses"] == lm
+        and r["serve"]["tokens"] == mesh["serve"]["tokens"]
+        and torch.equal(r["serve"]["logits"], gm) for r in ranks)}
+    checks["logits_shape"] = gm.shape == gp.shape == (
+        HOST_MESH_SERVE["batch"], HOST_MESH_SERVE["gen"] + 1, gp.shape[-1])
+    if readings is None:
+        checks["losses"] = lp == lm
+        checks["tokens"] = plain["serve"]["tokens"] == mesh["serve"]["tokens"]
+        checks["logits"] = torch.equal(gp, gm)
+    else:
+        checks["first_loss"] = (abs(lm[0] - lp[0])
+                                <= readings["loss"] + SPLIT_RTOL * abs(lp[0]))
+        first = (gm[:, 0].float() - gp[:, 0].float()).abs().max()
+        checks["prefill_logits"] = float(first) <= (
+            readings["prefill_logits"]
+            + SPLIT_RTOL * float(gp[:, 0].float().abs().max()))
+    for part in ("train", "serve"):
+        routes = mesh[part]["flash_route_launches"]
+        checks[f"{part}_tensor_core"] = (
+            routes["tensor_core"] == mesh[part]["flash_launches"] > 0)
+        if readings is None:
+            checks[f"{part}_launches"] = (mesh[part]["flash_launches"]
+                                          == plain[part]["flash_launches"])
+    if not all(checks.values()):
+        raise RuntimeError(f"phase 16 host mesh != the plain run: {checks}")
+    return {**checks, "logits_max_abs_err": float(
+        (gm.float() - gp.float()).abs().max())}
+
+
+def without_logits(run) -> dict:
+    return {p: {k: v for k, v in run[p].items() if k not in ("tokens", "logits")}
+            for p in ("train", "serve")}
+
+
+def hybrid_child(workdir: str, device: str) -> dict:
+    """Phase 16 (c) in one process (``chip_smoke.py --hybrid-child DIR
+    DEVICE``): joins the group on ``DEVICE`` (gloo where the processes share
+    ``cuda:0``, NCCL where each has a GPU), then phase 10's cell over a
+    client mesh of two shards a process, ``scan`` and ``while``, every
+    kernel count set to 0 just before each run and read just after."""
+    src = os.path.join(ROOT, "src")
+    sys.path.insert(0, src)
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.psgf_mix import ops as mix_ops
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.mesh import Mesh, make_client_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not D.initialize_distributed(device=device):
+        raise RuntimeError("hybrid child: no process group configured")
+    dev = D.device()
+    _, model, _, _, fl, kw = host_cell(E, data=False)
+    z = np.load(os.path.join(workdir, "inputs.npz"))
+    tr, te = z["train"], z["test"]
+    # two shards a process: its local GPUs (make_client_mesh(multi_host=True):
+    # two where the host has a GPU for each), else its group device twice
+    own = make_client_mesh(multi_host=True, device=device).devices
+    mesh = Mesh("clients", (own * HYBRID_SHARDS)[:HYBRID_SHARDS],
+                D.process_index(), D.process_count(), D.backend())
+    counts = lambda: {"psgf_mix_batch": mix_ops.LAUNCHES,  # noqa: E731
+                      "flash_short": flash_ops.ROUTE_LAUNCHES["short"]}
+    out = {"process": D.process_index(), "backend": D.backend(),
+           "device": str(dev), "runs": {}}
+    for driver in ("scan", "while"):
+        free_device_memory()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        D.sync(driver)                          # both start together
+        mix_ops.LAUNCHES = 0
+        flash_ops.reset_launch_counts()
+        with counting_captures(E, counts) as captured:
+            t0 = time.perf_counter()
+            h = E.run_fl(model.cfg, fl, tr, te, R.PRNGKey(SEED), driver=driver,
+                         device=dev, client_mesh=mesh, **kw)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        run = h["mesh_run"]
+        ex, rounds = h["exchange"], h["rounds_run"]
+        lo, hi = h["owned_rows"]
+        level = lambda e: {k: {"bytes": e[k]["bytes"], "s": e[k]["s"]}  # noqa: E731
+                           for k in ("merge", "gather")}
+        out["runs"][driver] = {
+            "digest": run_digest(h, [(0, hi - lo)]), "owned_rows": [lo, hi],
+            "run_s": wall, "ms_per_round": 1e3 * wall / rounds,
+            "ms_per_replayed_round": (
+                1e3 * (run["run_s"] - run["warmup_s"] - run["capture_s"])
+                / (rounds - 1) if run["graphs"] else None),
+            "warmup_s": run["warmup_s"], "capture_s": run["capture_s"],
+            "mesh_run": {k: run[k] for k in ("processes", "shards", "backend",
+                                             "devices", "graphs", "replays")},
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": mesh_launches(counts(), captured, run),
+            "local": level(ex), "across": level(ex["across"])}
+        del h
+    D.sync("done")
+    D.shutdown_distributed()
+    return out
+
+
+def check_hybrid(reports, want, blocks, backend) -> dict:
+    """Every process's runs bitwise phase 10's one-process scan (``want``),
+    on the mesh asked for, every kernel launched."""
+    same = {}
+    for i, rep in enumerate(reports):
+        if rep["backend"] != backend:
+            raise RuntimeError(f"hybrid process {i}: backend {rep['backend']}")
+        for driver, run in rep["runs"].items():
+            got = run["digest"]
+            checks = {k: got[k] == want[k] for k in
+                      ("losses", "comm", "rmse", "final_rmse", "rounds",
+                       "w_global_sha")}
+            checks["rows"] = run["owned_rows"] == list(blocks[i])
+            checks["w_clients_block_sha"] = (got["w_clients_sha"][0]
+                                             == want["w_clients_sha"][i])
+            m = run["mesh_run"]
+            checks["mesh"] = (m["processes"], m["shards"]) == (
+                HYBRID_PROCESSES, HYBRID_SHARDS)
+            same[f"process_{i}/{driver}"] = checks
+            if not all(checks.values()):
+                raise RuntimeError(f"hybrid process {i} {driver} != the "
+                                   f"one-process scan: {checks}")
+            if not all(run["launches"].values()):
+                raise RuntimeError(f"hybrid process {i} {driver}: a kernel "
+                                   f"never launched: {run['launches']}")
+    return same
+
+
+def drive_host_mesh(mix_ops, flash_ops, want) -> dict:
+    """Phase 16: one process a GPU. (a) and (b) plain in this process, then
+    as ``--processes 1`` runs them, on a one-rank NCCL group's (1, 1) mesh:
+    losses, tokens and logits equal; (c) phase 10's cell over two gloo
+    processes x two shards of ``cuda:0``, ``scan`` and ``while``, bitwise
+    ``want`` (phase 10's one-process scan); (d) the FL smoke at one process
+    under NCCL. Where the machine has two GPUs, (a), (b) and (c) again with
+    one process a GPU over NCCL."""
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TR
+
+    t0 = time.perf_counter()
+    workdir = os.path.join(ROOT, "build", "chip_smoke_host_mesh")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    out = {"card": card_info()}
+    plain = {
+        "train": zoo_part("train", lambda hist: TR.train(
+            "qwen2-1.5b", reduced=False, device="cuda", log_every=100,
+            history=hist, **HOST_MESH_TRAIN), flash_ops),
+        "serve": zoo_part("serve", lambda hist: SV.serve(
+            "qwen2-1.5b", reduced=False, device="cuda", **HOST_MESH_SERVE),
+            flash_ops)}
+    out["plain"] = without_logits(plain)
+    t1 = time.perf_counter()
+    one = launch_zoo(D, 1, workdir)
+    mesh = one[0]
+    out["one_rank"] = {**without_logits(mesh), "launch_s": time.perf_counter() - t1}
+    out["one_rank_same"] = check_zoo_same(plain, one)
+    log(f"phase 16 (a)/(b): --processes 1 (one NCCL rank), losses, tokens "
+        f"and logits bitwise the plain run's; train "
+        f"{mesh['train']['warm_ms_per_step']:.1f} ms a step "
+        f"(plain {plain['train']['warm_ms_per_step']:.1f})")
+
+    inputs = os.path.join(ROOT, "build", "chip_smoke_distributed", "inputs.npz")
+    shutil.copy(inputs, os.path.join(workdir, "inputs.npz"))
+    blocks = [D.block_range(HOST_K, i, HYBRID_PROCESSES)
+              for i in range(HYBRID_PROCESSES)]
+    t1 = time.perf_counter()
+    hybrid = spawn_children(D, HYBRID_PROCESSES,
+                            ["--hybrid-child", workdir, "cuda:0"], workdir)
+    out["hybrid"] = {"spawn_s": time.perf_counter() - t1,
+                     "bitwise": check_hybrid(hybrid, want, blocks, "gloo"),
+                     "processes": hybrid}
+    for r in hybrid:
+        for run in r["runs"].values():
+            run.pop("digest")
+
+    t1 = time.perf_counter()
+    smoke = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.distributed", "--smoke",
+         "--num-processes", "1", "--device", "cuda"], env=D.child_env(),
+        capture_output=True, text=True, timeout=HOST_MESH_TIMEOUT_S)
+    if smoke.returncode != 0:
+        log(f"--- smoke stderr ---\n{smoke.stderr[-6000:]}")
+        raise RuntimeError(f"phase 16 (d): the smoke exited {smoke.returncode}")
+    summary = json.loads(smoke.stdout.strip().splitlines()[-2])
+    if summary["backend"] != "nccl" or not summary["bitwise_to_one_process"]:
+        raise RuntimeError(f"phase 16 (d): {summary}")
+    out["smoke"] = {**summary, "s": time.perf_counter() - t1}
+
+    gpus = torch.cuda.device_count()
+    if gpus >= HOST_MESH_GPUS:
+        readings = split_readings(TR)
+        many = launch_zoo(D, HOST_MESH_GPUS, workdir)
+        out["gpus"] = {"readings": readings,
+                       "ranks": [without_logits(r) for r in many],
+                       "same": check_zoo_same(plain, many, readings)}
+        across = spawn_children(D, HYBRID_PROCESSES,
+                                ["--hybrid-child", workdir, "cuda"], workdir)
+        out["gpus"]["hybrid_bitwise"] = check_hybrid(across, want, blocks,
+                                                     "nccl")
+    else:
+        log(f"phase 16: no run across distinct GPUs was made: "
+            f"torch.cuda.device_count() = {gpus}")
+    out["distinct_gpus"] = gpus >= HOST_MESH_GPUS
+    out["launches"] = {
+        "flash_tensor_core": {p: mesh[p]["flash_route_launches"]["tensor_core"]
+                              for p in ("train", "serve")},
+        "hybrid": {d: {k: [r["runs"][d]["launches"][k] for r in hybrid]
+                       for k in ("psgf_mix_batch", "flash_short")}
+                   for d in ("scan", "while")}}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--distributed-child"]:        # phase 10's children
         print(json.dumps(distributed_child(sys.argv[2])))
+        return 0
+    if sys.argv[1:2] == ["--host-mesh-child"]:          # phase 16's children
+        host_mesh_child(sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--hybrid-child"]:
+        print(json.dumps(hybrid_child(sys.argv[2], sys.argv[3])))
         return 0
     if sys.argv[1:2] == ["--collectives-child"]:        # phase 14's children
         kind = sys.argv[2]
@@ -4669,6 +5135,19 @@ def main() -> int:
             for d in ("scan", "while")}}
         for r in local["runs"]]
 
+    # 16. one process a GPU: the zoo's train and serve on the host mesh of
+    # a one-rank NCCL group, the FL client mesh across two processes with
+    # two shards each, the FL smoke under NCCL
+    free_device_memory()
+    host_mesh = drive_host_mesh(mix_ops, ops, scan_digest)
+    log(json.dumps({"host_mesh": host_mesh}))
+    log(f"phase 16: {host_mesh['seconds']:.1f} s")
+    record["launches_host_mesh"] = host_mesh["launches"]["flash_tensor_core"]
+    record["launches_hybrid_mesh"] = {
+        d: n["flash_short"] for d, n in host_mesh["launches"]["hybrid"].items()}
+    mix_record["launches_hybrid_mesh"] = {
+        d: n["psgf_mix_batch"] for d, n in host_mesh["launches"]["hybrid"].items()}
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
@@ -4683,6 +5162,7 @@ def main() -> int:
                   "launches_flywheel": record["launches_flywheel"],
                   "launches_distributed": record["launches_distributed"],
                   "launches_local_mesh": record["launches_local_mesh"],
+                  "launches_hybrid_mesh": record["launches_hybrid_mesh"],
                   "ms": record["ms"],
                   "ms_training_shape": record["training_shape"]["ms"]},
         "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",
@@ -4714,6 +5194,7 @@ def main() -> int:
                             record["launches_zoo_moe_vlm_training"],
                         "launches_zoo_sharded_training":
                             record["launches_zoo_sharded_training"],
+                        "launches_host_mesh": record["launches_host_mesh"],
                         "zoo_moe_vlm_training": moe_vlm["flash_tensor_core"]},
     }
     k1_record = mix_record.pop("k1_psgf_mix")

@@ -954,8 +954,11 @@ def run_fl(
     unsharded one there (the reference's replicated leaves). Bit for bit
     the unsharded run under ``partition.validate_partition``; otherwise
     (``client_chunk``) its RMSE within the reference's ``rtol=1e-5``. On
-    one device either is the unsharded run. Several devices in each of
-    several processes raise (ROADMAP Queue A 12).
+    one device either is the unsharded run. Across processes with several
+    devices in each (``make_client_mesh(multi_host=True)`` where a process
+    has several local GPUs, or ``Mesh(axis, devices, index, count,
+    backend)``), each process runs one shard a device of its own and
+    ``state`` holds its block of the client rows.
 
     ``init_params`` warm-starts from a params tree. ``checkpoint_dir`` saves
     the final global model with ``save_forecaster`` (process 0 alone across
@@ -988,10 +991,6 @@ def run_fl(
         mesh = client_mesh if client_mesh is not None else make_client_mesh(
             device=dev)
         n = len(mesh.devices)
-        if mesh.count > 1 and n > 1:
-            raise NotImplementedError(
-                f"a client mesh across processes with {n} devices in each "
-                f"is not ported (ROADMAP Queue A 12: one process per GPU)")
         if mesh.count > 1 or n > 1:
             if normalized(dev) != normalized(mesh.device):
                 raise ValueError(f"run_fl(device={device!r}) but the mesh's "

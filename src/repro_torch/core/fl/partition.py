@@ -45,6 +45,15 @@ several shards, as the reference's virtual host devices do) with its own
 CUDA stream, and a :class:`LocalExchange` in place of the process group: the
 merge and the gather are device-to-device copies of bits between the shards,
 ordered after the stages that fill them by events on the shards' streams.
+
+Across processes with several devices in each (the reference's
+``make_client_mesh(multi_host=True)`` over every device of every process),
+shard ``p * n + i`` is device ``i`` of process ``p`` and the exchange has two
+levels: the local one into the process's first shard, then one
+:class:`Exchange` over the process group of that shard's result (the merged
+payload, the process's ``n`` contiguous blocks), then copies from the first
+shard to the others. The merge stays an int32 sum over disjoint rows and the
+gather pure movement in shard order, so the levels change no bit.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from torch.profiler import record_function
 
 from repro_torch import random as R
 from repro_torch.common import pytree_utils as pt
+from repro_torch.common.device import normalized
 from repro_torch.core.fl import engine as E
 from repro_torch.launch import distributed as D
 
@@ -233,7 +243,7 @@ def _on(device, stream):
 
 
 class LocalExchange(Exchange):
-    """The exchanges of a local mesh: ``count`` shards of this process, shard
+    """The exchanges of a local mesh: ``n`` shards of this process, shard
     ``i`` on ``devices[i]`` (a device may repeat) with its own CUDA stream
     ``streams[i]`` (None on the CPU). Both exchanges are device-to-device
     copies of bits, each ordered after the stage that filled its source by
@@ -251,15 +261,32 @@ class LocalExchange(Exchange):
     has waited for every shard's copies of that merge, which each shard
     makes after its reads of the previous gather. :attr:`stats` are
     :class:`Exchange`'s: per call the bytes each shard hands over, and the
-    host seconds the call takes (to enqueue, on the card)."""
+    host seconds the call takes (to enqueue, on the card).
 
-    def __init__(self, devices, streams):
-        super().__init__(0, len(devices), "local", devices[0])
+    With ``process`` (an :class:`Exchange` over the process group) the
+    shards are this process's part of a mesh across processes: shard ``i``
+    is ``index + i`` of ``count`` (``index = process.index * n``). Each
+    exchange then runs locally into the first shard alone, then through
+    ``process`` on the first shard's result (staged into its transport
+    tensors on the first shard's stream; under gloo the host waits for that
+    stream first, under NCCL the collective is enqueued on it), then every
+    other shard copies the first shard's result after an event, and the
+    first shard's stream waits for those copies before it writes again.
+    ``stats["across"]`` is ``process``'s own record of the second level."""
+
+    def __init__(self, devices, streams, process: Optional[Exchange] = None):
+        n = len(devices)
+        index, processes = ((process.index, process.count) if process
+                            else (0, 1))
+        super().__init__(index * n, processes * n, "local", devices[0])
         self.devices, self.streams = list(devices), list(streams)
-        self.stats.update(processes=1, shards=len(devices))
+        self.process = process
+        self.stats.update(processes=processes, shards=n)
+        if process is not None:
+            self.stats["across"] = process.stats
 
-    def port(self, index: int) -> "_Port":
-        return _Port(self, index)
+    def port(self, i: int) -> "_Port":
+        return _Port(self, i)
 
     def _mark(self, i: int):
         """An event after the work queued so far on shard ``i``'s stream."""
@@ -281,15 +308,20 @@ class LocalExchange(Exchange):
                 _on(self.devices[j], self.streams[j]):
             dst.copy_(src, non_blocking=True)
 
+    def _targets(self):
+        """The shards that receive the local level: every shard, or only
+        the first when a process level follows."""
+        return range(len(self.devices)) if self.process is None else (0,)
+
     def merge(self, bufs) -> None:
         """Stage 2's exchange, in place on each shard's transport tensors
         ``bufs[i]`` (:func:`merge_specs`)."""
-        n = self.count
+        n = len(self.devices)
 
         def run():
             ready = [self._mark(i) for i in range(n)]
-            recv = []
-            for j in range(n):
+            recv = {}
+            for j in self._targets():
                 others = [i for i in range(n) if i != j]
                 rx = self.buffers(f"merge_rx/{j}", [
                     (tuple(b.shape), b.dtype) for b in bufs[j]] * len(others),
@@ -298,9 +330,9 @@ class LocalExchange(Exchange):
                     self._after(j, ready[i])
                     for dst, src in zip(rx[k * len(bufs[i]):], bufs[i]):
                         self._copy(dst, src, j, i)
-                recv.append(rx)
+                recv[j] = rx
             copied = [self._mark(j) for j in range(n)]
-            for j in range(n):
+            for j in self._targets():
                 for i in range(n):
                     if i != j:
                         self._after(j, copied[i])
@@ -308,34 +340,87 @@ class LocalExchange(Exchange):
                     for k, src in enumerate(recv[j]):
                         D._bits(bufs[j][k % len(bufs[j])]).add_(D._bits(src))
         self._timed("merge", sum(b.nbytes for b in bufs[0]), run)
+        if self.process is not None:
+            def across(ins):
+                self.process.merge(ins)
+                return ins
+            self._across("merge", bufs[0], bufs[0], across)
+            self._broadcast(bufs)
 
     def gather(self, blocks, outs) -> None:
         """Stage 4's exchange: ``outs[j][t]`` <- every shard's
         ``blocks[i][t]`` in shard order, for every shard ``j``."""
-        n = self.count
+        n = len(self.devices)
 
         def run():
             ready = [self._mark(i) for i in range(n)]
-            for j in range(n):
+            for j in self._targets():
                 for i in range(n):
                     self._after(j, ready[i])
                     for src, out in zip(blocks[i], outs[j]):
                         rows = src.shape[0]
-                        self._copy(out[i * rows:(i + 1) * rows], src, j, i)
+                        at = (self.index + i) * rows
+                        self._copy(out[at:at + rows], src, j, i)
         self._timed("gather", sum(b.nbytes for b in blocks[0]), run)
+        if self.process is not None:       # this process's n blocks
+            at, rows = self.index * blocks[0][0].shape[0], n * blocks[0][0].shape[0]
+            mine = [o[at:at + rows] for o in outs[0]]
+
+            def across(ins):
+                full = self.process.buffers(
+                    "gathered", [(tuple(o.shape), o.dtype) for o in outs[0]])
+                self.process.gather(ins, full)
+                return full
+            self._across("block", mine, outs[0], across)
+            self._broadcast(outs)
+
+    def _across(self, name: str, srcs, dsts, exchange) -> None:
+        """The process level on the first shard: ``srcs`` into the process
+        exchange's transport tensors ``name``, ``exchange(them)`` (which
+        returns the tensors that hold its result), the result into
+        ``dsts``, all on the first shard's stream."""
+        x, dev, stream = self.process, self.devices[0], self.streams[0]
+        ins = x.buffers(name, [(tuple(t.shape), t.dtype) for t in srcs])
+        with _on(dev, stream):
+            for b, t in zip(ins, srcs):
+                b.copy_(t, non_blocking=True)
+            if x.on_host and stream is not None:
+                stream.synchronize()       # gloo reads the host copies
+            got = exchange(ins)
+            for d, g in zip(dsts, got):
+                d.copy_(g, non_blocking=True)
+
+    def _broadcast(self, tensors) -> None:
+        """Every other shard's ``tensors[j]`` <- the first shard's, after
+        the first shard's stream; then the first shard's stream waits for
+        those copies."""
+        n = len(self.devices)
+        ready = self._mark(0)
+        for j in range(1, n):
+            self._after(j, ready)
+            for dst, src in zip(tensors[j], tensors[0]):
+                self._copy(dst, src, j, 0)
+        for j in range(1, n):
+            self._after(0, self._mark(j))
+
+    def close(self) -> None:
+        super().close()
+        if self.process is not None:
+            self.process.close()
 
 
 class _Port:
-    """Shard ``index``'s side of a :class:`LocalExchange`: what
-    :class:`PartitionedRound` reads of an exchange (its index, the count,
-    transport tensors, here on the shard's device)."""
+    """Shard ``i``'s side of a :class:`LocalExchange`: what
+    :class:`PartitionedRound` reads of an exchange (its index among every
+    shard of the mesh, their count, transport tensors, here on the shard's
+    device)."""
 
-    def __init__(self, ex: LocalExchange, index: int):
-        self.ex, self.index, self.count = ex, index, ex.count
+    def __init__(self, ex: LocalExchange, i: int):
+        self.ex, self.i = ex, i
+        self.index, self.count = ex.index + i, ex.count
 
     def buffers(self, name: str, specs) -> list:
-        return self.ex.buffers(f"{name}/{self.index}", specs,
-                               self.ex.devices[self.index])
+        return self.ex.buffers(f"{name}/{self.i}", specs, self.ex.devices[self.i])
 
 
 def draw_round(key, K: int, S: int):
@@ -481,8 +566,10 @@ class PartitionedRound:
         return self.metrics
 
     def _landed(self):
-        """Wait (host) for the work enqueued so far on this stream."""
-        if self.cuda:
+        """Wait (host) for the work enqueued so far on this stream, before
+        an exchange through host memory (NCCL's collectives are enqueued
+        behind it on the device)."""
+        if self.cuda and self.ex.on_host:
             torch.cuda.current_stream(self.key.device).synchronize()
 
     def run(self, step=None):
@@ -590,18 +677,21 @@ class _MeshShard:
 
 class MeshRun:
     """``run_fl(client_mesh=...)`` over the mesh's shards (:class:`_MeshShard`):
-    across processes, this process's one block on its device with an
-    :class:`Exchange` over the process group; over a local mesh
-    (``mesh.count == 1``, several devices), one shard per device of the mesh
-    with a :class:`LocalExchange`, all driven from this thread. Each round
+    across processes with one device each, this process's one block on its
+    device with an :class:`Exchange` over the process group; with several
+    devices in this process (a local mesh, or this process's part of one
+    across processes), one shard per device with a :class:`LocalExchange`
+    (over an :class:`Exchange` of the process group across processes), all
+    driven from this thread. Each round
     runs the segments ``payload``, ``local`` and ``up`` on every shard (the
     stages of :class:`PartitionedRound`; ``up`` also runs the patience test
     and writes the loss and comm at the round counter) with the merge after
     the first and the gather after the second, each chunk of ``eval_every``
     rounds ends with ``end_chunk`` (the RMSE written at the chunk counter),
     and the host reads the first shard's stop flag after it, as the scan
-    driver stops. Across processes the host waits for each stage's stream
-    before the exchange; a local mesh's exchanges wait for nothing on the
+    driver stops. Across processes under gloo the host waits for the
+    stream that fills an exchange's buffers before the exchange; under
+    NCCL and between local shards the exchanges wait for nothing on the
     host.
 
     ``driver="scan"`` (and every driver on the CPU) runs the segments
@@ -618,9 +708,20 @@ class MeshRun:
                  policy, max_rounds: int, eval_every: int, patience: int,
                  init_params=None, graphs: bool = False):
         dev = mesh.device
-        self.local = mesh.count == 1
-        count = len(mesh.devices) if self.local else mesh.count
-        if not self.local:
+        n = len(mesh.devices)
+        self.local = n > 1               # this process's shards exchange locally
+        count = n * mesh.count
+        if mesh.count > 1:
+            if (D.process_count(), D.process_index()) != (mesh.count, mesh.index):
+                raise RuntimeError(
+                    f"a client mesh across {mesh.count} processes (this one "
+                    f"{mesh.index}) needs their initialized process group "
+                    f"(launch.distributed.initialize_distributed); this "
+                    f"process is {D.process_index()} of {D.process_count()}")
+            if normalized(dev) != normalized(D.device()):
+                raise ValueError(f"a client mesh across processes starts at "
+                                 f"this process's group device "
+                                 f"{D.device()}, not at {dev}")
             validate_partition(fl_cfg.num_clients, fl_cfg.participation_size(),
                                count, fl_cfg.client_chunk)
         self.mesh, self.model_cfg, self.fl_cfg = mesh, model_cfg, fl_cfg
@@ -630,14 +731,16 @@ class MeshRun:
         vec, self.meta = E._init_vector(model_cfg, init_key, init_params, dev)
         full, rem = divmod(max_rounds, eval_every)
         self.lengths = [eval_every] * full + ([rem] if rem else [])
-        devices = mesh.devices if self.local else (dev,)
+        devices = mesh.devices
         streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                    for d in devices]
+        across = (Exchange(mesh.index, mesh.count, mesh.backend, dev)
+                  if mesh.count > 1 else None)
         if self.local:
-            self.ex = LocalExchange(devices, streams)
-            places = [(i, self.ex.port(i)) for i in range(count)]
+            self.ex = LocalExchange(devices, streams, across)
+            places = [(self.ex.index + i, self.ex.port(i)) for i in range(n)]
         else:
-            self.ex = Exchange(mesh.index, count, mesh.backend, dev)
+            self.ex = across
             places = [(mesh.index, self.ex)]
         self.shards = [
             _MeshShard(self, i, count, devices[k], streams[k], ex, vec, key,
@@ -709,10 +812,9 @@ class MeshRun:
 
     def take_state(self) -> dict:
         """The run's final state: the first shard's server state and the
-        client rows, this process's block across processes, and over a
-        local mesh every shard's block in order on the mesh's first device
-        (the reference's global array; each leaf's blocks are dropped once
-        joined)."""
+        client rows of this process's shards, their blocks in order on the
+        mesh's first device (over a local mesh the reference's global
+        array; each leaf's blocks are dropped once joined)."""
         first = self.shards[0]
         if len(self.shards) == 1:
             return {**first.server, **first.rows.state()}
@@ -736,9 +838,9 @@ def run_fl_mesh(model_cfg, fl_cfg, train_data, test_data, key, mesh, *,
     shard, their replays; the eager first round's, the capture's and the
     run's seconds). Across processes
     ``state`` holds this process's rows of the client axis
-    (``history["owned_rows"]``) and process 0 alone writes the checkpoint;
-    over a local mesh it holds the whole client axis on the mesh's first
-    device."""
+    (``history["owned_rows"]``), on its first device, and process 0 alone
+    writes the checkpoint; over a local mesh it holds the whole client axis
+    on the mesh's first device."""
     from repro_torch.core.fl import policies as pol
 
     policy = pol.from_config(fl_cfg) if policy is None else policy
@@ -756,7 +858,8 @@ def run_fl_mesh(model_cfg, fl_cfg, train_data, test_data, key, mesh, *,
     history["exchange"] = run.ex.stats
     history["owned_rows"] = (first.lo, run.shards[-1].hi)
     history["mesh_run"] = {
-        "processes": mesh.count, "index": mesh.index, "backend": run.ex.backend,
+        "processes": mesh.count, "index": mesh.index,
+        "backend": mesh.backend or run.ex.backend,
         "shards": len(run.shards), "sharded": True,
         "device": str(mesh.device),
         "devices": [str(s.device) for s in run.shards],

@@ -168,6 +168,20 @@ def batch_axes(cfg: ModelConfig, shape: InputShape, kind: str):
     return ax
 
 
+def input_shape(cfg: ModelConfig, kind: str, batch: int, text_len: int) -> InputShape:
+    """The ``kind`` (``"train"`` / ``"prefill"``) shape whose
+    :func:`input_structs` hold a batch of ``text_len`` tokens a row, as
+    ``launch.train`` and ``launch.serve`` build it: a ``vlm`` sequence holds
+    the patches too, an ``audio`` one the source frames and the tokens in
+    halves."""
+    seq = text_len
+    if cfg.family == "vlm":
+        seq += cfg.vlm.num_patches
+    elif cfg.family == "audio":
+        seq *= 2
+    return InputShape(kind, seq, batch, kind)
+
+
 def input_structs(cfg: ModelConfig, shape: InputShape):
     """Meta tensors (unsharded) of the step inputs of ``shape.kind``: the
     batch for train / prefill (an ``audio`` model's sequence split between

@@ -32,10 +32,14 @@ Left out because they have no PyTorch meaning: ``process_mesh``,
 
 ``python -m repro_torch.launch.distributed --smoke [--device cpu]
 [--num-processes 2]`` is the self-contained check: the parent spawns the
-children, each joins the group, runs a small host-partitioned ``run_fl``
-and serves a forecast through a process-sharded ``ForecastServer``; the
-parent holds their reports bitwise to each other and to its own one-process
-run.
+children, each joins the group (a group of one for ``--num-processes 1``),
+checks the exchange primitives bit for bit on its device, runs a small
+host-partitioned ``run_fl`` and serves a forecast through a process-sharded
+``ForecastServer``; the parent holds their reports bitwise to each other
+and to its own one-process run.
+
+The zoo's launchers (``launch.train``, ``launch.serve``) take ``--processes
+N`` through :func:`launch_processes` and join with :func:`join_group`.
 """
 from __future__ import annotations
 
@@ -105,8 +109,10 @@ def _make_store(address: str, world: int, rank: int,
         store.set_timeout(timeout)
         return store
     host, _, port = address.removeprefix("tcp://").rpartition(":")
-    return dist.TCPStore(host, int(port), world, is_master=rank == 0,
-                         timeout=timeout)
+    # under torch's launcher (torchrun) its agent serves the store already
+    agent = os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == "True"
+    return dist.TCPStore(host, int(port), world,
+                         is_master=rank == 0 and not agent, timeout=timeout)
 
 
 def _device_name(dev: torch.device) -> str:
@@ -140,14 +146,17 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None, *,
                            backend: Optional[str] = None,
                            device=DEFAULT_DEVICE,
-                           timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> bool:
+                           timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+                           min_processes: int = 2) -> bool:
     """Join the process group described by the arguments or the environment
     (``REPRO_COORDINATOR`` / ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID``,
     falling back to ``MASTER_ADDR:MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``).
     The coordinator is ``HOST:PORT`` (rank 0 serves a TCP store there) or
-    ``file://PATH`` (a file store). Returns True in a group of two or more
-    processes, False for the one-process no-op (no coordinator, or one
-    process), so a launcher can call it unconditionally. Idempotent.
+    ``file://PATH`` (a file store). Returns True in a group of
+    ``min_processes`` or more processes, False for the no-op (no
+    coordinator, or fewer processes), so a launcher can call it
+    unconditionally; ``min_processes=1`` forms a group of one (the zoo's
+    launchers, which then run their steps on a one-rank mesh). Idempotent.
 
     ``device`` is this process's device (:func:`process_device`: ``"cuda"``
     without an index takes ``cuda:{rank % device_count}``; the default
@@ -161,7 +170,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
              else _env(ENV_NUM_PROCESSES, "WORLD_SIZE"))
     rank = (process_id if process_id is not None
             else _env(ENV_PROCESS_ID, "RANK"))
-    if address is None or not world or int(world) <= 1:
+    if address is None or not world or int(world) < max(min_processes, 1):
         return False
     if is_initialized():
         return True
@@ -178,6 +187,72 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                             timeout=timeout)
     _GROUP.update(backend=chosen, device=dev)
     return True
+
+
+def join_group(device=DEFAULT_DEVICE) -> bool:
+    """A zoo launcher's side of ``--processes N`` (:func:`launch_processes`)
+    or of torch's launcher: join the group the environment describes, even
+    a group of one, one device a rank: NCCL for ``"cuda"`` (raises when two
+    ranks share a GPU: DTensor's collectives on CUDA tensors are NCCL's, and
+    the zoo's steps never share a card under gloo), gloo on the CPU.
+    Returns whether it joined one (False when the environment names
+    none)."""
+    cuda = torch.device(device).type == "cuda"
+    return initialize_distributed(device=device,
+                                  backend="nccl" if cuda else "gloo",
+                                  min_processes=1)
+
+
+def child_env() -> dict:
+    """This environment with this package's ``src`` first on the path."""
+    env = dict(os.environ)
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _without_option(argv: Sequence[str], name: str) -> list:
+    """``argv`` less ``name VALUE`` / ``name=VALUE``."""
+    out, skip = [], False
+    for arg in argv:
+        if skip:
+            skip = False
+        elif arg == name:
+            skip = True
+        elif not arg.startswith(name + "="):
+            out.append(arg)
+    return out
+
+
+def launch_processes(num_processes: int, module: str, argv: Sequence[str],
+                     device=DEFAULT_DEVICE) -> int:
+    """``python -m module ... --processes N``: N children ``python -m module
+    argv`` (``--processes`` dropped) in one group (:func:`spawn_processes`,
+    which ends the others when one fails); each joins it with
+    :func:`join_group`. Relays process 0's output, and
+    every failed child's error tail, once all have ended. Returns 0, or the
+    first non-zero exit code in process order. On ``"cuda"`` it raises
+    unless each rank gets a GPU of this host."""
+    if num_processes < 1:
+        raise ValueError(f"--processes must be >= 1, got {num_processes}")
+    have = torch.cuda.device_count()
+    if torch.device(device).type == "cuda" and num_processes > have:
+        raise ValueError(
+            f"--processes {num_processes} on {device}: NCCL takes one GPU a "
+            f"rank and refuses two ranks on one GPU, and this host has "
+            f"{have}; the zoo's steps do not share a card under gloo")
+    procs = spawn_processes(
+        num_processes, [sys.executable, "-m", module,
+                        *_without_option(argv, "--processes")],
+        env=child_env(), timeout=float("inf"))
+    sys.stdout.write(procs[0].stdout)
+    for i, r in enumerate(procs):
+        if r.returncode:
+            sys.stderr.write(f"--- process {i} exited {r.returncode} ---\n"
+                             f"{r.stderr[-4000:]}\n")
+    return next((r.returncode for r in procs if r.returncode), 0)
 
 
 def shutdown_distributed() -> None:
@@ -226,9 +301,10 @@ def block_range(total: int, index: Optional[int] = None,
 
 
 def sync(tag: str = "repro") -> None:
-    """Barrier across all processes (no-op in one process). ``tag`` names
-    the barrier for the reader; torch's barrier takes no name."""
-    if process_count() <= 1:
+    """Barrier across all processes of the group (no-op outside one).
+    ``tag`` names the barrier for the reader; torch's barrier takes no
+    name."""
+    if not is_initialized():
         return
     if backend() == "nccl":
         dist.barrier(device_ids=[device().index])
@@ -296,12 +372,13 @@ def merge_disjoint(*arrays):
     nonzero row). Float32 payloads are summed as int32 words, so the sum is
     bit transport: no ``-0.0 + 0.0`` normalization, no rounding, no order.
     Returns tensors on each input's device, bit-identical on every process
-    to the unpartitioned originals (the inputs themselves in one process).
+    to the unpartitioned originals (the inputs themselves outside a group;
+    a group of one moves them through its transport all the same).
     Raises ``TypeError`` for dtypes other than float32 and int32."""
     tensors = [_as_tensor(a) for a in arrays]
     for t in tensors:
         _bits(t)
-    if process_count() > 1:
+    if is_initialized():
         out = []
         for t in tensors:
             buf = _transport_copy(t.contiguous())
@@ -327,7 +404,7 @@ def allgather_blocks(blocks, total_rows: int):
         if b.shape[0] != total_rows // P:
             raise ValueError(f"block has {b.shape[0]} rows, expected "
                              f"{total_rows // P} (= {total_rows} / {P})")
-        if P == 1:
+        if not is_initialized():
             out.append(b)
             continue
         src = _transport_copy(b.contiguous())
@@ -474,13 +551,29 @@ def smoke_serving(root: str, dev) -> dict:
                              and "forecast_process_count" in metrics)}
 
 
+def _smoke_exchange(dev) -> bool:
+    """The exchange primitives on ``dev`` over the group (through its
+    transport, on the device under NCCL): bit for bit, ``-0.0`` included."""
+    full = torch.arange(24, dtype=torch.float32).reshape(8, 3) * 0.5 - 3.0
+    full[0, 0] = -0.0
+    lo, hi = block_range(8)
+    mine = torch.zeros_like(full)
+    mine[lo:hi] = full[lo:hi]
+    merged = merge_disjoint(mine.to(dev)).cpu()
+    gathered = allgather_blocks(full[lo:hi].to(dev), 8).cpu()
+    want = full.view(torch.int32)
+    return bool(torch.equal(merged.view(torch.int32), want)
+                and torch.equal(gathered.view(torch.int32), want))
+
+
 def _smoke_child(device_arg: str) -> dict:
-    if not initialize_distributed(device=device_arg):
+    if not initialize_distributed(device=device_arg, min_processes=1):
         raise RuntimeError("smoke child: no process group configured")
     try:
         dev = device()
         report = {"process": process_index(), "num_processes": process_count(),
-                  "backend": backend(), "device": str(dev), **_smoke_fl(dev)}
+                  "backend": backend(), "device": str(dev),
+                  "exchange_exact": _smoke_exchange(dev), **_smoke_fl(dev)}
         report.update(smoke_serving(os.environ["REPRO_SMOKE_DIR"], dev))
         sync("smoke-done")
         return report
@@ -512,12 +605,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dev = resolve_device(args.device)
     want = _smoke_fl(dev)          # the one-process run the children must equal
     with tempfile.TemporaryDirectory(prefix="repro-torch-dist-smoke-") as root:
-        env = dict(os.environ)
+        env = child_env()
         env["REPRO_SMOKE_DIR"] = root
-        src = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
-                                   if env.get("PYTHONPATH") else "")
         procs = spawn_processes(
             args.num_processes,
             [sys.executable, "-m", "repro_torch.launch.distributed",
@@ -537,6 +626,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     all_owned = sorted(c for r in reports for c in r["owned_clusters"])
     if all_owned != [0, 1]:
         raise SystemExit(f"cluster shards wrong: {all_owned}")
+    if not all(r["exchange_exact"] for r in reports):
+        raise SystemExit("merge_disjoint / allgather_blocks moved a bit")
     if not all(r["shard_gauges"] for r in reports):
         raise SystemExit("a process lacks the shard gauges")
     if not all(r["served_shape"] == [1, 1, 2]

@@ -1118,6 +1118,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--comm-bits", type=int, default=32, choices=(8, 16, 32),
                     help="16 = bf16-quantized restore, 8 = int8 + per-leaf "
                          "scale restore")
+    ap.add_argument("--shard-batch", action="store_true",
+                    help="shard each bucket's batch axis over the local "
+                         "devices (ForecastServer(shard_batch=True))")
     ap.add_argument("--denormalize", action="store_true",
                     help="serve station-routed requests in RAW units via the "
                          "manifest's per-station norm stats (--manifest only)")
@@ -1135,7 +1138,7 @@ def main(argv: Optional[Sequence[str]] = None):
     args = ap.parse_args(argv)
 
     kw = dict(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-              device=args.device)
+              shard_batch=args.shard_batch, device=args.device)
     if args.process_shard is not None and not args.manifest:
         ap.error("--process-shard requires --manifest")
     process_shard = None

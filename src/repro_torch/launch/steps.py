@@ -10,10 +10,11 @@ over DTensors: it takes the inputs that ``sharded_*_inputs`` and
 model's ops under DTensor's sharding rules (a plain tensor meets them as a
 replicated one: ``implicit_replication``, here and nowhere else), and
 issues the collectives they need: on a ``fake`` group they are counted
-(``launch.cost.collective_bytes``), on the card they run. Without a mesh
+(``launch.cost.collective_bytes``), on devices they run. Without a mesh
 each builder returns the one-card step, unchanged. A ``DeviceMesh`` takes
-one process a device, so the steps across GPUs wait for one process a GPU
-(ROADMAP Queue A 12): on the card the mesh is the ``(1, 1)`` host mesh.
+one process a device: ``launch.train`` and ``launch.serve`` build these
+steps on ``launch.mesh.make_host_mesh`` over an initialized group (one
+process a GPU over NCCL, or CPU processes over gloo).
 """
 from __future__ import annotations
 

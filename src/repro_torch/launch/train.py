@@ -1,11 +1,22 @@
-"""Training launcher (counterpart of ``repro.launch.train``) on one device.
+"""Training launcher (counterpart of ``repro.launch.train``).
 
 Two modes, as the reference's:
   * ``train``: one model, Adam with a 1cycle schedule, synthetic Zipf tokens;
+    under an initialized process group on the reference's host mesh
+    (``launch.mesh.make_host_mesh``: one device a rank, the batch split over
+    ``"data"``), the step over DTensors; without one the plain step on one
+    device, which is the ``(1, 1)`` mesh's bit for bit;
   * ``train_psgf`` (``--sync psgf``): ``--pods`` replicas train on different
     data and exchange partial parameter subsets every ``--sync-interval``
     steps through the FL engine's gate/aggregate/distribute core
-    (``core/psgf_dp.py``). On one card the pods are a leading axis.
+    (``core/psgf_dp.py``). On one card the pods are a leading axis; like the
+    reference's, it uses no mesh.
+
+``--processes N`` starts N processes, one device a rank
+(``launch.distributed.launch_processes``: NCCL on the card, one GPU a rank;
+gloo on the CPU), each of which joins the group and runs ``train``; so does
+torch's own launcher (``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` /
+``RANK``). Only process 0 prints and writes the checkpoint.
 
 Weights come from ``PRNGKey(0)`` (float32; activations in the config's
 type), batches from ``synthetic_tokens`` with the reference's seeds: step s,
@@ -17,10 +28,13 @@ Usage:
       --device cpu --steps 8 --batch 2 --seq 32               # reduced config
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --full --sync psgf --pods 2 --sync-interval 4 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --device cpu --steps 4 --batch 4 --seq 32 --processes 2  # gloo mesh
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import torch
@@ -32,10 +46,13 @@ from repro_torch.common.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import psgf_dp as P
 from repro_torch.data.synthetic import synthetic_tokens
-from repro_torch.launch.api import ModelApi
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch import distributed as D
+from repro_torch.launch.api import ModelApi, distribute_structs, input_shape
+from repro_torch.launch.mesh import global_value, host_mesh
+from repro_torch.launch.steps import build_train_step, sharded_train_inputs
 from repro_torch.models import decoder, encdec
 from repro_torch.optim import Adam, one_cycle
+from repro_torch.sharding.rules import make_rules
 
 
 def _config(arch: str, reduced: bool):
@@ -71,15 +88,29 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 64,
           reduced: bool = True, lr: float = 3e-4, ckpt_dir: str | None = None,
           log_every: int = 10, device=DEFAULT_DEVICE, history: dict | None = None):
     """Returns the per-step losses. A given ``history`` dict receives
-    ``step_s`` (host seconds per step, each ending in a device sync)."""
-    dev = resolve_device(device)
+    ``step_s`` (host seconds per step, each ending in a device sync).
+
+    Under an initialized process group (``launch.distributed``) every rank
+    draws the same weights and batches, keeps only its shards of them
+    (``distribute_structs`` by the train rules on ``launch.mesh.host_mesh``) and
+    returns the global mean loss of each step; process 0 alone prints and
+    writes the checkpoint, from the whole tensors, in the one-process
+    format."""
+    dm, host, dev = host_mesh(device)
     cfg = _config(arch, reduced)
     optimizer = Adam(lr=one_cycle(lr, steps))
-    fn, api, optimizer = build_train_step(cfg, optimizer, dev)
+    fn, api, optimizer = build_train_step(cfg, optimizer, dev, mesh=dm)
     params = api.init_params(R.PRNGKey(0))
     opt_state = optimizer.init(params)
+    if dm is not None:
+        ps, os_, bs = sharded_train_inputs(
+            cfg, input_shape(cfg, "train", batch, seq),
+            make_rules(host, "train"), optimizer)
+        params = distribute_structs(ps, dm, params)
+        opt_state = distribute_structs(os_, dm, opt_state)
     history = {} if history is None else history
     history["step_s"] = []
+    talk = D.is_main()
 
     losses = []
     _sync(dev)
@@ -87,15 +118,23 @@ def train(arch: str, steps: int = 50, batch: int = 8, seq: int = 64,
     for step in range(steps):
         ts = time.perf_counter()
         b = make_batch(cfg, step, batch, seq, dev)
+        if dm is not None:
+            b = distribute_structs(bs, dm, b)
         params, opt_state, metrics = fn(params, opt_state, b)
-        losses.append(float(metrics["loss"]))
+        losses.append(float(global_value(metrics["loss"])))
         history["step_s"].append(time.perf_counter() - ts)
-        if step % log_every == 0 or step == steps - 1:
+        if talk and (step % log_every == 0 or step == steps - 1):
             print(f"step {step:5d}  loss {losses[-1]:.4f}  ({time.time()-t0:.1f}s)",
                   flush=True)
     if ckpt_dir:
-        save_checkpoint(ckpt_dir, steps, {"params": params},
-                        extra={"arch": arch, "final_loss": losses[-1]})
+        whole = {}
+        for path, leaf in pt.flatten_with_paths(params):
+            leaf = global_value(leaf)             # every rank joins the gather
+            if talk:
+                whole[path] = leaf
+        if talk:
+            save_checkpoint(ckpt_dir, steps, {"params": pt.unflatten(whole)},
+                            extra={"arch": arch, "final_loss": losses[-1]})
     return losses
 
 
@@ -199,7 +238,21 @@ def main(argv=None):
     ap.add_argument("--select-ratio", type=float, default=0.5)
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--processes", type=int, default=None,
+                    help="start N processes, one device a rank (NCCL on "
+                         "the card: N GPUs; gloo on the CPU), that train "
+                         "on the host mesh over them")
     args = ap.parse_args(argv)
+    if args.processes is not None:
+        if args.sync == "psgf":
+            ap.error("--sync psgf runs on one device (no mesh, as the "
+                     "reference's); drop --processes")
+        code = D.launch_processes(args.processes, "repro_torch.launch.train",
+                                  sys.argv[1:] if argv is None else argv,
+                                  args.device)
+        if code:
+            raise SystemExit(code)
+        return None
     if args.sync == "psgf":
         losses = train_psgf(args.arch, args.steps, args.batch, args.seq,
                             args.reduced, args.lr, args.ckpt_dir,
@@ -208,8 +261,17 @@ def main(argv=None):
                             forward_ratio=args.forward_ratio,
                             select_ratio=args.select_ratio, device=args.device)
     else:
-        losses = train(args.arch, args.steps, args.batch, args.seq,
-                       args.reduced, args.lr, args.ckpt_dir, device=args.device)
+        joined = D.join_group(args.device)   # under --processes / torch's launcher
+        talk = D.is_main()                   # asked while the group stands
+        try:
+            losses = train(args.arch, args.steps, args.batch, args.seq,
+                           args.reduced, args.lr, args.ckpt_dir,
+                           device=args.device)
+        finally:
+            if joined:
+                D.shutdown_distributed()
+        if not talk:
+            return losses
     print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
     return losses
 

@@ -423,13 +423,29 @@ def _to_cache_layout(seq_arrays, slot_pos, phys_target: int, Stot: int):
         return list(seq_arrays), slot_pos
     if phys_target > Stot:
         pad = phys_target - Stot
-        out = [F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) for a in seq_arrays]
+        out = [_along_seq(lambda t: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)), a)
+               for a in seq_arrays]
         sp = F.pad(slot_pos, (0, pad), value=-1)
         return out, sp
     shift = Stot % phys_target
-    out = [torch.roll(a[:, -phys_target:], shift, dims=1) for a in seq_arrays]
+    out = [_along_seq(lambda t: torch.roll(t[:, -phys_target:], shift, dims=1), a)
+           for a in seq_arrays]
     sp = torch.roll(slot_pos[-phys_target:], shift)
     return out, sp
+
+
+def _along_seq(fn, a):
+    """``fn(a)``, an op along the sequence (dim 1) alone; over a DTensor on
+    each rank's shard, that dimension whole (torch 2.11's DTensor lays
+    ``F.pad``'s output out over one mesh dimension of several and has no
+    rule for ``torch.roll``)."""
+    if not L.is_dtensor(a):
+        return fn(a)
+    from repro_torch.kernels import _sharded
+
+    a = L.whole_dims(a, (1,))
+    return _sharded.run_local(fn, a.device_mesh, (a,), (a.placements,),
+                              a.placements)
 
 
 _CACHE_KEYS = {"kv": ("k", "v"), "mla": ("c_kv", "k_rope")}

@@ -281,7 +281,7 @@ out["local_params_equal"] = torch.equal(s0["w"], s1["w"].full_tensor())
 
 # the zoo's train step over a (1, 1) mesh against the one-card step
 cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), dtype="float32")
-hm = M.make_host_mesh("cpu")
+hm = M.make_host_mesh(device="cpu")
 dm = M.device_mesh(hm)
 opt = Adam(lr=one_cycle(3e-4, 4))
 fn0, api, _ = build_train_step(cfg, opt, "cpu")
@@ -661,7 +661,7 @@ from repro_torch.sharding.rules import make_rules
 torch.cuda.set_device(0)
 dist.init_process_group("nccl", init_method="file://" + sys.argv[1], rank=0, world_size=1)
 cfg = get_config("qwen2-1.5b").reduced()
-hm = M.make_host_mesh("cuda")
+hm = M.make_host_mesh(device="cuda")
 dm = M.device_mesh(hm, "cuda")
 opt = Adam(lr=one_cycle(3e-4, 4))
 B, S = 4, 128

@@ -15,8 +15,9 @@ shards of one CPU device (the counterpart of the reference's
     the served tolerance of the plain server and of the JAX server, a
     bucket the shards do not divide bitwise the plain server's, and a
     reload that builds every shard;
-  * what keeps raising: the zoo's host mesh beyond one device and a mesh
-    across processes with several devices in each (ROADMAP Queue A 12).
+  * what keeps raising: the zoo's host mesh over several devices of one
+    process (one process a GPU: ``--processes N``) and a mesh across
+    processes without their group.
 
 The card's versions are in ``test_torch_kernels_cuda.py``.
 """
@@ -39,6 +40,7 @@ from repro_torch import random as R  # noqa: E402
 from repro_torch.core import tasks as TT  # noqa: E402
 from repro_torch.core.fl import engine as TE  # noqa: E402
 from repro_torch.core.fl import partition as TP  # noqa: E402
+from repro_torch.launch import distributed as TD  # noqa: E402
 from repro_torch.launch import mesh as TM  # noqa: E402
 from repro_torch.launch import serve_forecast as TS  # noqa: E402
 from torch_fl_utils import (JCFG, TCFG, TOL, configs, make_data,  # noqa: E402
@@ -142,14 +144,24 @@ def test_local_mesh_scan_matches_the_reference_unsharded_run(data):
 
 
 def test_mesh_keeps_raising_where_it_needs_a_process_a_gpu(data, monkeypatch):
+    """A mesh across processes needs their group (one with two devices in
+    each runs in ``test_torch_host_mesh.py``) and starts at this process's
+    group device, and the zoo's host mesh over several local devices of one
+    process names the launcher of one process a GPU."""
     tr, te = data[True]
     _, fl = configs(tr.shape[0], streaming_windows=True, **MESH_FL)
     across = TM.Mesh("clients", (CPU, CPU), index=0, count=2, backend="gloo")
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
+    with pytest.raises(RuntimeError, match="initialized process group"):
         TE.run_fl(TCFG, fl, tr, te, R.PRNGKey(0), client_mesh=across, **RUN)
+    with monkeypatch.context() as mp:
+        mp.setattr(TD, "process_count", lambda: 2)
+        mp.setattr(TD, "process_index", lambda: 0)
+        mp.setattr(TD, "device", lambda: torch.device("cuda", 1))
+        with pytest.raises(ValueError, match="group device cuda:1, not at cpu"):
+            TE.run_fl(TCFG, fl, tr, te, R.PRNGKey(0), client_mesh=across, **RUN)
     monkeypatch.setattr(TM, "_local_devices", lambda device: (CPU, CPU))
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        TM.make_host_mesh("cpu")
+    with pytest.raises(NotImplementedError, match="--processes 2"):
+        TM.make_host_mesh(device="cpu")
     assert TM.make_batch_mesh(device="cpu").devices == (CPU, CPU)
 
 
