@@ -16,8 +16,11 @@ Phases, each of which raises (exit code != 0) on failure:
      kernel within its tolerance at the serving buckets, at training's
      K x 32 and evaluation's K x n_test rows of each cluster and past the
      grid's batch limit, one backward, and one vmap(grad) over 27 clients
-     against dense attention; the scalar kernel at long sequences and fp32
-     at hd 64 / 128; the tensor-core kernel, bf16 at hd 64 and 128, within
+     against dense attention; the general kernel (route "scalar") at long
+     sequences and fp32 at hd 64 / 128 (GQA 5:1 and 6:1, causal, window,
+     kv_len, ragged Sq != Skv, no valid key, past the grid's batch limit),
+     and its ``-Xptxas -v`` registers and spills (none may spill in float32
+     at hd 64 / 128); the tensor-core kernel, bf16 at hd 64 and 128, within
      its relative bound on GQA, windowed, ragged, padded, empty and
      past-the-grid cases, fewer work tiles than SMs and many more, G = 5, 6
      and 130, causal with Sq != Skv, each call on the route it should take,
@@ -49,7 +52,9 @@ Phases, each of which raises (exit code != 0) on failure:
      every state dim in both dtypes at ragged and aligned shapes, the final
      state (bitwise in float32) and a repeated call, and flash attention at
      hymba's (4, 2048, 25/5, 64) causal window-1024 shape (float32 on the
-     scalar route, bf16 on the tensor-core route), each timed; then
+     general route, bf16 on the tensor-core route) and at qwen2-1.5b's
+     float32 prefill (4, 2048, 12/2, 128) causal (general route), each
+     timed beside ``scaled_dot_product_attention``; then
      ``launch.serve.serve("hymba-1.5b", reduced=False)`` at full width
      (1,662,161,600 params, batch 4, prompt 2048, 32 tokens) with the launch
      counts of its prefill (32 of each kernel, flash all on the tensor-core
@@ -212,14 +217,24 @@ Phases, each of which raises (exit code != 0) on failure:
      process a GPU over NCCL (the first loss and the prefill's logits
      within what splitting the batch moves them on one card, every rank
      the same); otherwise a line says that no such run was made.
+ 17. the zoo's float32 prefills at full width: ``ModelApi.prefill`` of
+     hymba-1.5b (32 layers) and qwen2-1.5b (28 layers), 4 x 2,048 tokens,
+     configs ``dataclasses.replace(get_config(arch), dtype="float32")`` as
+     the reference's ``examples/long_context_decode.py`` builds them,
+     random weights from ``PRNGKey(0)``: exactly 32 / 28 flash launches on
+     the general route and none on the others, the last-position logits
+     within ``HYBRID_CPU_TOL`` of the same prefill with
+     ``attn_impl="chunked"`` (``flash_mha`` in torch ops, no flash kernel)
+     from the same params, warm prefill ms and peak memory of both.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
 ...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``,
 ``{"zoo_last_families": ...}``, ``{"zoo_moe_vlm_training": ...}``,
 ``{"collectives": ...}``, ``{"local_mesh": ...}``, ``{"host_mesh": ...}``,
-one ``{"kernels": [...]}`` line (flash
-attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan), and
+``{"float32_prefills": ...}``, one ``{"kernels": [...]}`` line (flash
+attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan, and
+the general flash route on its own path, ``flash_attention_general``), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
 the standard library and ``repro_torch`` (from ``src/`` beside this file)
 only. With ``--distributed-child DIR`` it is one of phase 10's processes,
@@ -311,26 +326,6 @@ BF16_TOL = 2e-2
 def route_of(ops, q, k) -> str:
     """The route ``ops.kernel_route`` names for this call."""
     return ops.kernel_route(q.dtype, q.shape[3], tuple(q.shape), tuple(k.shape))
-
-
-def flash_bound_ms(ref, q, k, v, causal=False, window=None):
-    """Least time of one call: each input read once and the output written
-    once at the HBM rate; QK^T and PV over the (query, key) pairs the mask
-    keeps, 2 flops per MAC, at the fp32 rate, or for bf16 at the tensor
-    cores' rate, with the pairs' exponentials on the SFUs. Returns (ms, by,
-    bytes, flops, pairs)."""
-    from repro_torch.common import hw
-
-    B, Sq, H, hd = q.shape
-    pairs = int(ref.attention_mask(Sq, k.shape[1], causal=causal, window=window,
-                                   kv_len=None).sum())
-    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
-    flops = 4 * B * H * hd * pairs
-    ops_s = (flops / hw.FP32_FLOP_PER_S if q.dtype == torch.float32 else
-             max(flops / hw.BF16_FLOP_PER_S, B * H * pairs / hw.SFU_OPS_PER_S))
-    times = {"bytes": nbytes / hw.HBM_BYTES_PER_S * 1e3, "operations": ops_s * 1e3}
-    by = max(times, key=times.get)
-    return times[by], by, nbytes, flops, pairs
 
 
 def flash_case(ops, ref, name, q, k, v, causal, window, kv_len, tol):
@@ -437,6 +432,26 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
             (f"tc_window50_bidir_hd{hd}", (1, 300, 300, 4, 2, hd), False, 50,
              None, bf16, BF16_TOL),
         ]
+    # the general route in float32 at hd 64 and 128 (the zoo's float32
+    # prefills): GQA 5:1 and 6:1, causal, window, kv_len, ragged Sq != Skv
+    # both ways, no valid key (exact zeros), a batch past the grid's limit
+    for hd in (64, 128):
+        cases += [
+            (f"gen_gqa5_window37_hd{hd}", (1, 300, 300, 10, 2, hd), True, 37,
+             None, f32, 2e-5),
+            (f"gen_gqa6_causal_hd{hd}", (2, 130, 130, 12, 2, hd), True, None,
+             None, f32, 2e-5),
+            (f"gen_causal_sq_lt_skv_hd{hd}", (2, 100, 300, 8, 2, hd), True,
+             None, None, f32, 2e-5),
+            (f"gen_causal_sq_gt_skv_kv_len77_hd{hd}", (2, 300, 100, 6, 1, hd),
+             True, None, 77, f32, 2e-5),
+            (f"gen_window50_bidir_kv_len350_hd{hd}", (1, 300, 400, 4, 4, hd),
+             False, 50, 350, f32, 2e-5),
+            (f"gen_no_valid_key_hd{hd}", (2, 7, 40, 5, 1, hd), True, None, 0,
+             f32, 0.0),
+            (f"gen_batch70000_hd{hd}", (70_000, 15, 15, 2, 1, hd), False, None,
+             None, f32, 2e-5),
+        ]
     # more work tiles (8,192) than the grid's blocks take in one round
     cases.append(("tc_many_tiles_hd128", (64, 512, 512, 32, 8, 128), True, None,
                   None, bf16, BF16_TOL))
@@ -509,6 +524,7 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
     # plain version and SDPA, in turns; an empty kernel's launch is the
     # floor under all of them
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.bound import attention_bound
 
     empty = _build.load("flash_attention_short").flash_attention_short_empty
     empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
@@ -535,14 +551,14 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
             qt, kt, vt))
         runs["scalar"].append(timed_ms(scalar))
         runs["short"].append(timed_ms(short))
-        bound, by, nbytes, flops, _ = flash_bound_ms(ref, q, k, v)
+        bound = attention_bound(tuple(q.shape), tuple(k.shape), q.dtype)
         times[key] = {"shape": list(q.shape), "ms": statistics.median(runs["short"]),
                       "ms_runs": runs["short"],
                       "scalar_ms": statistics.median(runs["scalar"]),
                       "scalar_ms_runs": runs["scalar"], "scalar_max_abs_err": scalar_err,
                       "plain_ms": plain_ms, "library_ms": library_ms,
-                      "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                      "flops": flops}
+                      "bound_ms": bound["ms"], "bound_by": bound["bound_by"],
+                      "bytes": bound["bytes"], "flops": bound["flops"]}
     serving = times["serving"]
     return {
         "name": "flash_attention",
@@ -563,6 +579,7 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
         "bytes": serving["bytes"],
         "flops": serving["flops"],
         "launch_floor_ms": floor_ms,
+        "general_case_errs": {n: e for n, e in errs.items() if n.startswith("gen_")},
         "serving_shape": serving,
         "training_shape": times["training"],
         "serving_63_tokens_shape": times["serving_63_tokens"],
@@ -1749,6 +1766,7 @@ SSM_BF16_RTOL = 2.0 ** -7
 HYMBA_SSM = (4, 2048, 3200, 16)         # prefill: B, S, d_inner, state
 HYMBA_ATTN = (4, 2048, 25, 5, 64)       # prefill: B, S, H, KV, hd
 HYMBA_WINDOW = 1024
+QWEN_ATTN_F32 = (4, 2048, 12, 2, 128)  # qwen2-1.5b's float32 prefill: B, S, H, KV, hd
 HYMBA_PARAMS = 1_662_161_600
 # flash attention at hymba's shape against its plain version: float32 as the
 # reference classes above (2e-5); bf16 output as the bf16 class above
@@ -1862,12 +1880,14 @@ def check_ssm_scan(ssm_ops, ssm_ref) -> dict:
 
 def check_flash_hymba(ops, ref) -> dict:
     """Flash attention at hymba's prefill shape (causal, window 1024, which
-    bites at 2048) against its plain version in float32 and bf16; times at
-    bf16, with ``scaled_dot_product_attention`` under the same mask as the
-    library's yardstick."""
+    bites at 2048) against its plain version in float32 and bf16, and at
+    qwen2-1.5b's float32 prefill (causal, GQA 6:1, hd 128); times of the
+    bf16 call (the tensor-core route) and of both float32 calls (the
+    general route), each with ``scaled_dot_product_attention`` on the same
+    inputs (same mask) as the library's yardstick."""
     B, S, H, KV, hd = HYMBA_ATTN
     gen = torch.Generator().manual_seed(SEED + 4)
-    errs, routes = {}, {}
+    errs, routes, inputs = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attention_inputs(gen, B, S, S, H, KV, hd, dtype)
         key = str(dtype).replace("torch.", "")
@@ -1877,18 +1897,37 @@ def check_flash_hymba(ops, ref) -> dict:
             HYMBA_WINDOW, None, FLASH_HYMBA_TOL[dtype])
         if ratio is not None:
             errs[key + "_bound_ratio"] = ratio
+        inputs[key] = (q, k, v)
         del got
-    if routes != {"float32": "scalar", "bfloat16": "tensor_core"}:
-        raise RuntimeError(f"flash at hymba's shape took the routes {routes}")
+    qB, qS, qH, qKV, qhd = QWEN_ATTN_F32
+    q2, k2, v2 = attention_inputs(gen, qB, qS, qS, qH, qKV, qhd, torch.float32)
+    routes["qwen2_float32"] = route_of(ops, q2, k2)
+    got, errs["qwen2_float32"], _ = flash_case(
+        ops, ref, "flash at qwen2's float32 prefill", q2, k2, v2, True, None,
+        None, FLASH_HYMBA_TOL[torch.float32])
+    del got
+    if routes != {"float32": "scalar", "bfloat16": "tensor_core",
+                  "qwen2_float32": "scalar"}:
+        raise RuntimeError(f"flash at hymba's / qwen2's shape took the routes {routes}")
     log(json.dumps({"kernel_cases": {"flash_attention_hymba": errs}}))
-    # q, k, v are the bf16 inputs of the last case
-    record = tensor_core_times(ops, ref, q, k, v, HYMBA_WINDOW)
+    record = flash_times(ops, ref, *inputs["bfloat16"], HYMBA_WINDOW)
+    general = {
+        "hymba-1.5b prefill": {
+            "shape": [B, S, H, KV, hd], "causal": True, "window": HYMBA_WINDOW,
+            "max_abs_err": errs["float32"],
+            **flash_times(ops, ref, *inputs["float32"], HYMBA_WINDOW)},
+        "qwen2-1.5b prefill": {
+            "shape": list(QWEN_ATTN_F32), "causal": True, "window": None,
+            "max_abs_err": errs["qwen2_float32"],
+            **flash_times(ops, ref, q2, k2, v2, None)}}
+    log(json.dumps({"flash_general_float32": general}))
     return {"kernel_route": "tensor_core",
             "source": "src/repro_torch/csrc/flash_attention_tc.cu",
             "shape": [B, S, H, KV, hd], "dtype": "bfloat16", "causal": True,
             "window": HYMBA_WINDOW, "max_abs_err": errs["bfloat16"],
             "bound_ratio": errs["bfloat16_bound_ratio"],
-            "max_abs_err_float32": errs["float32"], **record}
+            "max_abs_err_float32": errs["float32"], "general_float32": general,
+            **record}
 
 
 def sdpa_calls(ref, q, k, v, window, causal):
@@ -1921,12 +1960,15 @@ def sdpa_calls(ref, q, k, v, window, causal):
     return calls
 
 
-def tensor_core_times(ops, ref, q, k, v, window, causal=True) -> dict:
-    """The tensor-core route's call on bf16 ``q, k, v`` timed beside its
-    plain version and the ``scaled_dot_product_attention`` calls of
-    ``sdpa_calls``, with the bound (``flash_bound_ms``). ``library_ms`` is
-    the faster SDPA call, named in ``library_call``; each call's time and
-    backend are in ``library_ms_by_call`` and ``library_backend_by_call``."""
+def flash_times(ops, ref, q, k, v, window, causal=True, bound=True) -> dict:
+    """The wrapper's call on ``q, k, v`` (on the route ``kernel_route``
+    names) timed beside its plain version and the
+    ``scaled_dot_product_attention`` calls of ``sdpa_calls``, with the bound
+    (``kernels/flash_attention/bound.py``) unless ``bound`` is False (a tree
+    that has no such module). ``library_ms`` is the faster SDPA call, named
+    in ``library_call`` with its backend in ``library_backend``; each
+    call's time and backend are in ``library_ms_by_call`` and
+    ``library_backend_by_call``."""
     kernel_ms = timed_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                      window=window), calls=5)
     plain_ms = timed_ms(lambda: ref.flash_attention_ref(
@@ -1934,13 +1976,21 @@ def tensor_core_times(ops, ref, q, k, v, window, causal=True) -> dict:
     calls = sdpa_calls(ref, q, k, v, window, causal)
     by_call = {name: timed_ms(fn, calls=5) for name, (fn, _) in calls.items()}
     library_call = min(by_call, key=by_call.get)
-    bound, by, nbytes, flops, pairs = flash_bound_ms(ref, q, k, v, causal, window)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": by_call[library_call],
-            "library_call": library_call, "library_ms_by_call": by_call,
-            "library_backend_by_call": {name: backend for name, (_, backend)
-                                        in calls.items()},
-            "bytes": nbytes, "flops": flops, "pairs": pairs}
+    out = {"ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": by_call[library_call], "library_call": library_call,
+           "library_backend": calls[library_call][1],
+           "library_ms_by_call": by_call,
+           "library_backend_by_call": {name: backend for name, (_, backend)
+                                       in calls.items()}}
+    if bound:
+        from repro_torch.kernels.flash_attention.bound import attention_bound
+
+        b = attention_bound(tuple(q.shape), tuple(k.shape), q.dtype,
+                            causal=causal, window=window)
+        out.update(bound_ms=b["ms"], bound_by=b["bound_by"],
+                   bound_operations_by=b["operations_by"], bytes=b["bytes"],
+                   flops=b["flops"], pairs=b["pairs"])
+    return out
 
 
 def numpy_params(spec_tree, seed):
@@ -2744,7 +2794,7 @@ def check_flash_qwen2(ops, ref) -> dict:
                                    q, k, v, True, None, None, BF16_TOL)
         out[name] = {"shape": [B, S, H, KV, hd], "max_abs_err": err,
                      "bound_ratio": ratio,
-                     **tensor_core_times(ops, ref, q, k, v, None)}
+                     **flash_times(ops, ref, q, k, v, None)}
         del q, k, v
     return out
 
@@ -3246,7 +3296,7 @@ def check_flash_zoo(ops, ref) -> dict:
                                    q, k, v, True, None, None, BF16_TOL)
         out[name] = {"shape": [B, S, H, KV, hd], "max_abs_err": err,
                      "bound_ratio": ratio,
-                     **tensor_core_times(ops, ref, q, k, v, None)}
+                     **flash_times(ops, ref, q, k, v, None)}
         del q, k, v
     return out
 
@@ -3447,7 +3497,7 @@ def check_flash_seamless(ops, ref) -> dict:
                                        BF16_TOL)
             out[key] = {"shape": [B, S, H, KV, hd], "causal": causal,
                         "max_abs_err": err, "bound_ratio": ratio,
-                        **tensor_core_times(ops, ref, q, k, v, None, causal)}
+                        **flash_times(ops, ref, q, k, v, None, causal)}
         del q, k, v
     return out
 
@@ -3778,7 +3828,7 @@ def check_flash_phi_psgf(ops, ref) -> dict:
     _, err, ratio = flash_case(ops, ref, "flash at phi3.5-moe's PSGF step",
                                q, k, v, True, None, None, BF16_TOL)
     return {"shape": list(PHI_PSGF_ATTN), "max_abs_err": err, "bound_ratio": ratio,
-            **tensor_core_times(ops, ref, q, k, v, None)}
+            **flash_times(ops, ref, q, k, v, None)}
 
 
 def moe_vlm_training_card_vs_cpu(TR, layers, arch, seq) -> dict:
@@ -4973,6 +5023,123 @@ def drive_host_mesh(mix_ops, flash_ops, want) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the zoo's float32 prefills through the general flash route
+# ---------------------------------------------------------------------------
+
+# configs with dtype="float32", as the reference's
+# examples/long_context_decode.py builds them: published widths and depths
+FP32_PREFILLS = (("hymba-1.5b", 32), ("qwen2-1.5b", 28))     # arch, layers
+FP32_PREFILL = dict(batch=4, prompt_len=2048)
+# the general kernel's design, for the kernels line (its source note says why)
+GENERAL_DESIGN = (
+    "3xTF32 mma.sync m16n8k8 (operands split into a TF32 high part and the "
+    "rest; bf16 exact in TF32), a block per (batch row, kv head) and 64 or "
+    "128 rows of the flattened (position, head of the group) axis, 16 x MW "
+    "rows a warp (MW 2 at hd 64 / 128), a 2-stage cp.async K/V ring (64 "
+    "keys a tile at hd 64, 16 at hd 128, 32 below), softmax once a tile by "
+    "quad shuffles, query tiles in reverse (longest first), tiles outside "
+    "the mask never loaded")
+
+
+def general_ptxas(build) -> dict:
+    """``-Xptxas -v``'s registers and spills of the general kernel per dtype
+    and head dim; raises if a float32 entry at hd 64 or 128 (the float32
+    prefills') spills."""
+    report = build.parse_ptxas(build.build_log("flash_attention"))
+    out = {}
+    for name, entry in report.items():
+        dtype = "bfloat16" if "nv_bfloat16" in name else "float32"
+        for hd in (8, 16, 32, 64, 128):
+            if f"Li{hd}E" in name:
+                out[f"{dtype}_hd{hd}"] = entry
+    main = [out.get(f"float32_hd{hd}", {}) for hd in (64, 128)]
+    if len(out) != 10 or any(e.get("spill_stores", 1) or e.get("spill_loads", 1)
+                             for e in main):
+        raise RuntimeError(f"general kernel's ptxas report: {out}")
+    log(json.dumps({"general_ptxas": out}))
+    return out
+
+
+def fp32_prefill(flash_ops, ssm_ops, arch, layers) -> dict:
+    """One float32 prefill of ``arch`` at full width (4 x 2,048) through
+    ``ModelApi.prefill`` on the card, its flash calls on the general route
+    (every count set to 0 just before and read just after), beside the same
+    prefill with ``attn_impl="chunked"`` (``flash_mha`` in torch ops, no
+    flash kernel) from the same params: last-position logits within
+    ``HYBRID_CPU_TOL``; warm prefill ms and peak memory of each."""
+    import dataclasses
+
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch.api import ModelApi
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if cfg.num_layers != layers:
+        raise RuntimeError(f"{arch} has {cfg.num_layers} layers, not {layers}")
+    B, S = FP32_PREFILL["batch"], FP32_PREFILL["prompt_len"]
+    api = ModelApi(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = api.init_params(R.PRNGKey(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    runs = {"flash": lambda: api.prefill(params, {"tokens": tokens}, cache_len=S),
+            "chunked": lambda: decoder.prefill(cfg, params, tokens,
+                                               attn_impl="chunked", cache_len=S)}
+    out, logits = {"model": arch, "layers": layers, "batch": B, "prompt_len": S,
+                   "activations": cfg.dtype, "init_s": init_s}, {}
+    with torch.inference_mode():
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_ops.reset_launch_counts()         # every count, just before
+            ssm_ops.LAUNCHES = 0
+            t0 = time.perf_counter()
+            lg, cache = fn()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            routes = dict(flash_ops.ROUTE_LAUNCHES)  # ... and just after
+            ssm = ssm_ops.LAUNCHES
+            peak = torch.cuda.max_memory_allocated()
+            logits[name] = lg[:, -1].float()
+            del lg, cache
+            want = {"scalar": layers if name == "flash" else 0,
+                    "tensor_core": 0, "short": 0}
+            if routes != want:
+                raise RuntimeError(f"{arch} float32 prefill ({name}): flash "
+                                   f"launches {routes}, want {want}")
+            warm = [host_ms(fn) for _ in range(3)]
+            out[name] = {"flash_route_launches": routes, "ssm_scan_launches": ssm,
+                         "prefill_ms_first": first_ms,
+                         "prefill_ms": statistics.median(warm),
+                         "prefill_ms_runs": warm, "peak_memory_bytes": peak}
+    got, ref_logits = logits["flash"], logits["chunked"]
+    err = float((got - ref_logits).abs().max())
+    if not (got.shape == (B, cfg.vocab_size) and torch.isfinite(got).all()
+            and torch.allclose(got, ref_logits, atol=HYBRID_CPU_TOL,
+                               rtol=HYBRID_CPU_TOL)):
+        raise RuntimeError(f"{arch} float32 prefill: logits vs chunked max "
+                           f"|err| {err}")
+    out.update(logits_max_abs_err=err,
+               logits_max_abs=float(ref_logits.abs().max()))
+    del params, logits, got, ref_logits
+    return out
+
+
+def drive_float32_prefills(flash_ops, ssm_ops) -> dict:
+    """Phase 17: ``fp32_prefill`` of each of ``FP32_PREFILLS``."""
+    t0 = time.perf_counter()
+    runs = []
+    for arch, layers in FP32_PREFILLS:
+        free_device_memory()
+        runs.append(fp32_prefill(flash_ops, ssm_ops, arch, layers))
+        log(json.dumps({"float32_prefill": runs[-1]}))
+    return {"runs": runs, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -5025,6 +5192,7 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     tc_ptxas = tensor_core_ptxas(_build)
+    gen_ptxas = general_ptxas(_build)
 
     # 3. kernels against their plain versions
     record = check_flash_attention(ops, ref, FLASH_ATTN_TOL)
@@ -5148,10 +5316,20 @@ def main() -> int:
     mix_record["launches_hybrid_mesh"] = {
         d: n["psgf_mix_batch"] for d, n in host_mesh["launches"]["hybrid"].items()}
 
+    # 17. the zoo's float32 prefills at full width through the general
+    # flash route
+    free_device_memory()
+    fp32 = drive_float32_prefills(ops, ssm_ops)
+    log(json.dumps({"float32_prefills": fp32}))
+    log(f"phase 17: {fp32['seconds']:.1f} s")
+    fp32_launches = {r["model"]: r["flash"]["flash_route_launches"]["scalar"]
+                     for r in fp32["runs"]}
+
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
     # the tensor-core route's from its hybrid_prefill entry
     tc = record["hybrid_prefill"]
+    general = tc.pop("general_float32")
     record["routes"] = {
         "short": {"source": record["source"],
                   "max_abs_err": record["max_abs_err"],
@@ -5166,6 +5344,7 @@ def main() -> int:
                   "ms": record["ms"],
                   "ms_training_shape": record["training_shape"]["ms"]},
         "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                   "launches_float32_prefills": fp32_launches,
                    "launches_serving": serving_routes["scalar"],
                    "launches_training": training["flash_routes"]["scalar"],
                    "ms": record["serving_shape"]["scalar_ms"],
@@ -5197,8 +5376,31 @@ def main() -> int:
                         "launches_host_mesh": record["launches_host_mesh"],
                         "zoo_moe_vlm_training": moe_vlm["flash_tensor_core"]},
     }
+    # the general route (kernel_route "scalar") on its own main path, phase
+    # 17: its ms and bounds at hymba's float32 call, qwen2's beside it
+    main_call = general["hymba-1.5b prefill"]
+    general_record = {
+        "name": "flash_attention_general",
+        "route": "cuda",
+        "kernel_route": "scalar",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:114",
+        "tpu_kernel": "src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel",
+        "design": GENERAL_DESIGN,
+        "shape": main_call["shape"], "dtype": "float32",
+        "launches": sum(fp32_launches.values()),
+        "launches_by_prefill": fp32_launches,
+        "max_abs_err": max(max(c["max_abs_err"] for c in general.values()),
+                           max(record.pop("general_case_errs").values())),
+        **{key: main_call[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_operations_by",
+            "library_ms", "library_call", "library_backend")},
+        "calls": general,
+        "ptxas": gen_ptxas,
+    }
     k1_record = mix_record.pop("k1_psgf_mix")
-    log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record]}))
+    log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record,
+                                general_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

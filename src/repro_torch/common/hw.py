@@ -18,6 +18,11 @@ FP32_FLOP_PER_S = 67e12
 # dense bf16 (and fp16) on the tensor cores, without sparsity (data sheet).
 BF16_FLOP_PER_S = 989e12
 
+# dense TF32 on the tensor cores, without sparsity (data sheet). A float32
+# product done as 3xTF32 (three TF32 products of split operands) takes
+# three times its flops at this rate.
+TF32_FLOP_PER_S = 495e12
+
 # the special-function units' ex2: 16 per clock per SM (CUDA C Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0) x 132
 # SMs x the 1.98 GHz boost clock (data sheet).

@@ -12,9 +12,12 @@
     :data:`SHORT_SMEM_BUDGET`) the short kernel
     (``repro_torch/csrc/flash_attention_short.cu``: a block per batch row
     with its q, k and v slabs in shared memory, a thread or two lanes per
-    (query, head), an exact two-pass softmax); every other case (long sequences, float32
-    at hd 64 / 128) the scalar kernel (``repro_torch/csrc/flash_attention.cu``:
-    fp32 FMAs, a thread per query row). All are built at first use.
+    (query, head), an exact two-pass softmax); every other case (long
+    sequences, float32 at every head dim) the general kernel, whose route
+    keeps its historical name ``"scalar"``
+    (``repro_torch/csrc/flash_attention.cu``: 3xTF32 products on the tensor
+    cores, a block per kv head's query group, a cp.async K/V ring). All are
+    built at first use.
     Anything the kernels do not take RAISES — there is no fallback;
   * CPU tensors run the plain PyTorch version (:mod:`.ref`), the same
     function computed densely; ``meta`` tensors (the dry run's,
@@ -197,10 +200,9 @@ def _launch(q, k, v, causal, window, kv_len, route=None):
     if H > _GRID_LIMIT:
         raise ValueError(f"heads {H} above the grid limit {_GRID_LIMIT}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if route != "scalar":
-        # TMA and the 16-byte row loads and copies take 16-byte aligned
-        # bases; a view at an odd offset is copied to a fresh allocation
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    # TMA and the 16-byte loads and copies of every route take 16-byte
+    # aligned bases; a view at an odd offset is copied to a fresh allocation
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

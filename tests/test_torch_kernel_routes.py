@@ -1,7 +1,8 @@
-"""Which flash-attention kernel a CUDA call takes, and why the tensor-core
-and short routes' tolerances are what they are. CPU only: the routing is a
-pure function, and both kernels' numerics are emulated in torch (the short
-one also held against the JAX kernel in interpret mode)."""
+"""Which flash-attention kernel a CUDA call takes, why the tensor-core,
+short and general routes' tolerances are what they are, and each call's
+bound. CPU only: the routing and the bound are pure functions, and the
+kernels' numerics are emulated in torch (the short and general ones also
+held against the JAX kernel in interpret mode)."""
 import math
 import threading
 
@@ -237,3 +238,131 @@ def test_short_kernel_numerics_within_flash_tolerance(case):
                                    rtol=FLASH_ATTN_TOL)
     if kv_len == 0:
         assert torch.equal(got, torch.zeros_like(got))
+
+
+def tf32_split(x):
+    """An fp32 operand as the general kernel splits it: ``hi`` rounded to
+    TF32 (10 mantissa bits, ties away from zero), ``lo = x - hi`` (exact)
+    as the tensor cores read it, its low 13 bits dropped."""
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def tf32_product(eq, a, b, terms=3):
+    """``einsum(eq, a, b)`` as 3xTF32 (hi.hi + hi.lo + lo.hi, fp32 out) or,
+    with ``terms=1``, as one TF32 product (hi.hi)."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    prod = lambda x, y: torch.einsum(eq, x.double(), y.double())  # noqa: E731
+    out = prod(ah, bh)
+    if terms == 3:
+        out = out + prod(ah, bl) + prod(al, bh)
+    return out.float()
+
+
+def general_kernel_emulation(q, k, v, *, causal, window, kv_len, tile=16,
+                             terms=3):
+    """The general kernel's numerics in torch: QK^T and P.V as 3xTF32 (or
+    ``terms=1``: one TF32 product each), an online softmax over key tiles
+    with a fp32 running max and row sum, one rescale of the accumulator a
+    tile, the output divided once."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, KV, H // KV, hd)
+    kf, vf = k.float(), v.float()
+    mask = attention_mask(Sq, Skv, causal=causal, window=window, kv_len=kv_len)
+    m = torch.full((B, KV, H // KV, Sq, 1), -math.inf)
+    l = torch.zeros(B, KV, H // KV, Sq, 1)
+    acc = torch.zeros(B, KV, H // KV, Sq, hd)
+    for t0 in range(0, Skv, tile):
+        s = tf32_product("bskgd,btkd->bkgst", qf, kf[:, t0:t0 + tile], terms)
+        s = torch.where(mask[:, t0:t0 + tile], s / math.sqrt(hd), -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == -math.inf, 0.0, m_new)
+        corr = torch.exp(m - base)
+        p = torch.exp(s - base)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + tf32_product("bkgst,btkd->bkgsd", p,
+                                        vf[:, t0:t0 + tile], terms)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+@pytest.mark.parametrize("case", [
+    # B, Sq, Skv, H, KV, hd, causal, window, kv_len
+    (1, 48, 48, 10, 2, 64, True, 17, None),       # GQA 5:1, causal, window
+    (1, 40, 56, 12, 2, 128, False, None, 33),     # GQA 6:1, ragged, kv_len
+    (1, 24, 24, 4, 1, 64, True, None, 0),         # no valid key: every row 0
+])
+def test_general_kernel_numerics_within_flash_tolerance(case):
+    """The reason the general route's 3xTF32 products keep its float32
+    contract: they stay within FLASH_ATTN_TOL of the JAX kernel (interpret
+    mode) and of the plain version, where one TF32 product does not."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.core.forecast import FLASH_ATTN_TOL
+
+    B, Sq, Skv, H, KV, hd, causal, window, kv_len = case
+    assert ops.kernel_route(torch.float32, hd, (B, Sq, H, hd),
+                            (B, Skv, KV, hd)) == "scalar"
+    rng = np.random.default_rng(28)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))]
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    mask = dict(causal=causal, window=window, kv_len=kv_len)
+    got = general_kernel_emulation(q, k, v, **mask)
+    plain = flash_attention_ref(q, k, v, **mask)
+    jax_kern = np.asarray(flash_attention_kernel(
+        *(jnp.asarray(a) for a in arrs), causal=causal, window=window,
+        block_q=Sq, block_k=Skv, kv_len=kv_len, interpret=True))
+    for want in (plain.numpy(), jax_kern):
+        np.testing.assert_allclose(got.numpy(), want, atol=FLASH_ATTN_TOL,
+                                   rtol=FLASH_ATTN_TOL)
+    if kv_len == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+    else:
+        one = general_kernel_emulation(q, k, v, **mask, terms=1)
+        assert float((one - plain).abs().max()) > 10 * FLASH_ATTN_TOL
+
+
+@pytest.mark.parametrize("case", [
+    # q, kv shapes, dtype, causal, window: pairs a head, flops, bytes, the
+    # bound's ms, what bounds it (and the operations), and each candidate
+    ((4, 2048, 25, 64), (4, 2048, 5, 64), torch.float32, True, 1024,
+     1_573_376, 4.03e10, 125.8e6, 0.244, "operations", "3xtf32",
+     {"fp32": 0.601, "bytes": 0.0376}),
+    ((4, 2048, 12, 128), (4, 2048, 2, 128), torch.float32, True, None,
+     2_098_176, 5.16e10, 117.4e6, 0.313, "operations", "3xtf32",
+     {"fp32": 0.770, "bytes": 0.0351}),
+    ((4, 2048, 25, 64), (4, 2048, 5, 64), torch.bfloat16, True, 1024,
+     1_573_376, 4.03e10, 62.9e6, 0.0407, "operations", "bf16",
+     {"bytes": 0.0188}),
+    ((96, 15, 16, 8), (96, 15, 16, 8), torch.float32, False, None,
+     225, 1.106e7, 2.95e6, 0.000880, "bytes", "3xtf32", {}),
+], ids=["hymba_fp32", "qwen2_fp32", "hymba_bf16", "serving_fp32"])
+def test_attention_bound(case):
+    """``bound.attention_bound`` at the general route's two float32 prefill
+    calls: operations-bound at 3xTF32, the lesser of it and the fp32 CUDA
+    cores' rate; and as before for bf16 (the tensor cores) and for the
+    forecaster's serving bucket (bytes)."""
+    from repro_torch.common import hw
+    from repro_torch.kernels.flash_attention.bound import attention_bound
+
+    (qs, kvs, dtype, causal, window, pairs, flops, nbytes, ms, by, ops_by,
+     others) = case
+    b = attention_bound(qs, kvs, dtype, causal=causal, window=window)
+    assert b["pairs"] == pairs
+    assert b["flops"] == pytest.approx(flops, rel=2e-3)
+    assert b["bytes"] == pytest.approx(nbytes, rel=2e-3)
+    assert b["ms"] == pytest.approx(ms, rel=3e-3)
+    assert (b["bound_by"], b["operations_by"]) == (by, ops_by)
+    assert b["bytes_ms"] == pytest.approx(nbytes / hw.HBM_BYTES_PER_S * 1e3,
+                                          rel=2e-3)
+    if "fp32" in others:
+        assert b["flops"] / hw.FP32_FLOP_PER_S * 1e3 == pytest.approx(
+            others["fp32"], rel=3e-3)
+        assert b["ms"] == pytest.approx(
+            3 * b["flops"] / hw.TF32_FLOP_PER_S * 1e3)
+    if "bytes" in others:
+        assert b["bytes_ms"] == pytest.approx(others["bytes"], rel=1e-2)

@@ -66,6 +66,41 @@ def test_flash_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+GENERAL_CASES = [
+    # B, Sq, Skv, H, KV, causal, window, kv_len: float32 at hd 64 and 128,
+    # the general route (kernel_route "scalar") of the zoo's float32 prefills
+    (1, 300, 300, 10, 2, True, 37, None),        # GQA 5:1, causal, window
+    (2, 130, 130, 12, 2, True, None, None),      # GQA 6:1, causal
+    (2, 100, 300, 8, 2, True, None, None),       # causal, Sq < Skv
+    (2, 300, 100, 6, 1, True, None, 77),         # causal, Sq > Skv, kv_len
+    (1, 300, 400, 4, 4, False, 50, 350),         # window without causal, kv_len
+    (2, 7, 40, 5, 1, True, None, 0),             # no valid key: exactly 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("case", GENERAL_CASES)
+def test_flash_general_kernel_matches_plain(cuda, case, hd):
+    """The general route in float32: one launch counted on it, within 2e-5
+    of the plain version (its 3xTF32 products), rows with no valid key
+    exactly zero."""
+    B, Sq, Skv, H, KV, causal, window, kv_len = case
+    q, k, v = _inputs(28, B, Sq, Skv, H, KV, hd, cuda)
+    assert ops.kernel_route(torch.float32, hd, tuple(q.shape),
+                            tuple(k.shape)) == "scalar"
+    before = dict(ops.ROUTE_LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES == {**before, "scalar": before["scalar"] + 1}
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               kv_len=kv_len)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    if kv_len == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
 TC_CASES = [
     # B, Sq, Skv, H, KV, causal, window, kv_len: bf16, at hd 64 and 128
     (1, 2048, 2048, 5, 1, True, 1024, None),     # GQA 5:1, hymba's mask

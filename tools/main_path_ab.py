@@ -18,13 +18,19 @@ and a last line with every run's warm ms per train step and decode ms per
 token, and the card's name and power limit. It needs a CUDA GPU.
 
 With ``--kernels`` each child first times its own tree's ``flash_attention``
-at the ten tensor-core calls the main paths make (``KERNEL_CALLS``: eight
-shapes, seamless's encoder and decoder apart), beside the
+at the ten tensor-core calls the main paths make and at the two float32
+prefill calls of the general route (``KERNEL_CALLS``: ten shapes,
+seamless's encoder and decoder apart), beside the
 ``scaled_dot_product_attention`` calls that compute the same function
 (``chip_smoke.sdpa_calls``: with the mask as a tensor and, where no window
 cuts the keys, with ``is_causal`` and no mask), on the same inputs from a
 fixed seed, and holds each output against its tree's plain version
-(``chip_smoke.flash_case``).
+(``chip_smoke.flash_case``); then it times the float32 prefills that make
+the general route's calls (``FP32_PREFILLS``: ``ModelApi.prefill`` at 4 x
+2,048, full width, ``dtype="float32"``). Each call's bound comes from this
+checkout's ``kernels/flash_attention/bound.py`` (the same for both trees).
+Each run's line also holds its tree's ``-Xptxas -v`` registers and spills
+of the two flash kernels it compares (``ptxas``).
 """
 from __future__ import annotations
 
@@ -39,25 +45,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = dict(arch="qwen2-1.5b", steps=6, batch=4, seq=2048)
 WARM_FROM = 2            # the first steps build kernels and warm the allocator
 SERVE = dict(arch="internvl2-2b", batch=4, prompt_len=1792, gen=32)
-# the tensor-core flash calls of the main paths: name, (B, S, H, KV, hd),
-# causal, window
+# the flash calls of the main paths: name, (B, S, H, KV, hd), causal,
+# window, dtype (bfloat16: the tensor-core route; float32: the general one)
 KERNEL_CALLS = (
-    ("qwen2-1.5b train", (4, 2048, 12, 2, 128), True, None),
-    ("internvl2-2b prefill", (4, 2048, 16, 8, 128), True, None),
-    ("qwen2-1.5b train_psgf", (8, 64, 12, 2, 128), True, None),
-    ("seamless-m4t train encoder", (4, 512, 16, 16, 64), False, None),
-    ("seamless-m4t train decoder", (4, 512, 16, 16, 64), True, None),
-    ("seamless-m4t prefill encoder", (4, 2048, 16, 16, 64), False, None),
-    ("seamless-m4t prefill decoder", (4, 2048, 16, 16, 64), True, None),
-    ("hymba-1.5b prefill", (4, 2048, 25, 5, 64), True, 1024),
-    ("phi3.5-moe prefill", (4, 2048, 32, 8, 128), True, None),
-    ("phi3.5-moe train_psgf", (4, 512, 32, 8, 128), True, None),
+    ("qwen2-1.5b train", (4, 2048, 12, 2, 128), True, None, "bfloat16"),
+    ("internvl2-2b prefill", (4, 2048, 16, 8, 128), True, None, "bfloat16"),
+    ("qwen2-1.5b train_psgf", (8, 64, 12, 2, 128), True, None, "bfloat16"),
+    ("seamless-m4t train encoder", (4, 512, 16, 16, 64), False, None, "bfloat16"),
+    ("seamless-m4t train decoder", (4, 512, 16, 16, 64), True, None, "bfloat16"),
+    ("seamless-m4t prefill encoder", (4, 2048, 16, 16, 64), False, None, "bfloat16"),
+    ("seamless-m4t prefill decoder", (4, 2048, 16, 16, 64), True, None, "bfloat16"),
+    ("hymba-1.5b prefill", (4, 2048, 25, 5, 64), True, 1024, "bfloat16"),
+    ("phi3.5-moe prefill", (4, 2048, 32, 8, 128), True, None, "bfloat16"),
+    ("phi3.5-moe train_psgf", (4, 512, 32, 8, 128), True, None, "bfloat16"),
+    ("hymba-1.5b float32 prefill", (4, 2048, 25, 5, 64), True, 1024, "float32"),
+    ("qwen2-1.5b float32 prefill", (4, 2048, 12, 2, 128), True, None, "float32"),
 )
+FP32_PREFILLS = ("hymba-1.5b", "qwen2-1.5b")
+FP32_PREFILL = dict(batch=4, prompt_len=2048)
 
 
 def time_kernels() -> dict:
     """The tree's ``flash_attention`` at ``KERNEL_CALLS``, held against its
-    plain version and timed beside SDPA (``chip_smoke.tensor_core_times``)."""
+    plain version and timed beside SDPA (``chip_smoke.flash_times``)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -65,16 +75,70 @@ def time_kernels() -> dict:
     from repro_torch.kernels.flash_attention import ops, ref
 
     out = {}
-    for name, (B, S, H, KV, hd), causal, window in KERNEL_CALLS:
+    for name, (B, S, H, KV, hd), causal, window, dtype in KERNEL_CALLS:
         gen = torch.Generator().manual_seed(0)
-        q, k, v = CS.attention_inputs(gen, B, S, S, H, KV, hd, torch.bfloat16)
+        dt = getattr(torch, dtype)
+        q, k, v = CS.attention_inputs(gen, B, S, S, H, KV, hd, dt)
         _, err, ratio = CS.flash_case(ops, ref, name, q, k, v, causal, window,
-                                      None, CS.BF16_TOL)
+                                      None, CS.FLASH_HYMBA_TOL[dt])
         out[name] = {"shape": [B, S, H, KV, hd], "causal": causal,
-                     "window": window, "max_abs_err": err, "bound_ratio": ratio,
-                     **CS.tensor_core_times(ops, ref, q, k, v, window, causal)}
+                     "window": window, "dtype": dtype,
+                     "route": CS.route_of(ops, q, k), "max_abs_err": err,
+                     "bound_ratio": ratio,
+                     **CS.flash_times(ops, ref, q, k, v, window, causal,
+                                      bound=False)}
         del q, k, v
     return out
+
+
+def time_fp32_prefills() -> dict:
+    """Warm ms (median of 3) of the tree's ``ModelApi.prefill`` of each of
+    ``FP32_PREFILLS`` in float32 at full width, random weights from
+    ``PRNGKey(0)``."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as CS
+    from repro_torch import random as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch.api import ModelApi
+
+    B, S = FP32_PREFILL["batch"], FP32_PREFILL["prompt_len"]
+    out = {}
+    for arch in FP32_PREFILLS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        api = ModelApi(cfg, "cuda")
+        params = api.init_params(R.PRNGKey(0))
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, S))).cuda()
+        with torch.inference_mode():
+            fn = lambda: api.prefill(params, {"tokens": tokens}, cache_len=S)  # noqa: E731
+            fn()
+            runs = [CS.host_ms(fn) for _ in range(3)]
+        out[arch] = {"prefill_ms": statistics.median(runs), "prefill_ms_runs": runs}
+        del params, api
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def add_bounds(flash: dict) -> dict:
+    """Each call's bound from this checkout's ``bound.attention_bound``."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.flash_attention.bound import attention_bound
+
+    for name, (B, S, H, KV, hd), causal, window, dtype in KERNEL_CALLS:
+        b = attention_bound((B, S, H, hd), (B, S, KV, hd), getattr(torch, dtype),
+                            causal=causal, window=window)
+        flash[name].update(bound_ms=b["ms"], bound_by=b["bound_by"],
+                           bound_operations_by=b["operations_by"])
+    return flash
 
 
 def run_tree(src: str, kernels: bool) -> dict:
@@ -91,8 +155,12 @@ def run_tree(src: str, kernels: bool) -> dict:
         raise RuntimeError(f"repro_torch from {repro_torch.__file__}, not {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build()
+    # registers and spills of each flash kernel entry (``-Xptxas -v``)
+    ptxas = {lib: _build.parse_ptxas(_build.build_log(lib))
+             for lib in ("flash_attention", "flash_attention_tc")}
     flash = time_kernels() if kernels else None
     torch.cuda.empty_cache()
+    fp32_prefills = time_fp32_prefills() if kernels else None
     history = {}
     losses = TR.train(TRAIN["arch"], steps=TRAIN["steps"], batch=TRAIN["batch"],
                       seq=TRAIN["seq"], reduced=False, log_every=100,
@@ -107,7 +175,9 @@ def run_tree(src: str, kernels: bool) -> dict:
             "train_warm_ms": statistics.median(step_ms[WARM_FROM:]),
             "prefill_ms": served["prefill_ms"],
             "decode_ms_per_token": served["decode_ms_per_token"],
-            **({"flash": flash} if kernels else {})}
+            "ptxas": ptxas,
+            **({"flash": flash, "fp32_prefills": fp32_prefills}
+               if kernels else {})}
 
 
 def card() -> str:
@@ -142,6 +212,8 @@ def main() -> int:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        if args.kernels:
+            add_bounds(runs[-1]["flash"])
         print(json.dumps(runs[-1]))
     summary = {"card": card(), "order": [
         "baseline" if r["src"] != this else "this" for r in runs],
@@ -154,6 +226,11 @@ def main() -> int:
         summary["flash_library_ms"] = {
             name: [r["flash"][name]["library_ms"] for r in runs]
             for name, *_ in KERNEL_CALLS}
+        summary["flash_bound_ms"] = {name: runs[0]["flash"][name]["bound_ms"]
+                                     for name, *_ in KERNEL_CALLS}
+        summary["fp32_prefill_ms"] = {
+            arch: [r["fp32_prefills"][arch]["prefill_ms"] for r in runs]
+            for arch in FP32_PREFILLS}
     print(json.dumps(summary))
     return 0
 
