@@ -30,7 +30,8 @@ Phases, each of which raises (exit code != 0) on failure:
      non-binary mask and the K = 1 case, its count across CUDA-graph
      replays, one kernel per call), and time the kernel, the plain version
      and the closest PyTorch call (flash's short route at the serving
-     bucket and at training's 864 rows beside the scalar kernel, and an
+     bucket, at training's 864 rows and at Table I's PatchTST calls of
+     phase 18, ``FORECASTER_ATTN``, beside the scalar kernel, and an
      empty kernel's launch as the floor under both);
   4. serving: the port's serving path at full width — two LoGTST cluster
      models (look_back 128, d_model 128, 16 heads, flash attention on,
@@ -70,8 +71,8 @@ Phases, each of which raises (exit code != 0) on failure:
      ``set_sync_debug_mode("error")``, set-up, warm wall per round and one
      profiled warm chunk of each driver; then ``driver="host"`` against
      ``driver="loop"`` on a 2,048-station ``nn5`` fleet (cohort 256, client
-     chunk 64): bitwise, the store pinned, bytes per round, peak device
-     memory of each;
+     chunk 64, 2 rounds, an evaluation after each): bitwise, the store
+     pinned, bytes per round, peak device memory of each;
   8. the flywheel behind the gateway: phase 5's generation-0 root served
      raw by ``ForecastServer.from_manifest`` (watching its manifest) behind
      an authed ``ForecastGateway``, 16 closed-loop HTTP clients sending
@@ -118,11 +119,11 @@ Phases, each of which raises (exit code != 0) on failure:
      beside ``scaled_dot_product_attention``; then
      ``launch.serve.serve(..., reduced=False)`` at every published width:
      internvl2-2b whole (1,889,146,880 params; batch 4, 256 patches + 1,792
-     tokens), phi3.5-moe-42b-a6.6b at 8 of its 32 layers (4 x 2,048) and
+     tokens), phi3.5-moe-42b-a6.6b at 4 of its 32 layers (4 x 2,048) and
      deepseek-v2-236b at 2 of its 60 layers (2 x 2,048 with dense MLA, then
      1 x 4,096 through ``flash_mha``), 32 tokens each, the depth cut by
      ``dataclasses.replace(cfg, num_layers=...)``; flash launches per
-     prefill 24, 8 and 0 (MLA never reaches the kernel), all tensor-core,
+     prefill 24, 4 and 0 (MLA never reaches the kernel), all tensor-core,
      and 2 ``flash_mha`` calls in the 4,096-token prefill; init s, prefill
      ms, decode ms per token and peak memory per model beside the card's
      name and power limit; full-width block 0 and the reduced models
@@ -138,7 +139,7 @@ Phases, each of which raises (exit code != 0) on failure:
      source frames and 2,048 target tokens; 48 flash launches a prefill,
      all tensor-core), 32 tokens each, with a profiled warm prefill and
      decode step; ``train_psgf`` of xlstm (2 pods x 8 x 16, a sync every 4
-     steps, 8 steps), ``train`` of xlstm (4 x 64, 4 steps) and of seamless
+     steps, 4 steps), ``train`` of xlstm (4 x 64, 2 steps) and of seamless
      (4 x 512, 8 steps, one pod), their wire bytes and flash launches; the
      cuts and their reasons are beside ``LAST_SERVE``; full-width block 0 and
      the reduced models (float32; xlstm at 4 layers, so both cells run) on
@@ -164,7 +165,8 @@ Phases, each of which raises (exit code != 0) on failure:
      ``scaled_dot_product_attention``.
  14. the sharded steps' collectives, in two fresh interpreters of this
      script, one after the other (``--collectives-child``), so that no
-     process group meets another and (a) is timed alone, (b) first: (a)
+     process group meets another and (a) is timed alone, (b) first,
+     started with phase 13 and run on the CPU beside it: (a)
      on the card, a one-rank NCCL group and ``make_host_mesh(device="cuda")`` as
      a (1, 1) ``DeviceMesh``: qwen2-1.5b's ``train`` step at full width
      (4 x 2,048, 4 steps) over DTensors laid out by the train rules (the
@@ -210,7 +212,8 @@ Phases, each of which raises (exit code != 0) on failure:
      processes each with a client mesh of two shards of ``cuda:0``
      (``--hybrid-child``), ``scan`` and ``while``, bitwise phase 10's
      one-process scan, ms a round, peak per process, merge and gather
-     bytes and host seconds at both levels; (d) ``python -m
+     bytes and host seconds at both levels; (d), started first and run
+     beside (c), ``python -m
      repro_torch.launch.distributed --smoke --num-processes 1 --device
      cuda`` (one NCCL rank: the exchange's NCCL transport and barrier).
      Where the machine has two GPUs, (a), (b) and (c) again with one
@@ -226,13 +229,46 @@ Phases, each of which raises (exit code != 0) on failure:
      within ``HYBRID_CPU_TOL`` of the same prefill with
      ``attn_impl="chunked"`` (``flash_mha`` in torch ops, no flash kernel)
      from the same params, warm prefill ms and peak memory of both.
+ 18. the paper's comparison, through the port's own functions as the
+     reference's ``benchmarks/table1.py`` and ``table23.py`` run it, in
+     one fresh interpreter of this script (``--paper-child DIR``), alone
+     on the card: (a) Table I,
+     its five forecasters (LoGTST, PatchTST at look_back 512 and 336,
+     MLPformer, IDformer) at the paper's widths (d_model 128, 16 heads,
+     d_ff 256) with flash attention on, trained centrally from seeded
+     random weights (Adam, ``one_cycle(1e-3, 200)``, batch 128 from
+     ``default_rng(0)``; one eager step, then the step captured as a CUDA
+     graph and replayed) on ETT-like and weather-like windows and
+     evaluated on the last 20%: param counts exact, every PatchTST and
+     LoGTST flash launch on the short route ((200 + 1) x attention layers
+     a run), none for MLPformer and IDformer, the first 5 losses within
+     ``TABLE1_CPU_RTOL`` of the same steps on the CPU, mse and mae finite,
+     and table1.py's claim (LoGTST's mse beside PatchTST's at their
+     parameter ratio) printed as a report. Cut to horizon 96 (the
+     reference's full mode also runs 192) and 200 steps a run (its quick
+     count). (b) one round of phase 5's 10-station cluster per policy
+     (online, pso, psgf, psgf_topk) on the card against the CPU
+     (``card_vs_cpu_round``) and psgf_topk's masks on tied scores on
+     both; then table23.py's quick grid (online; PSO at shares 0.5 / 0.3;
+     PSGF at forward 0.2 and shares 0.5 / 0.3; PSGF-topk 0.3 / 0.2), each
+     with the fused psgf_mix downlink, through
+     ``run_experiment(driver="while")`` on the full ``nn5`` and ``ev``
+     tasks at its settings, uncut (select 0.5, 4 local steps, batch 32,
+     max_rounds 120, patience 8, eval every 20): per row comm, RMSE,
+     rounds, seconds and the kernels' launches (every flash launch short),
+     patience stopping at least one row of each task before max_rounds,
+     then Fig. 6's Pareto front (comm against RMSE); last, one PatchTST/63
+     step profiled with the flash backward (the plain version's gradient)
+     in its own span. A probe of an eager op's host time is taken in this
+     process and before and after each stage in the child.
 
 Then it prints ``{"training": ...}``, ``{"hybrid_serving": ...}``,
 ``{"training_drivers": ...}``, ``{"flywheel": ...}``, ``{"zoo_training":
 ...}``, ``{"distributed": ...}``, ``{"zoo_families": ...}``,
 ``{"zoo_last_families": ...}``, ``{"zoo_moe_vlm_training": ...}``,
 ``{"collectives": ...}``, ``{"local_mesh": ...}``, ``{"host_mesh": ...}``,
-``{"float32_prefills": ...}``, one ``{"kernels": [...]}`` line (flash
+``{"float32_prefills": ...}``, ``{"paper_comparison": ...}``, one
+``{"kernels": [...]}`` line (flash
 attention with its three routes, psgf_mix_batch, psgf_mix, ssm_scan, and
 the general flash route on its own path, ``flash_attention_general``), and
 last ``{"ok": true, "device": {...}}``. It imports ``torch``, ``numpy``,
@@ -240,7 +276,7 @@ the standard library and ``repro_torch`` (from ``src/`` beside this file)
 only. With ``--distributed-child DIR`` it is one of phase 10's processes,
 with ``--collectives-child card|accounting DIR`` one of phase 14's, with
 ``--host-mesh-child PART DIR`` or ``--hybrid-child DIR DEVICE`` one of
-phase 16's.
+phase 16's, with ``--paper-child DIR`` phase 18's.
 """
 from __future__ import annotations
 
@@ -361,6 +397,16 @@ def flash_case(ops, ref, name, q, k, v, causal, window, kv_len, tol):
     return got, err, ratio
 
 
+# Table I's PatchTST at the paper's widths (16 heads of 8), phase 18's calls:
+# (B, Sq, Skv, H, KV, hd) of a training batch of 128 at look_back 512 (63
+# tokens: Sq * H = 1,008 of the short kernel's 1,024 threads, its slabs
+# 96,768 of 114,688 bytes) and 336 (41 tokens), and of look_back 512's
+# evaluation over weather-like's 11,639 test rows
+FORECASTER_ATTN = {"patchtst63_batch": (128, 63, 63, 16, 16, 8),
+                   "patchtst41_batch": (128, 41, 41, 16, 16, 8),
+                   "patchtst63_eval": (11_639, 63, 63, 16, 16, 8)}
+
+
 def check_flash_attention(ops, ref, tol_f32: float) -> dict:
     """Kernel vs plain version on the card, all three routes; returns the
     main-path record (the short route at the serving bucket, with the
@@ -383,6 +429,14 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
         # the short route: the forecaster's 63 tokens, GQA with every mask,
         # no valid key (exact zeros), hd 16 and 32, bf16
         ("short_63_tokens", (4, 63, 63, 16, 16, 8), False, None, None, f32, tol_f32),
+        # Table I's PatchTST (phase 18): look_back 512's and 336's training
+        # batch, and look_back 512's evaluation over weather-like's test rows
+        ("short_patchtst63_batch", FORECASTER_ATTN["patchtst63_batch"], False,
+         None, None, f32, tol_f32),
+        ("short_patchtst41_batch", FORECASTER_ATTN["patchtst41_batch"], False,
+         None, None, f32, tol_f32),
+        ("short_patchtst63_eval", FORECASTER_ATTN["patchtst63_eval"], False,
+         None, None, f32, tol_f32),
         ("short_gqa_window_kv_len", (2, 15, 15, 16, 4, 8), True, 5, 12, f32, tol_f32),
         ("short_no_valid_key", (2, 7, 40, 4, 1, 8), True, None, 0, f32, 0.0),
         ("short_window_kv_len_hd16", (2, 30, 20, 16, 2, 16), False, 9, 17, f32, tol_f32),
@@ -530,10 +584,13 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
     empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
     floor_ms = timed_ms(lambda: empty(torch.cuda.current_stream().cuda_stream))
     q, k, v, err = main_case
-    # (and the serving bucket at look_back 512: 63 tokens, 1,008 pairs)
+    # (and the serving bucket at look_back 512: 63 tokens, 1,008 pairs, and
+    # Table I's PatchTST calls of phase 18)
     shapes = {"serving": (q, k, v),
               "training": attention_inputs(gen, TRAIN_ROWS, 15, 15, 16, 16, 8, f32),
-              "serving_63_tokens": attention_inputs(gen, 96, 63, 63, 16, 16, 8, f32)}
+              "serving_63_tokens": attention_inputs(gen, 96, 63, 63, 16, 16, 8, f32),
+              **{key: attention_inputs(gen, *shape, f32)
+                 for key, shape in FORECASTER_ATTN.items()}}
     times = {}
     for key, (q, k, v) in shapes.items():
         short = lambda: ops.flash_attention(q, k, v, causal=False)  # noqa: E731
@@ -583,6 +640,7 @@ def check_flash_attention(ops, ref, tol_f32: float) -> dict:
         "serving_shape": serving,
         "training_shape": times["training"],
         "serving_63_tokens_shape": times["serving_63_tokens"],
+        "table1_shapes": {key: times[key] for key in FORECASTER_ATTN},
     }
 
 
@@ -1091,14 +1149,24 @@ def check_psgf_mix(mix_ops, mix_ref) -> dict:
     return rec
 
 
-def card_vs_cpu_round(E, R, task, series, labels, model, spec_grid, seed):
-    """One round of the smallest cluster from the same state and key on the
-    card and on the CPU: selection, gates, the mixed matrix and the comm
-    counters bitwise; the new global model within ROUND_TOL."""
+def card_vs_cpu_round(E, R, task, series, labels, model, entry, seed):
+    """One round of the smallest cluster under the grid entry ``entry``
+    (``(policy, overrides)``) from the same state and key on the card and on
+    the CPU: selection, downlink gates, the mixed matrix, the uplink gates
+    and the comm counters bitwise; the new global model within ROUND_TOL.
+
+    psgf_topk's uplink gates are the top k of ``|global - trained row|``:
+    where the card's and the CPU's trained rows differ by float noise at
+    the k-th largest difference, each device keeps another element (a flip;
+    k, and so the counts, stay exact). For it the flips are counted, the
+    uplink gates the CPU draws from the card's own trained rows must equal
+    the card's bit for bit (the same selection and tie rule), and the
+    global model is held within ROUND_TOL where no selected client's
+    uplink gate flipped."""
     c = int(np.argmin(np.bincount(labels)))
     idx = np.nonzero(labels == c)[0]
     tr, _, _, _ = task.client_data(series, idx)
-    policy_name, overrides = spec_grid[0]
+    policy_name, overrides = entry
     fl = E.FLConfig(policy=policy_name, num_clients=tr.shape[0],
                     select_ratio=0.5, local_steps=4, batch_size=TRAIN_BATCH,
                     **overrides)
@@ -1113,26 +1181,43 @@ def card_vs_cpu_round(E, R, task, series, labels, model, spec_grid, seed):
         down = E._round_down(state, rk, fl, meta, policy)
         new_state, metrics = E.fl_round(state, tr, rk, model.cfg, fl, meta,
                                         device=dev)
-        out[dev] = (down, new_state, metrics)
-    (dc, sc, mc), (dg, sg, mg) = out["cpu"], out["cuda"]
+        # the round's own uplink gates, from its trained rows (_round_up)
+        up = policy.uplink_gates(down["k_upmask"], state["w_global"],
+                                 new_state["w_clients"], down["selected"])
+        out[dev] = (down, new_state, metrics, up)
+    (dc, sc, mc, uc), (dg, sg, mg, ug) = out["cpu"], out["cuda"]
+    ug = ug.cpu()
+    from_card_rows = policy.uplink_gates(dc["k_upmask"], state_cpu["w_global"],
+                                         sg["w_clients"].cpu(), dc["selected"])
+    flips = uc != ug
+    n_flips = int(flips.sum())
     same = {
         "selected": torch.equal(dc["selected"], dg["selected"].cpu()),
         "gates": torch.equal(dc["gates"], dg["gates"].cpu()),
         "w_mixed": torch.equal(dc["w_mixed"], dg["w_mixed"].cpu()),
+        "uplink_gates_from_the_card_rows": torch.equal(from_card_rows, ug),
         "comm_down": torch.equal(sc["comm_down"], sg["comm_down"].cpu()),
         "comm_up": torch.equal(sc["comm_up"], sg["comm_up"].cpu()),
         "adam_t": torch.equal(sc["adam_t"], sg["adam_t"].cpu()),
         "num_selected": float(mc["num_selected"]) == float(mg["num_selected"]),
     }
+    if policy_name != "psgf_topk":
+        same["uplink_gates"] = n_flips == 0
     if not all(same.values()):
         raise RuntimeError(f"card round != CPU round: {same}")
-    keep = E.bk_free(meta)               # attn/bk: see FL_PARITY_TOL
-    err = float((sg["w_global"].cpu() - sc["w_global"])[keep].abs().max())
+    keep = E.bk_free(meta) & ~flips.any(0)      # attn/bk: see FL_PARITY_TOL
+    diff = (sg["w_global"].cpu() - sc["w_global"]).abs()
+    err = float(diff[keep].max())
     if not err <= ROUND_TOL:
         raise RuntimeError(f"card vs CPU w_global max |err| {err} > {ROUND_TOL}")
-    return {"cluster": c, "clients": int(tr.shape[0]), "bitwise": same,
+    return {"policy": policy_name, "cluster": c, "clients": int(tr.shape[0]),
+            "bitwise": same,
             "comm_down": float(sc["comm_down"]), "comm_up": float(sc["comm_up"]),
             "w_global_max_abs_err": err,
+            "uplink_gate_flips": n_flips,
+            "elements_with_a_flip": int(flips.any(0).sum()),
+            "w_global_max_abs_err_at_flips": float(diff[flips.any(0)].max())
+            if n_flips else 0.0,
             "train_loss_cpu": float(mc["train_loss"]),
             "train_loss_card": float(mg["train_loss"])}
 
@@ -1296,7 +1381,7 @@ def drive_training(mix_ops, flash_ops) -> dict:
 
     # card against the port's own CPU run, smallest cluster
     t0 = time.perf_counter()
-    versus = card_vs_cpu_round(E, R, task, series, labels, model, grid,
+    versus = card_vs_cpu_round(E, R, task, series, labels, model, grid[0],
                                spec.seed)
     versus["seconds"] = time.perf_counter() - t0
 
@@ -1330,7 +1415,10 @@ def drive_training(mix_ops, flash_ops) -> dict:
 
 WHILE_A = dict(max_rounds=10, eval_every=4, patience=100)   # chunks 4, 4, 2
 WHILE_B = dict(max_rounds=48, eval_every=4, patience=1)     # the stop fires
-HOST_K, HOST_S, HOST_CHUNK, HOST_ROUNDS, HOST_EVAL = 2048, 256, 64, 4, 2
+# the nn5 cell of phases 7, 10, 15 and 16: 2 rounds, an evaluation after
+# each (cut from 4 rounds in chunks of 2 for the script's time): two
+# evaluations and a while run's chunk graph replayed twice, as before
+HOST_K, HOST_S, HOST_CHUNK, HOST_ROUNDS, HOST_EVAL = 2048, 256, 64, 2, 1
 DIST_PROCESSES = 2          # phase 10: processes sharing the card
 
 KERNEL_NAMES = {"flash_short": "flash_short_kernel",
@@ -3124,12 +3212,13 @@ def drive_distributed(mix_ops, flash_ops, host_digest) -> dict:
 
 # (arch, layers kept (None: all), batch, prompt tokens, tokens generated):
 # every width as published, depth cut to fit one 80 GB card (fp32 weights:
-# phi3.5-moe 5.2 GB a layer, deepseek-v2 15.9 GB a layer); internvl2's 256
+# phi3.5-moe 5.2 GB a layer, deepseek-v2 15.9 GB a layer) and, phi3.5-moe's
+# to 4 layers (8 fit), the script's 1,200 s beside phase 18; internvl2's 256
 # patches + 1,792 tokens make a 2,048-position prefill; deepseek-v2 also
 # serves one 4,096-token prompt, past the 2,048 threshold, through flash_mha
 ZOO_SERVE = (
     ("internvl2-2b", None, 4, 1792, 32),
-    ("phi3.5-moe-42b-a6.6b", 8, 4, 2048, 32),
+    ("phi3.5-moe-42b-a6.6b", 4, 4, 2048, 32),
     ("deepseek-v2-236b", 2, 2, 2048, 32),
     ("deepseek-v2-236b", 2, 1, 4096, 32),
 )
@@ -3387,7 +3476,7 @@ def serve_one(flash_ops, layers, arch, depth, batch, prompt, gen) -> dict:
 
 
 def drive_zoo_families(flash_ops, flash_ref) -> dict:
-    """Phase 11: ``serve`` for internvl2-2b (whole), phi3.5-moe-42b-a6.6b (8
+    """Phase 11: ``serve`` for internvl2-2b (whole), phi3.5-moe-42b-a6.6b (4
     of 32 layers) and deepseek-v2-236b (2 of 60 layers) at their published
     widths; flash at their prefill shapes; full-width block 0 and the
     reduced configs on the card against the CPU."""
@@ -3447,12 +3536,14 @@ XLSTM, SEAMLESS = "xlstm-125m", "seamless-m4t-large-v2"
 # device kernels a position and layer, host-bound (on the H100: a 4 x 512
 # prefill ~3.3 s, a training step ~5 ms a position and layer with remat), so
 # its prompt is 512 tokens, its profiled prefill 32, and its training
-# sequences 16 (PSGF) and 64 (train), not 64 and 512. Seamless encodes 2,048
-# source frames and prefills 2,048 target tokens.
+# sequences 16 (PSGF) and 64 (train), not 64 and 512; its trainers take 4
+# and 2 steps (3.6 and 6.2 s a step on the H100), which the script's
+# 1,200 s allow beside phase 18 (its loss falls over both). Seamless
+# encodes 2,048 source frames and prefills 2,048 target tokens.
 # serving: (arch, batch, prompt tokens, tokens generated, profiled prompt)
 LAST_SERVE = ((XLSTM, 4, 512, 32, 32), (SEAMLESS, 4, 2048, 32, 2048))
-XLSTM_PSGF = dict(pods=2, sync_interval=4, batch=8, seq=16, steps=8)
-XLSTM_TRAIN = dict(batch=4, seq=64, steps=4)
+XLSTM_PSGF = dict(pods=2, sync_interval=4, batch=8, seq=16, steps=4)
+XLSTM_TRAIN = dict(batch=4, seq=64, steps=2)
 # one pod: at ~23 bytes a parameter and pod (phase 9's qwen2-1.5b), two
 # pods of seamless's 1.63e9 would need ~75 GB. 8 steps, not 4: over 4
 # steps of the trainer's 1cycle the loss rises (12.95 -> 16.34 on the H100)
@@ -4320,39 +4411,64 @@ def check_peaks(card: dict, estimates: dict) -> dict:
     return out
 
 
-def drive_collectives() -> dict:
-    """Phase 14: (b), then (a), each in a fresh interpreter of this script
+def start_collectives_child(kind: str) -> tuple:
+    """Start ``--collectives-child KIND`` (``card`` or ``accounting``) in a
+    fresh interpreter of this script, its output into files of phase 14's
+    working directory (files, not pipes: a child that filled a pipe would
+    wait for this process to read it). Returns ``(process, stdout,
+    stderr)`` for :func:`finish_collectives_child`."""
+    workdir = os.path.join(ROOT, "build", "chip_smoke_collectives")
+    if kind == "accounting":                   # the first of the two
+        shutil.rmtree(workdir, ignore_errors=True)
+        os.makedirs(workdir)
+    files = [open(os.path.join(workdir, f"{kind}.{ext}"), "w+")
+             for ext in ("out", "err")]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--collectives-child",
+         kind, workdir], env=env, stdout=files[0], stderr=files[1], text=True)
+    return proc, *files
+
+
+def finish_collectives_child(kind: str, started: tuple) -> dict:
+    """Wait for a child of :func:`start_collectives_child` (killing it past
+    ``COLLECTIVES_TIMEOUT_S``), relay the end of its stderr; its report."""
+    proc, out, err = started
+    try:
+        proc.wait(timeout=COLLECTIVES_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    for line in stderr.splitlines()[-12:]:
+        log(f"  [{kind}] {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 14 {kind} child exited {proc.returncode}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def drive_collectives(accounting: tuple) -> dict:
+    """Phase 14: (b), started with phase 13 (``accounting``, from
+    :func:`start_collectives_child`: on the CPU, beside phase 13's runs on
+    the card), then (a), each in a fresh interpreter of this script
     (``--collectives-child``), so that neither process group meets another
-    one or phase 10's, and (a)'s times are taken alone; returns both reports and checks
-    (a): the sharded step's losses within SHARDED_LOSS_TOL of the plain
-    step's, the same tensor-core flash launches (two a layer and step, the
-    forward and its remat recompute), no collective bytes."""
+    one or phase 10's, and (a)'s times are taken alone; returns both
+    reports and checks (a): the sharded step's losses within
+    SHARDED_LOSS_TOL of the plain step's, the same tensor-core flash
+    launches (two a layer and step, the forward and its remat recompute),
+    no collective bytes."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
-    workdir = os.path.join(ROOT, "build", "chip_smoke_collectives")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    reports = {}
-    # one after the other: the card child's ms per step is measured with
-    # no CPU-heavy accounting beside it
-    for kind in ("accounting", "card"):
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--collectives-child",
-             kind, workdir], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-        try:
-            stdout, stderr = proc.communicate(timeout=COLLECTIVES_TIMEOUT_S)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for line in stderr.splitlines()[-12:]:
-            log(f"  [{kind}] {line}")
-        if proc.returncode != 0:
-            raise RuntimeError(f"phase 14 {kind} child exited {proc.returncode}")
-        reports[kind] = json.loads(stdout.strip().splitlines()[-1])
+    reports = {"accounting": finish_collectives_child("accounting", accounting)}
+    # then the card child, with no CPU-heavy accounting beside it
+    reports["card"] = finish_collectives_child(
+        "card", start_collectives_child("card"))
     card = reports["card"]
     plain, sharded = card["plain"], card["sharded"]
     cfg = get_config("qwen2-1.5b")
@@ -4975,28 +5091,44 @@ def drive_host_mesh(mix_ops, flash_ops, want) -> dict:
     shutil.copy(inputs, os.path.join(workdir, "inputs.npz"))
     blocks = [D.block_range(HOST_K, i, HYBRID_PROCESSES)
               for i in range(HYBRID_PROCESSES)]
+    # (d) starts first and runs beside (c): a group of its own (NCCL, its
+    # own rendezvous), its output into files (a full pipe would stall it)
     t1 = time.perf_counter()
-    hybrid = spawn_children(D, HYBRID_PROCESSES,
-                            ["--hybrid-child", workdir, "cuda:0"], workdir)
-    out["hybrid"] = {"spawn_s": time.perf_counter() - t1,
-                     "bitwise": check_hybrid(hybrid, want, blocks, "gloo"),
-                     "processes": hybrid}
+    smoke_files = [open(os.path.join(workdir, f"smoke.{ext}"), "w+")
+                   for ext in ("out", "err")]
+    smoke = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.distributed", "--smoke",
+         "--num-processes", "1", "--device", "cuda"], env=D.child_env(),
+        stdout=smoke_files[0], stderr=smoke_files[1], text=True)
+    try:
+        t2 = time.perf_counter()
+        hybrid = spawn_children(D, HYBRID_PROCESSES,
+                                ["--hybrid-child", workdir, "cuda:0"], workdir)
+        out["hybrid"] = {"spawn_s": time.perf_counter() - t2,
+                         "bitwise": check_hybrid(hybrid, want, blocks, "gloo"),
+                         "processes": hybrid}
+        smoke.wait(timeout=max(1.0, HOST_MESH_TIMEOUT_S
+                               - (time.perf_counter() - t1)))
+    finally:
+        if smoke.poll() is None:
+            smoke.kill()
+            smoke.wait()
     for r in hybrid:
         for run in r["runs"].values():
             run.pop("digest")
-
-    t1 = time.perf_counter()
-    smoke = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.distributed", "--smoke",
-         "--num-processes", "1", "--device", "cuda"], env=D.child_env(),
-        capture_output=True, text=True, timeout=HOST_MESH_TIMEOUT_S)
+    for f in smoke_files:
+        f.seek(0)
+    smoke_out, smoke_err = (f.read() for f in smoke_files)
+    for f in smoke_files:
+        f.close()
     if smoke.returncode != 0:
-        log(f"--- smoke stderr ---\n{smoke.stderr[-6000:]}")
+        log(f"--- smoke stderr ---\n{smoke_err[-6000:]}")
         raise RuntimeError(f"phase 16 (d): the smoke exited {smoke.returncode}")
-    summary = json.loads(smoke.stdout.strip().splitlines()[-2])
+    summary = json.loads(smoke_out.strip().splitlines()[-2])
     if summary["backend"] != "nccl" or not summary["bitwise_to_one_process"]:
         raise RuntimeError(f"phase 16 (d): {summary}")
-    out["smoke"] = {**summary, "s": time.perf_counter() - t1}
+    out["smoke"] = {**summary, "s": time.perf_counter() - t1,
+                    "beside": "(c)"}
 
     gpus = torch.cuda.device_count()
     if gpus >= HOST_MESH_GPUS:
@@ -5140,6 +5272,498 @@ def drive_float32_prefills(flash_ops, ssm_ops) -> dict:
     return {"runs": runs, "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the paper's comparison on the card
+# ---------------------------------------------------------------------------
+
+# (a) Table I: the reference's centralized loop (benchmarks/table1.py's
+# train_eval, written over the port's functions) for its five forecasters
+# at the paper's widths (d_model 128, 16 heads, d_ff 256), flash attention
+# on, on its two datasets. Cut to horizon 96 (the reference's full mode also
+# runs 192, its quick mode 24) and to 200 steps a run (its quick count; full
+# 1,500). On the card the step is captured once as a CUDA graph after one
+# eager step and replayed, as table1.py jits it.
+TABLE1_DATASETS = (("ett-like", "ett_like", 2), ("weather-like", "weather_like", 3))
+TABLE1_MODELS = (("logtst", "logtst_config", 128),
+                 ("patchtst64", "patchtst_config", 512),
+                 ("patchtst42", "patchtst_config", 336),
+                 ("mlpformer", "mlpformer_config", 128),
+                 ("idformer", "idformer_config", 128))
+TABLE1_HORIZON = 96
+TABLE1_STEPS = 200
+TABLE1_BATCH = 128
+TABLE1_LR = 1e-3
+# each forecaster's params at horizon 96, from the JAX package's num_params
+TABLE1_PARAMS = {"logtst/15": 453_858, "patchtst/63": 1_181_922,
+                 "patchtst/41": 908_770, "mlpformer": 388_530,
+                 "idformer": 387_810}
+# the first steps on the card against the same steps on the CPU, from the
+# same params and batches: cuBLAS and the CPU sum the matmuls in other
+# orders and the flash kernel's online softmax rounds otherwise than the
+# dense one (ulps a step), and one_cycle's ramp keeps lr at ~4e-5 there, so
+# Adam's sign-like first steps cannot move a loss by 1e-4 relative
+TABLE1_CPU_STEPS = 5
+TABLE1_CPU_RTOL = 1e-4
+
+# (b) Tables II-III: benchmarks/table23.py's quick grid, every entry with the
+# fused psgf_mix downlink, through run_experiment on the full nn5 and ev
+# tasks (pooled FL over 64 / 58 stations) with the while driver, at its
+# settings, uncut: max_rounds 120, patience 8, eval every 20. Patience
+# stopped nn5's runs at 80-100 rounds and ev's at 40-80 on the H100
+# (PERF.md, the paper's comparison); the phase holds that it stops at least
+# one row of each task before max_rounds
+GRID = (("online", {}),
+        ("pso", {"share_ratio": 0.5}), ("pso", {"share_ratio": 0.3}),
+        ("psgf", {"share_ratio": 0.5, "forward_ratio": 0.2}),
+        ("psgf", {"share_ratio": 0.3, "forward_ratio": 0.2}),
+        ("psgf_topk", {"share_ratio": 0.3, "forward_ratio": 0.2}))
+GRID_SPEC = dict(select_ratio=0.5, local_steps=4, batch_size=32,
+                 max_rounds=120, patience=8, eval_every=20, driver="while")
+
+
+def table1_train(F, pt, O, ops, cfg, params, x, y, batches, device):
+    """Adam with ``one_cycle(TABLE1_LR, TABLE1_STEPS)`` over ``batches`` (a
+    ``(steps, batch)`` index array into ``x`` / ``y``) on ``device``,
+    written into ``params``. On the CPU every step is eager. On the card
+    the first step runs eagerly on a side stream (the capture's warm-up)
+    and the step is captured once as a CUDA graph and replayed for the
+    rest, as table1.py jits it. Returns each step's loss and the flash
+    calls by route that the capture counted (each replay launches them
+    again; the wrappers count only the capture)."""
+    opt = O.Adam(lr=O.one_cycle(TABLE1_LR, TABLE1_STEPS))
+    state = opt.init(params)
+    xs, ys, order = (torch.from_numpy(a).to(device) for a in (x, y, batches))
+    idx = order[0].clone()
+
+    def step():
+        (loss, _), grads = pt.value_and_grad(
+            lambda p: (F.mse_loss(cfg, p, xs[idx], ys[idx]), {}), params)
+        opt.update_(params, grads, state)
+        return loss
+
+    if device == "cpu":
+        losses = []
+        for row in order:
+            idx.copy_(row)
+            losses.append(step())
+        return torch.stack(losses).tolist(), {}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        losses = [step()]
+    torch.cuda.current_stream().wait_stream(side)
+    graph, before = torch.cuda.CUDAGraph(), dict(ops.ROUTE_LAUNCHES)
+    with torch.cuda.graph(graph):
+        loss = step()
+    captured = {r: n - before[r] for r, n in ops.ROUTE_LAUNCHES.items()}
+    for row in order[1:]:
+        idx.copy_(row)
+        graph.replay()
+        losses.append(loss.clone())
+    return torch.stack(losses).tolist(), captured
+
+
+def flash_backward_profile(ops, ref) -> dict:
+    """One training step of Table I's PatchTST/63 (ett-like's first
+    ``TABLE1_BATCH`` windows, weights from ``torch.Generator`` seeded
+    ``SEED``) under ``torch.profiler``, the flash backward (the plain
+    version's gradient in torch ops, from autograd's thread) in its own
+    span, and that backward alone at the step's shape, timed."""
+    from torch.profiler import record_function
+
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.core import forecast as F
+    from repro_torch.data.synthetic import ett_like
+    from repro_torch.data.windowing import table1_windows
+
+    cfg = F.patchtst_config(look_back=512, horizon=TABLE1_HORIZON,
+                            use_flash_attn=True)
+    params = F.init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    x, y = table1_windows(ett_like(seed=2), cfg.look_back, TABLE1_HORIZON)
+
+    backward = ops.flash_attention_ref_backward
+
+    def spanned(*args, **kw):
+        with record_function("flash.backward"):
+            return backward(*args, **kw)
+
+    xb, yb = (torch.from_numpy(a[:TABLE1_BATCH]).cuda() for a in (x, y))
+    step = lambda: pt.value_and_grad(  # noqa: E731
+        lambda p: (F.mse_loss(cfg, p, xb, yb), {}), params)
+    with patched(ops, "flash_attention_ref_backward", spanned):
+        step()
+        prof = profile_spans(step, ("flash.", "train."))
+    hd = cfg.d_model // cfg.num_heads
+    q, k, v = attention_inputs(torch.Generator().manual_seed(SEED), TABLE1_BATCH,
+                               cfg.num_tokens, cfg.num_tokens, cfg.num_heads,
+                               cfg.num_heads, hd, torch.float32)
+    do = torch.randn_like(q)
+    alone = timed_ms(lambda: ref.flash_attention_ref_backward(q, k, v, do,
+                                                              causal=False))
+    return {"model": cfg.name, "step": prof, "backward_alone_ms": alone,
+            "backward_calls_per_step": cfg.mixers.count("attn"),
+            "shape": [TABLE1_BATCH, cfg.num_tokens, cfg.num_heads, hd]}
+
+
+def table1_run(F, pt, O, ops, mix_ops, dname, series, mname, cfg_fn,
+               look_back) -> dict:
+    """One Table I row: ``mname`` trained ``TABLE1_STEPS`` steps on the card
+    from random weights (``torch.Generator`` seeded ``SEED``) and evaluated
+    on the last 20% of the windows; the first ``TABLE1_CPU_STEPS`` steps
+    again on the CPU from the same params and batches."""
+    from repro_torch.data.windowing import table1_windows
+
+    cfg = getattr(F, cfg_fn)(look_back=look_back, horizon=TABLE1_HORIZON,
+                             use_flash_attn=True)
+    if (cfg.d_model, cfg.num_heads, cfg.d_ff) != (128, 16, 256):
+        raise RuntimeError(f"{cfg.name} is not at the paper's widths")
+    params_n = F.num_params(cfg)
+    if params_n != TABLE1_PARAMS[cfg.name]:
+        raise RuntimeError(f"{cfg.name}: {params_n} params, want "
+                           f"{TABLE1_PARAMS[cfg.name]}")
+    x, y = table1_windows(series, look_back, TABLE1_HORIZON)
+    n_tr = int(0.8 * len(x))
+    rng = np.random.default_rng(0)
+    batches = np.stack([rng.integers(0, n_tr, size=TABLE1_BATCH)
+                        for _ in range(TABLE1_STEPS)])
+    params = F.init_params(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    start = pt.tree_map(lambda t: t.cpu(), params)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                  # every count, just before
+    mix_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    losses, captured = table1_train(F, pt, O, ops, cfg, params, x[:n_tr],
+                                    y[:n_tr], batches, "cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        err = (F.forward(cfg, params, torch.from_numpy(x[n_tr:]).cuda())
+               - torch.from_numpy(y[n_tr:]).cuda())
+        mse, mae = float(torch.mean(err * err)), float(torch.mean(err.abs()))
+    eval_s = time.perf_counter() - t0
+    replays = TABLE1_STEPS - 1                 # ... and just after, the
+    routes = {r: n + captured[r] * (replays - 1)   # capture counted once
+              for r, n in ops.ROUTE_LAUNCHES.items()}
+    flash = ops.LAUNCHES + sum(captured.values()) * (replays - 1)
+    mix = mix_ops.LAUNCHES
+    del err
+    attn = cfg.mixers.count("attn")
+    want = {"short": (TABLE1_STEPS + 1) * attn, "scalar": 0, "tensor_core": 0}
+    if routes != want or flash != want["short"]:
+        raise RuntimeError(f"{dname} {cfg.name}: flash launches {routes}, "
+                           f"want {want}")
+    t0 = time.perf_counter()
+    cpu_losses, _ = table1_train(F, pt, O, ops, cfg, start, x[:n_tr],
+                                 y[:n_tr], batches[:TABLE1_CPU_STEPS], "cpu")
+    cpu_s = time.perf_counter() - t0
+    card = losses[:TABLE1_CPU_STEPS]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu_losses))
+    if not loss_rel <= TABLE1_CPU_RTOL:
+        raise RuntimeError(f"{dname} {cfg.name}: first losses card {card} vs "
+                           f"CPU {cpu_losses} ({loss_rel} relative)")
+    if not (math.isfinite(mse) and math.isfinite(mae)
+            and all(map(math.isfinite, losses))):
+        raise RuntimeError(f"{dname} {cfg.name}: mse {mse}, mae {mae}")
+    row = {"dataset": dname, "horizon": TABLE1_HORIZON, "model": cfg.name,
+           "key": mname, "params": params_n, "mse": mse, "mae": mae,
+           "train_s": train_s, "eval_s": eval_s, "cpu_steps_s": cpu_s,
+           "steps": TABLE1_STEPS, "graph_replays": replays,
+           "captured_flash_calls": captured["short"],
+           "train_rows": n_tr, "test_rows": len(x) - n_tr,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "first_losses_card": card, "first_losses_cpu": cpu_losses,
+           "first_losses_max_rel_err": loss_rel,
+           "flash_route_launches": routes, "psgf_mix_launches": mix}
+    log(f"table1 {dname} {cfg.name}: params {params_n}, mse {mse:.4f}, "
+        f"mae {mae:.4f}, train {train_s:.2f} s, eval {eval_s:.2f} s, flash "
+        f"launches {routes}, psgf_mix launches {mix}, first {TABLE1_CPU_STEPS} "
+        f"losses within {loss_rel:.2e} of the CPU")
+    return row
+
+
+def drive_table1(ops, mix_ops) -> dict:
+    """Phase 18 (a): every forecaster of ``TABLE1_MODELS`` on each dataset
+    of ``TABLE1_DATASETS`` through ``table1_run``, then table1.py's claim
+    (LoGTST's mse beside PatchTST's at their parameter ratio) as a
+    report."""
+    from repro_torch.common import pytree_utils as pt
+    from repro_torch.core import forecast as F
+    from repro_torch import optim as O
+    from repro_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    rows, claim = [], {}
+    for dname, gen, seed in TABLE1_DATASETS:
+        series = getattr(synthetic, gen)(seed=seed)
+        for mname, cfg_fn, look_back in TABLE1_MODELS:
+            free_device_memory()
+            rows.append(table1_run(F, pt, O, ops, mix_ops, dname, series,
+                                   mname, cfg_fn, look_back))
+        by = {r["key"]: r for r in rows if r["dataset"] == dname}
+        lo = by["logtst"]
+        claim[dname] = {
+            key: {"patchtst_mse": by[key]["mse"], "logtst_mse": lo["mse"],
+                  "mse_difference": lo["mse"] - by[key]["mse"],
+                  "param_ratio": lo["params"] / by[key]["params"]}
+            for key in ("patchtst64", "patchtst42")}
+        for key, c in claim[dname].items():
+            log(f"table1 claim {dname}: logtst/15 mse {c['logtst_mse']:.4f} "
+                f"beside {by[key]['model']} {c['patchtst_mse']:.4f} "
+                f"({c['mse_difference']:+.4f}) at {c['param_ratio']:.1%} of "
+                f"its params")
+    return {"rows": rows, "claim": claim,
+            "flash_launches": sum(r["flash_route_launches"]["short"] for r in rows),
+            "seconds": time.perf_counter() - t0}
+
+
+def pareto(rows):
+    """Fig. 6's front (benchmarks/fig6.py's rule): the rows that no other
+    row beats in rmse at no more comm, by comm."""
+    return sorted((r for r in rows if not any(
+        o is not r and o["comm_params"] <= r["comm_params"] and o["rmse"] < r["rmse"]
+        for o in rows)), key=lambda r: r["comm_params"])
+
+
+@contextlib.contextmanager
+def recording_replays(E, log_):
+    """Append, at the end of each while run's ``launch``, its graphs'
+    replays keyed by ``id(graph)`` to ``log_``."""
+    launch = E._WhileRun.launch
+
+    def recorded(self):
+        launch(self)
+        log_.append({id(g): self.replays[n] for n, g in self.graphs.items()})
+
+    E._WhileRun.launch = recorded
+    try:
+        yield log_
+    finally:
+        E._WhileRun.launch = launch
+
+
+def drive_policy_grid(ops, mix_ops) -> dict:
+    """Phase 18 (b): ``GRID`` on the full ``nn5`` and ``ev`` tasks through
+    ``run_experiment(driver="while")`` at full width, flash on; per row the
+    kernels' launches (the calls outside the graphs, plus each graph's
+    captured calls times its replays); patience must stop a row of each
+    task before ``max_rounds``; Fig. 6's front per task."""
+    from repro_torch.core.fl import engine as E
+    from repro_torch.core.tasks import (ExperimentSpec, get_task,
+                                        run_experiment, task_forecaster)
+
+    def counts():
+        return {"psgf_mix_batch": mix_ops.LAUNCHES, "flash": ops.LAUNCHES,
+                **{f"flash_{r}": n for r, n in ops.ROUTE_LAUNCHES.items()}}
+
+    t0 = time.perf_counter()
+    out = {"grid": [[p, o] for p, o in GRID], "tasks": {}}
+    grid = tuple((p, {**o, "use_pallas_mix": True}) for p, o in GRID)
+    max_rounds = GRID_SPEC["max_rounds"]
+    for which in ("nn5", "ev"):
+        task = get_task(which, quick=False)
+        model = task_forecaster(task, "logtst", quick=False, use_flash_attn=True)
+        spec = ExperimentSpec(task=task, model=model, grid=grid, **GRID_SPEC)
+        rows, replays = [], []
+        free_device_memory()
+        torch.cuda.synchronize()
+        mix_ops.LAUNCHES = 0                  # every count, just before
+        ops.reset_launch_counts()
+        seen = [counts(), 0, 0]               # counts, captures, runs read
+
+        with counting_captures(E, counts) as captured, \
+                recording_replays(E, replays):
+            def on_row(row):
+                now = counts()
+                new = captured[seen[1]:]
+                rep = replays[seen[2]] if seen[2] < len(replays) else {}
+                launches = {k: now[k] - seen[0][k] + sum(
+                    c[k] * (rep.get(g, 1) - 1) for g, c in new) for k in now}
+                seen[:] = [now, len(captured), len(replays)]
+                row = dict(row, launches=launches,
+                           graphs=[{"replays": rep.get(g), "captured_calls": c}
+                                   for g, c in new])
+                rows.append(row)
+                log(f"grid {which} {row['policy']}: comm {row['comm_params']:.4e}, "
+                    f"rmse {row['rmse']:.4f}, rounds {row['rounds']}, train "
+                    f"{row['train_s']} s, launches psgf_mix "
+                    f"{launches['psgf_mix_batch']} flash {launches['flash']}")
+
+            t1 = time.perf_counter()
+            res = run_experiment(spec, on_row=on_row, device="cuda")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+        if len(res["rows"]) != len(GRID) or len(rows) != len(GRID):
+            raise RuntimeError(f"grid {which}: {len(res['rows'])} rows")
+        for row in rows:
+            n = row["launches"]
+            if not (n["psgf_mix_batch"] > 0 and n["flash"] > 0
+                    and n["flash_short"] == n["flash"]
+                    and math.isfinite(row["rmse"]) and row["comm_params"] > 0):
+                raise RuntimeError(f"grid {which} row {row}")
+        stopped = [r["policy"] for r in rows if r["rounds"] < max_rounds]
+        if not stopped:
+            raise RuntimeError(f"grid {which}: patience stopped no row before "
+                               f"{max_rounds} rounds: "
+                               f"{[r['rounds'] for r in rows]}")
+        front = pareto(rows)
+        log(f"grid {which} pareto front (comm, rmse, rounds): "
+            + ", ".join(f"{r['policy']} {r['comm_params']:.3e} {r['rmse']:.4f} "
+                        f"{r['rounds']}r" for r in front))
+        out["tasks"][which] = {
+            "stations": task.num_clients, "look_back": task.look_back,
+            "horizon": task.horizon, "params": model.num_params(),
+            "max_rounds": max_rounds, "stopped_by_patience": stopped,
+            "rows": rows,
+            "pareto": [r["policy"] for r in front], "seconds": run_s,
+            "launches": {k: sum(r["launches"][k] for r in rows)
+                         for k in rows[0]["launches"]}}
+    out["spec"] = GRID_SPEC
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def policy_rounds_card_vs_cpu() -> dict:
+    """Phase 18 (b'): for each policy of ``GRID`` (its first entry, the
+    fused downlink on), one round of phase 5's smallest cluster (10
+    stations) on the card against the same round on the CPU
+    (``card_vs_cpu_round``); then psgf_topk's masks (``masks.topk_mask``: a
+    stable descending sort, ties to the lowest index) from the same tied
+    and untied scores on both."""
+    from repro_torch import random as R
+    from repro_torch.core.fl import engine as E
+    from repro_torch.core.fl import masks as M
+    from repro_torch.core.tasks import get_task, task_forecaster
+
+    t0 = time.perf_counter()
+    task = get_task("ev", quick=False, clusters=3, num_days=420,
+                    min_cluster_clients=4)
+    model = task_forecaster(task, "logtst", quick=False, use_flash_attn=True)
+    series = task.series()
+    labels = task.cluster_labels(series, device="cuda")
+    firsts = {}
+    for policy, overrides in GRID:
+        firsts.setdefault(policy, {**overrides, "use_pallas_mix": True})
+    rounds = {}
+    for policy, overrides in firsts.items():
+        rounds[policy] = card_vs_cpu_round(E, R, task, series, labels, model,
+                                           (policy, overrides), SEED)
+        log(f"phase 18 round {policy} card vs CPU: bitwise "
+            f"{all(rounds[policy]['bitwise'].values())}, w_global max |err| "
+            f"{rounds[policy]['w_global_max_abs_err']:.3e}, uplink gate flips "
+            f"{rounds[policy]['uplink_gate_flips']}")
+    gen = torch.Generator().manual_seed(SEED)
+    D = MIX_D
+    scores = {"tied": torch.randint(0, 64, (27, D), generator=gen).float(),
+              "untied": torch.rand(27, D, generator=gen),
+              "all_equal": torch.zeros(27, D)}
+    topk = {}
+    for name, s in scores.items():
+        for ratio in (0.3, 0.2):
+            k = max(1, int(D * ratio))
+            same = torch.equal(M.topk_mask(s, k), M.topk_mask(s.cuda(), k).cpu())
+            topk[f"{name}_{ratio}"] = same
+    if not all(topk.values()):
+        raise RuntimeError(f"psgf_topk masks card vs CPU: {topk}")
+    return {"task": "ev full, 3 DTW clusters (phase 5's)", "rounds": rounds,
+            "topk_mask_bitwise": topk, "seconds": time.perf_counter() - t0}
+
+
+PAPER_TIMEOUT_S = 600
+
+
+def host_probe() -> dict:
+    """What an eager step's host time depends on in this process: the
+    median microseconds of one small eager op on the card (5 x 2,000
+    ``add_``), live Python objects, threads, torch's CPU threads and the
+    torch-function and dispatch modes, the profiler and sync debug mode."""
+    import threading
+
+    from torch.overrides import _get_current_function_mode_stack
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    t = torch.zeros(16, device="cuda")
+    per = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            t.add_(1.0)
+        torch.cuda.synchronize()
+        per.append(1e6 * (time.perf_counter() - t0) / 2000)
+    return {"us_per_eager_op": statistics.median(per),
+            "python_objects": len(gc.get_objects()),
+            "gc_counts": list(gc.get_count()),
+            "threads": threading.active_count(),
+            "torch_threads": torch.get_num_threads(),
+            "function_modes": len(_get_current_function_mode_stack()),
+            "dispatch_modes": len(_get_current_dispatch_mode_stack()),
+            "profiler_enabled": bool(torch.autograd.profiler._is_profiler_enabled),
+            "sync_debug_mode": torch.cuda.get_sync_debug_mode(),
+            "grad_enabled": torch.is_grad_enabled()}
+
+
+def paper_child(workdir: str) -> None:
+    """Phase 18 in a fresh interpreter of this script (``chip_smoke.py
+    --paper-child DIR``): Table I (``drive_table1``), the per-policy rounds
+    against the CPU (``policy_rounds_card_vs_cpu``), the grid
+    (``drive_policy_grid``) and last the profiled PatchTST/63 step
+    (``flash_backward_profile``: the profiler may leave the process's
+    launches slower), one after the other, each resetting and reading the
+    kernels' counts around its own runs, with ``host_probe`` before each
+    stage and at the end; its lines go to this script's output, its
+    report to ``DIR/report.json``."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.psgf_mix import ops as mix_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # as phase 1 pins them
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    probes = {"start": host_probe()}
+    out = {"host_probe": probes, "table1": drive_table1(ops, mix_ops)}
+    log(f"phase 18 (a): {out['table1']['seconds']:.1f} s")
+    probes["after_table1"] = host_probe()
+    out["policy_rounds"] = policy_rounds_card_vs_cpu()
+    probes["after_rounds"] = host_probe()
+    out["policy_grid"] = drive_policy_grid(ops, mix_ops)
+    log(f"phase 18 (b): {out['policy_grid']['seconds']:.1f} s")
+    probes["after_grid"] = host_probe()
+    free_device_memory()
+    out["profile_step"] = flash_backward_profile(ops, ref)
+    probes["after_profile"] = host_probe()
+    log("phase 18 eager op host us: " + ", ".join(
+        f"{k} {v['us_per_eager_op']:.2f}" for k, v in probes.items()))
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, "report.json"), "w") as f:
+        json.dump(out, f)
+
+
+def drive_paper_comparison() -> dict:
+    """Phase 18 in one fresh interpreter of this script (``--paper-child``,
+    killed past ``PAPER_TIMEOUT_S``), alone on the card: in this
+    long-lived process, after the earlier phases, Table I's eager steps
+    took 1.5-1.8x as long on the H100 (PERF.md), so ``host_probe`` is
+    taken here and there. Returns its report."""
+    t0 = time.perf_counter()
+    probe = host_probe()
+    log(f"phase 18 eager op host us in this process: "
+        f"{probe['us_per_eager_op']:.2f}")
+    workdir = os.path.join(ROOT, "build", "chip_smoke_paper")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--paper-child", workdir], env=env,
+                          timeout=PAPER_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 18 child exited {proc.returncode}")
+    with open(os.path.join(workdir, "report.json")) as f:
+        out = json.load(f)
+    return {"card": card_info(), "host_probe_here": probe, **out,
+            "child_seconds": out["seconds"],
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -5152,6 +5776,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--hybrid-child"]:
         print(json.dumps(hybrid_child(sys.argv[2], sys.argv[3])))
+        return 0
+    if sys.argv[1:2] == ["--paper-child"]:              # phase 18's child
+        paper_child(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--collectives-child"]:        # phase 14's children
         kind = sys.argv[2]
@@ -5174,11 +5801,17 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ref as ssm_ref
 
     # 1. card
+    started = time.perf_counter()
+
+    def ended(phase: int):
+        log(f"phase {phase} ended at {time.perf_counter() - started:.1f} s")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(card_info())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    ended(1)
 
     # 2. build
     t0 = time.perf_counter()
@@ -5193,6 +5826,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     tc_ptxas = tensor_core_ptxas(_build)
     gen_ptxas = general_ptxas(_build)
+    ended(2)
 
     # 3. kernels against their plain versions
     record = check_flash_attention(ops, ref, FLASH_ATTN_TOL)
@@ -5201,12 +5835,14 @@ def main() -> int:
         [record["max_abs_err"]] + [e for n, e in train_errs.items()
                                    if not n.startswith("vmap_grad")])
     mix_record = check_psgf_mix(mix_ops, mix_ref)
+    ended(3)
 
     # 4. the serving path
     serving = drive_serving(ops)
     serving_routes = serving["flash_route_launches"]
     record["launches"] = serving["flash_attention_launches"]
     log(json.dumps({"serving": serving}))
+    ended(4)
 
     # 5. the training path
     training = drive_training(mix_ops, ops)
@@ -5214,6 +5850,7 @@ def main() -> int:
     mix_record["k1_psgf_mix"]["launches"] = training["launches"]["psgf_mix"]
     record["launches_training"] = training["launches"]["flash_attention"]
     log(json.dumps({"training": training}))
+    ended(5)
 
     # 6. hymba-1.5b hybrid serving
     ssm_record = check_ssm_scan(ssm_ops, ssm_ref)
@@ -5222,6 +5859,7 @@ def main() -> int:
     ssm_record["launches"] = hybrid["launches_prefill"]["ssm_scan"]
     record["hybrid_prefill"]["launches"] = hybrid["launches_prefill"]["flash_attention"]
     log(json.dumps({"hybrid_serving": hybrid}))
+    ended(6)
 
     # 7. the while and host FL drivers
     drivers = drive_training_drivers(mix_ops, ops)
@@ -5232,12 +5870,14 @@ def main() -> int:
     record["launches_host"] = on_host["flash_short"]
     mix_record["launches_while_run_B"] = on_while["psgf_mix_batch"]
     mix_record["launches_host"] = on_host["psgf_mix_batch"]
+    ended(7)
 
     # 8. the flywheel behind the gateway
     flywheel = drive_flywheel(mix_ops, ops)
     log(json.dumps({"flywheel": flywheel}))
     record["launches_flywheel"] = flywheel["launches"]["flash_attention"]
     mix_record["launches_flywheel"] = flywheel["launches"]["psgf_mix_batch"]
+    ended(8)
 
     # 9. zoo training: qwen2-1.5b with PSGF-DP, hymba's ssm_scan gradient
     zoo = drive_zoo_training(ops, ref, ssm_ops, ssm_ref)
@@ -5245,6 +5885,7 @@ def main() -> int:
     record["launches_zoo_training"] = zoo["launches"]["flash_attention"]
     ssm_record["launches_zoo_training"] = zoo["launches"]["ssm_scan"]
     ssm_record["training_grads"] = zoo["ssm_scan_training_grads"]
+    ended(9)
 
     # 10. PSGF-Fed across two processes on this card
     torch.cuda.empty_cache()
@@ -5256,12 +5897,14 @@ def main() -> int:
         run: n["flash_short"] for run, n in distributed["launches"].items()}
     mix_record["launches_distributed"] = {
         run: n["psgf_mix_batch"] for run, n in distributed["launches"].items()}
+    ended(10)
 
     # 11. the zoo's vlm and moe families at full width
     free_device_memory()
     zoo_families = drive_zoo_families(ops, ref)
     log(json.dumps({"zoo_families": zoo_families}))
     record["launches_zoo_families"] = zoo_families["flash_launches_prefill"]
+    ended(11)
 
     # 12. the zoo's last two families, xlstm-125m and seamless-m4t-large-v2
     free_device_memory()
@@ -5269,20 +5912,30 @@ def main() -> int:
     log(json.dumps({"zoo_last_families": last}))
     record["launches_zoo_last_families"] = last["flash_launches_prefill"]
     record["launches_zoo_last_families_training"] = last["flash_launches_training"]
+    ended(12)
 
-    # 13. card training of the moe and vlm families
+    # 13. card training of the moe and vlm families, phase 14's CPU-only
+    # accounting child running beside it
     free_device_memory()
-    moe_vlm = drive_moe_vlm_training(ops, ref, ssm_ops)
+    accounting = start_collectives_child("accounting")
+    try:
+        moe_vlm = drive_moe_vlm_training(ops, ref, ssm_ops)
+    except BaseException:
+        accounting[0].kill()
+        accounting[0].wait()
+        raise
     log(json.dumps({"zoo_moe_vlm_training": moe_vlm}))
     record["launches_zoo_moe_vlm_training"] = moe_vlm["flash_launches_training"]
+    ended(13)
 
     # 14. the sharded steps' collectives: the (1, 1) mesh on the card, the
     # production meshes' accounting on the CPU
     free_device_memory()
-    collectives = drive_collectives()
+    collectives = drive_collectives(accounting)
     log(json.dumps({"collectives": collectives}))
     log(f"phase 14: {collectives['seconds']:.1f} s")
     record["launches_zoo_sharded_training"] = collectives["flash_launches"]
+    ended(14)
 
     # 15. a local mesh: the client axis and serving's batch axis over shards
     # of this process
@@ -5302,6 +5955,7 @@ def main() -> int:
          **{d: r["fl"][d]["warm"]["launches"]["psgf_mix_batch"]
             for d in ("scan", "while")}}
         for r in local["runs"]]
+    ended(15)
 
     # 16. one process a GPU: the zoo's train and serve on the host mesh of
     # a one-rank NCCL group, the FL client mesh across two processes with
@@ -5315,6 +5969,7 @@ def main() -> int:
         d: n["flash_short"] for d, n in host_mesh["launches"]["hybrid"].items()}
     mix_record["launches_hybrid_mesh"] = {
         d: n["psgf_mix_batch"] for d, n in host_mesh["launches"]["hybrid"].items()}
+    ended(16)
 
     # 17. the zoo's float32 prefills at full width through the general
     # flash route
@@ -5324,6 +5979,17 @@ def main() -> int:
     log(f"phase 17: {fp32['seconds']:.1f} s")
     fp32_launches = {r["model"]: r["flash"]["flash_route_launches"]["scalar"]
                      for r in fp32["runs"]}
+    ended(17)
+
+    # 18. the paper's comparison: Table I's forecasters and Tables II-III's
+    # policy grid, in a child process
+    free_device_memory()
+    paper = drive_paper_comparison()
+    log(json.dumps({"paper_comparison": paper}))
+    log(f"phase 18: {paper['seconds']:.1f} s")
+    ended(18)
+    grid_launches = {which: t["launches"]
+                     for which, t in paper["policy_grid"]["tasks"].items()}
 
     # flash attention's record is the serving path's (the short route); the
     # scalar kernel's numbers are from the same inputs with its route forced,
@@ -5341,6 +6007,9 @@ def main() -> int:
                   "launches_distributed": record["launches_distributed"],
                   "launches_local_mesh": record["launches_local_mesh"],
                   "launches_hybrid_mesh": record["launches_hybrid_mesh"],
+                  "launches_table1": paper["table1"]["flash_launches"],
+                  "launches_policy_grid": {w: n["flash_short"]
+                                           for w, n in grid_launches.items()},
                   "ms": record["ms"],
                   "ms_training_shape": record["training_shape"]["ms"]},
         "scalar": {"source": "src/repro_torch/csrc/flash_attention.cu",
@@ -5398,6 +6067,8 @@ def main() -> int:
         "calls": general,
         "ptxas": gen_ptxas,
     }
+    mix_record["launches_policy_grid"] = {w: n["psgf_mix_batch"]
+                                          for w, n in grid_launches.items()}
     k1_record = mix_record.pop("k1_psgf_mix")
     log(json.dumps({"kernels": [record, mix_record, k1_record, ssm_record,
                                 general_record]}))

@@ -148,6 +148,18 @@ def tree_unflatten_from_vector(vec: torch.Tensor, meta: TreeVectorMeta):
                       in zip(meta.paths, meta.shapes, parts)])
 
 
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
 def tree_lerp(global_tree, local_tree, gate_tree):
     """Per-leaf masked mix: ``gate * global + (1 - gate) * local`` (paper
     eqs. 4/6)."""

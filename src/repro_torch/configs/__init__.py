@@ -46,3 +46,7 @@ def get_config(arch_id: str):
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -71,6 +71,11 @@ _REGISTRY: Dict[str, Callable[..., forecast.ForecastConfig]] = {
 }
 
 
+def register_forecaster(name: str, config_fn: Callable[..., forecast.ForecastConfig]):
+    """Add an architecture to the registry (e.g. a custom mixer stack)."""
+    _REGISTRY[name] = config_fn
+
+
 def forecaster_names():
     return sorted(_REGISTRY)
 

@@ -119,6 +119,11 @@ def task_names():
     return sorted(_TASKS)
 
 
+def register_task(name: str, quick: ForecastTask, full: ForecastTask):
+    """Add a workload's ``quick`` and ``full`` presets under ``name``."""
+    _TASKS[name] = {"quick": quick, "full": full}
+
+
 def get_task(name: str, quick: bool = True, **overrides) -> ForecastTask:
     """Resolve a task preset, optionally overriding any field."""
     if name not in _TASKS:

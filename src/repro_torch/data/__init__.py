@@ -15,5 +15,4 @@ from repro_torch.data.windowing import (
     series_norm_stats,
     window_split_counts,
 )
-
-# DTW clustering (repro.data.clustering) lands with the training slice.
+from repro_torch.data.clustering import dtw_distance_matrix, kmedoids

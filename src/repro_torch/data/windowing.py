@@ -48,6 +48,22 @@ def make_windows(series: np.ndarray, look_back: int, horizon: int) -> np.ndarray
     return series[:, idx]  # (K, n, L+T)
 
 
+def table1_windows(series: np.ndarray, look_back: int, horizon: int,
+                   stride: int = 7):
+    """The centralized comparison's windows (``benchmarks/table1.py``'s
+    ``_windows``, which the reference package does not hold): each channel
+    of the ``(C, T)`` series z-normalised over its whole length, windowed at
+    ``stride``, channel-independent, as ``(n, look_back)`` float32 inputs
+    and ``(n, horizon)`` targets, channel by channel."""
+    mu = series.mean(1, keepdims=True)
+    sd = series.std(1, keepdims=True) + 1e-6
+    z = (series - mu) / sd
+    n = series.shape[1] - look_back - horizon + 1
+    idx = np.arange(look_back + horizon)[None, :] + np.arange(0, n, stride)[:, None]
+    w = z[:, idx].reshape(-1, look_back + horizon)
+    return w[:, :look_back].astype(np.float32), w[:, look_back:].astype(np.float32)
+
+
 def split_windows(windows: np.ndarray, train_frac=0.7, val_frac=0.1):
     """Chronological split along the window axis (no leakage)."""
     n = windows.shape[1]

@@ -52,6 +52,23 @@ def _probs(q, k, causal, window, kv_len):
     return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30), qf, scale
 
 
+def attention_ref(q, k, v, *, causal=True, window=None):
+    """The reference's oracle (``repro.kernels.flash_attention.ref``):
+    dense GQA softmax attention with masked scores set to ``NEG_INF``
+    before the softmax, so a row with no valid key averages every value
+    where :func:`flash_attention_ref` gives 0. q: (B, Sq, H, hd); k, v:
+    (B, Skv, KV, hd). Returns (B, Sq, H, hd) in q.dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.to(torch.float32)) / math.sqrt(hd)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window, kv_len=None,
+                          device=q.device)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=None, kv_len=None):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0.
     Returns (B, Sq, H, hd) in q.dtype."""

@@ -132,25 +132,33 @@ def build_prefill_step(cfg: ModelConfig, device=DEFAULT_DEVICE, mesh=None):
     return _on_mesh(api.prefill, mesh), api, _serve_rules(mesh)
 
 
-def build_serve_step(cfg: ModelConfig, device=DEFAULT_DEVICE, mesh=None):
+def build_serve_step(cfg: ModelConfig, device=DEFAULT_DEVICE, mesh=None,
+                     rule_overrides: dict | None = None):
     """Returns ``(fn, api, rules)`` where ``fn(params, cache, token, pos) ->
     (logits, cache)`` decodes one token, the cache updated in place (the
     reference donates it); with ``mesh``, over DTensors laid out by
     ``rules``, the serve rules on it (None without a mesh). Whether the
     cache splits its batch or its sequence is the inputs' layout, which
-    ``input_specs`` decides from the batch; the step is the same."""
+    ``input_specs`` decides from the batch; the step is the same.
+
+    ``rule_overrides={"embed": "data"}`` splits the weights over the data
+    AND model axes at serve time, as the reference's does: the batch-1
+    long-context shape, where the data axis would otherwise repeat every
+    matmul."""
     api = ModelApi(cfg, device)
-    return _on_mesh(api.decode_step, mesh), api, _serve_rules(mesh)
+    return (_on_mesh(api.decode_step, mesh), api,
+            _serve_rules(mesh, rule_overrides))
 
 
-def _serve_rules(mesh):
-    """The serve rules on a ``DeviceMesh`` (None without one)."""
+def _serve_rules(mesh, overrides=None):
+    """The serve rules on a ``DeviceMesh`` (None without one), then
+    ``overrides``."""
     if mesh is None:
         return None
     from repro_torch.launch.mesh import AbstractMesh
 
     abstract = AbstractMesh(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
-    return make_rules(abstract, "serve")
+    return make_rules(abstract, "serve", overrides=overrides)
 
 
 def sharded_train_inputs(cfg: ModelConfig, shape: InputShape, rules: ShardingRules,

@@ -73,6 +73,14 @@ def rms_norm(x, scale, eps=1e-6):
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
 def norm_spec(d):
     return {"scale": ArraySpec((d,), ("act_embed",), init="ones")}
 

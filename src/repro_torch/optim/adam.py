@@ -72,7 +72,10 @@ class Adam:
         for g in pt.leaves(grads):
             total = total + torch.sum(torch.square(g.to(torch.float32)))
         gnorm = torch.sqrt(total)
-        return torch.clamp(gnorm.new_tensor(self.grad_clip)
+        # the clip made on the device (no host copy, so a step captures in
+        # a CUDA graph) and divided, as the reference divides: not the
+        # reciprocal times the clip that ``float / tensor`` computes
+        return torch.clamp(torch.full_like(gnorm, self.grad_clip)
                            / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     def _bias_corrections(self, t):

@@ -65,29 +65,57 @@ def test_dtw_pairs_is_the_textbook_recursion():
         np.testing.assert_allclose(got[p], dp[9, 9], rtol=1e-6)
 
 
-def test_run_experiment_matches_reference(tmp_path):
+EXPERIMENTS = {
+    # two DTW clusters of the quick ev task, one grid entry
+    "clusters": (dict(clusters=2, num_clients=12),
+                 dict(grid=(("psgf", {"use_pallas_mix": True}),), max_rounds=3,
+                      eval_every=2)),
+    # Tables II-III's grid ends: online and psgf_topk (the fused downlink on)
+    # over the pooled fleet, patience firing (the loop driver tests it after
+    # every round)
+    "policy_grid": (dict(clusters=0, num_clients=6),
+                    dict(grid=(("online", {"use_pallas_mix": True}),
+                               ("psgf_topk", {"share_ratio": 0.3, "forward_ratio": 0.2,
+                                              "use_pallas_mix": True})),
+                         max_rounds=8, eval_every=4, patience=2, driver="loop")),
+}
+# psgf_topk's masks are the top k of |global - client|, a step function of
+# float noise: from round 3 on, elements within ulps of the k-th largest
+# difference swap between the packages (their matmuls sum in other orders)
+# and the runs drift apart (RMSE 5.2e-5 relative after 4 rounds, seen), so
+# its RMSE is held to 1e-3 relative, not FL_PARITY_TOL; its counts, which
+# k fixes, stay exact. A round from the same state is bitwise
+# (test_torch_masks.py).
+TOPK_RMSE_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("case", sorted(EXPERIMENTS))
+def test_run_experiment_matches_reference(case, tmp_path):
     """Held against ``repro.core.tasks.run_experiment`` (scan driver): the
-    same DTW labels, rows and manifest clusters, two clusters of the quick
-    ``ev`` task at a tiny width, fresh init from the per-cluster key."""
-    jtask = JT.get_task("ev", quick=True, clusters=2, num_clients=12,
-                        num_days=120, look_back=16, min_cluster_clients=2)
-    ttask = TT.get_task("ev", quick=True, clusters=2, num_clients=12,
-                        num_days=120, look_back=16, min_cluster_clients=2)
+    same DTW labels, rows and manifest clusters at a tiny width, fresh init
+    from the per-cluster key."""
+    task_kw, spec_kw = EXPERIMENTS[case]
+    task_kw = dict(num_days=120, look_back=16, min_cluster_clients=2, **task_kw)
+    jtask = JT.get_task("ev", quick=True, **task_kw)
+    ttask = TT.get_task("ev", quick=True, **task_kw)
     jmodel = JT.task_forecaster(jtask, "logtst", **TINY)
     tmodel = get_forecaster("logtst", **TINY)
-    common = dict(grid=(("psgf", {"use_pallas_mix": True}),), max_rounds=3,
-                  eval_every=2, local_steps=2, batch_size=8, seed=5)
+    common = dict(local_steps=2, batch_size=8, seed=5, **spec_kw)
     jres = JT.run_experiment(JT.ExperimentSpec(task=jtask, model=jmodel, **common),
                              checkpoint_dir=str(tmp_path / "jax"))
     tres = TT.run_experiment(TT.ExperimentSpec(task=ttask, model=tmodel, **common),
                              checkpoint_dir=str(tmp_path / "torch"), device="cpu")
     assert tres["cluster_sizes"] == jres["cluster_sizes"]
     assert len(tres["rows"]) == len(jres["rows"]) == 2
+    if case == "policy_grid":
+        assert [r["policy"] for r in tres["rows"]] == ["online", "psgf_topk-s30"]
+        assert all(r["rounds"] < spec_kw["max_rounds"] for r in tres["rows"])
     for t, j in zip(tres["rows"], jres["rows"]):
         for k in ("policy", "cluster", "clients", "rounds", "comm_params",
                   "comm_bytes"):
             assert t[k] == j[k], k
-        np.testing.assert_allclose(t["rmse"], j["rmse"], rtol=TOL)
+        np.testing.assert_allclose(t["rmse"], j["rmse"], rtol=TOPK_RMSE_RTOL
+                                   if t["policy"].startswith("psgf_topk") else TOL)
     _, jman = JT.read_routing_manifest(str(tmp_path / "jax"))
     _, tman = TT.read_routing_manifest(str(tmp_path / "torch"))
     for k in ("station_cluster", "policies", "clusters", "model", "task"):

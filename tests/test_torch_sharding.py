@@ -33,10 +33,11 @@ MESHES = {"single": {"data": 16, "model": 16},
           "multi": {"pod": 2, "data": 16, "model": 16}}
 
 
-def _jax_specs(arch, mode, mesh):
-    """The reference's param specs {path: tuple} and dropped set."""
+def _jax_specs(arch, mode, mesh, rules=None):
+    """The reference's param specs {path: tuple} and dropped set (under
+    ``rules`` when given)."""
     api = JaxModelApi(jax_get_config(arch))
-    rules = jax_rules.make_rules(FakeMesh(mesh), mode)
+    rules = rules or jax_rules.make_rules(FakeMesh(mesh), mode)
     shapes = jax.tree_util.tree_map(lambda s: s.shape, api.abstract_params())
     specs = jax_rules.logical_to_spec(api.param_axes(), rules, shapes)
     flat = jax.tree_util.tree_flatten_with_path(
@@ -116,6 +117,34 @@ def test_serve_rules_no_fsdp():
     assert spec["w"] == (None, "model")
     got = logical_to_sharding({"w": ("embed", "mlp")}, rules, {"w": (4096, 14336)})
     assert got["w"] == ((None, "model"), (4096, 896))
+
+
+def test_serve_step_rule_overrides_match_reference():
+    """``build_serve_step(..., rule_overrides={"embed": "data"})``: the 2-D
+    serve-time weight split, the rule table and the param specs the
+    reference's ``build_serve_step`` makes on an abstract (2, 2) mesh."""
+    from repro.launch.steps import build_serve_step as jax_build_serve_step
+    from repro_torch.launch.steps import build_serve_step
+
+    class DeviceMeshShape:
+        """What ``build_serve_step`` reads of a ``DeviceMesh``."""
+        mesh_dim_names = ("data", "model")
+        shape = (2, 2)
+
+    arch = "qwen2-1.5b"
+    overrides = {"embed": "data"}
+    jmesh = jax.sharding.AbstractMesh((2, 2), ("data", "model"))
+    jrules = jax_build_serve_step(jax_get_config(arch), jmesh,
+                                  rule_overrides=overrides)[2]
+    _, api, rules = build_serve_step(get_config(arch), "meta", mesh=DeviceMeshShape(),
+                                     rule_overrides=overrides)
+    assert rules.table == jrules.table and rules.table["embed"] == "data"
+    assert build_serve_step(get_config(arch), "meta", mesh=DeviceMeshShape()
+                            )[2].table["embed"] is None
+    want, _ = _jax_specs(arch, "serve", None, rules=jrules)
+    specs = logical_to_spec(api.param_axes(), rules, api.abstract_params())
+    assert dict(pt.flatten_with_paths(
+        specs, is_leaf=lambda x: isinstance(x, tuple))) == want
 
 
 def test_fl_rules_follow_the_reference():
